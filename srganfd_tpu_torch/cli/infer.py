@@ -1,0 +1,263 @@
+"""Super-resolution inference CLI of the port (counterpart of
+``srganfd_tpu/cli/infer.py``, same flags and outputs).
+
+Builds the arch by name, loads weights, SRs one image and writes a PNG.
+Pass a DIRECTORY as ``--inputs-path`` to SR a frame sequence: frames are
+grouped by shape and batched (``--batch``).
+
+Usage:
+    python -m srganfd_tpu_torch.cli.infer --model-arch bsrgan_x2 \
+        --inputs-path in.png --output-path out.png [--weights g.pth]
+    python -m srganfd_tpu_torch.cli.infer --model-arch bsrgan_x2 \
+        --inputs-path frames/ --output-path sr_frames/ --batch 8 --half
+
+Runs on ``cuda`` unless ``--device-type cpu`` is given; asking for cuda
+without a visible GPU exits with an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import os
+import sys
+import time
+from typing import Callable
+
+import cv2
+import numpy as np
+import torch
+
+from srganfd_tpu_torch.convert import load_generator_weights
+from srganfd_tpu_torch.data.datasets import list_image_files, load_image_rgb
+from srganfd_tpu_torch.models import create_model
+
+# flags of the JAX CLIs whose parts are not ported yet -> the ROADMAP.md
+# item that ports them; using one is an error, never a silent no-op
+UNPORTED_FLAGS = {
+    "quant_int8": ("--quant-int8", "A10 (int8 PTQ serving)"),
+    "attn_chunk": ("--attn-chunk", "A7 (attention archs and flash attention)"),
+    "attn_backend": ("--attn-backend", "A7 (attention archs and flash attention)"),
+    "spatial_shard": ("--spatial-shard", "A11 (parallel modes)"),
+    "data_shard": ("--data-shard", "A11 (parallel modes)"),
+    "cp_backend": ("--cp-backend", "A11 (parallel modes)"),
+    "port": ("--port", "A6 (HTTP serving with the micro-batcher)"),
+}
+
+
+def reject_unported(args: argparse.Namespace) -> None:
+    for dest, (flag, item) in UNPORTED_FLAGS.items():
+        if getattr(args, dest, None):
+            raise SystemExit(f"{flag} is not ported to srganfd_tpu_torch yet: see ROADMAP.md {item}")
+
+
+def add_unported_flags(ap: argparse.ArgumentParser) -> None:
+    """The JAX CLIs' flags that this port rejects (see ``UNPORTED_FLAGS``)."""
+    ap.add_argument("--quant-int8", action="store_true", help="not ported yet")
+    ap.add_argument("--attn-chunk", type=int, default=0, help="not ported yet")
+    ap.add_argument("--attn-backend", choices=["chunked", "flash"], default=None,
+                    help="not ported yet")
+    ap.add_argument("--spatial-shard", action="store_true", help="not ported yet")
+    ap.add_argument("--cp-backend", choices=["ring", "ulysses"], default=None,
+                    help="not ported yet")
+
+
+def choice_device(device_type: str) -> torch.device:
+    """``cuda`` (the default of every entry point) or ``cpu``; asking for
+    cuda without a visible GPU exits instead of running on the CPU."""
+    if device_type == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit(
+            "--device-type cuda: no CUDA device is visible; "
+            "pass --device-type cpu to run on the CPU"
+        )
+    # cuDNN runs float32 convs in TF32 by default (about three decimal
+    # digits); the f32 path is held to the JAX f32 reference, so TF32 is
+    # off. bf16 convs do not read these flags.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def build_model(
+    arch: str,
+    device: torch.device,
+    weights: str = "",
+    use_ema: bool = False,
+    half: bool = False,
+    model_kwargs: dict | None = None,
+    seed: int = 0,
+) -> torch.nn.Module:
+    """The generator in eval mode on ``device``: weights from ``--weights``
+    (``.pth`` or Flax ``.npz``), else a seeded kaiming x0.1 init."""
+    model = create_model(
+        arch,
+        dtype=torch.bfloat16 if half else torch.float32,
+        generator=torch.Generator().manual_seed(seed),
+        **(model_kwargs or {}),
+    )
+    if weights:
+        model.load_state_dict(load_generator_weights(weights, use_ema=use_ema))
+    else:
+        print(
+            f"! no --weights given: using randomly initialized parameters (seed {seed})",
+            file=sys.stderr,
+        )
+    return model.to(device).eval().requires_grad_(False)
+
+
+def make_apply(model: torch.nn.Module, device: torch.device) -> Callable[[np.ndarray], np.ndarray]:
+    """numpy (N, H, W, 3) float32 -> numpy (N, sH, sW, 3) through ``model``."""
+
+    def apply(batch: np.ndarray) -> np.ndarray:
+        x = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(device)
+        with torch.inference_mode():
+            return model(x).cpu().numpy()
+
+    return apply
+
+
+def _image_hw(path: str) -> tuple[int, int]:
+    """(H, W) from the image header only, so grouping a long sequence by
+    shape does not decode every frame twice."""
+    try:
+        from PIL import Image
+
+        with Image.open(path) as im:
+            w, h = im.size
+        return (h, w)
+    except OSError:  # PIL cannot read the header: decode instead
+        img = cv2.imread(path)
+        if img is None:
+            raise ValueError(f"unreadable image: {path}")
+        return img.shape[:2]
+
+
+def _write_png(path: str, sr: np.ndarray) -> None:
+    sr8 = np.clip(sr * 255.0, 0, 255).astype(np.uint8)
+    cv2.imwrite(path, sr8[..., ::-1])
+
+
+def run_sequence(
+    model: torch.nn.Module,
+    paths: list[str],
+    out_dir: str,
+    batch: int = 8,
+    device: torch.device | str = "cuda",
+) -> dict:
+    """SR a frame sequence: grouped by shape, batched.
+
+    Ragged tails pad by repeating the last frame, so a group sees one
+    batch shape. Batches run one after another: decode, forward, copy
+    back, encode (the JAX CLI overlaps host and device work; here that
+    waits for a copy stream, ROADMAP.md A3). Returns
+    {"frames": n, "buckets": k}.
+    """
+    os.makedirs(out_dir, exist_ok=True)
+    by_shape: dict[tuple, list[str]] = collections.defaultdict(list)
+    for p in paths:
+        by_shape[_image_hw(p)].append(p)
+
+    frames = 0
+    with torch.inference_mode():
+        for _, group in sorted(by_shape.items()):
+            for start in range(0, len(group), batch):
+                chunk = group[start : start + batch]
+                imgs = [load_image_rgb(p) for p in chunk]
+                while len(imgs) < batch:
+                    imgs.append(imgs[-1])
+                sr = model(torch.from_numpy(np.stack(imgs)).to(device))[: len(chunk)]
+                for out_img, path in zip(sr.cpu().numpy(), chunk):
+                    _write_png(os.path.join(out_dir, os.path.basename(path)), out_img)
+                frames += len(chunk)
+    return {"frames": frames, "buckets": len(by_shape)}
+
+
+def _maybe_ensemble(run_one, img: np.ndarray, enabled: bool) -> np.ndarray:
+    """Run ``run_one`` directly or wrapped in the x8 self-ensemble."""
+    if not enabled:
+        return np.asarray(run_one(img))
+    from srganfd_tpu_torch.ops.self_ensemble import self_ensemble
+
+    return self_ensemble(run_one, img)
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser(description="srganfd_tpu_torch single-image inference")
+    ap.add_argument("--model-arch", "--model_arch_name", dest="arch", default="rrdbnet_x4")
+    ap.add_argument("--inputs-path", "--inputs_path", dest="inputs", required=True)
+    ap.add_argument("--output-path", "--output_path", dest="output", required=True)
+    ap.add_argument("--weights", "--model_weights_path", dest="weights", default="",
+                    help=".pth (tools/export_to_torch.py) or .npz of the Flax tree")
+    ap.add_argument("--use-ema", action="store_true",
+                    help="evaluate the EMA generator instead of the raw one")
+    ap.add_argument("--device-type", "--device_type", dest="device", default="cuda",
+                    choices=["cuda", "cpu"])
+    ap.add_argument("--tile", type=int, default=0,
+                    help="tile size for large-image tiled SR (0 = whole image)")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="frames per call when --inputs-path is a directory (sequence mode)")
+    ap.add_argument("--tile-overlap", type=int, default=16)
+    ap.add_argument("--half", action="store_true", help="bfloat16 compute")
+    ap.add_argument("--self-ensemble", action="store_true",
+                    help="x8 geometric self-ensemble (4 rotations x flip, averaged "
+                    "after inverse mapping), 8x the serving FLOPs")
+    ap.add_argument("--data-shard", action="store_true", help="not ported yet")
+    add_unported_flags(ap)
+    args = ap.parse_args(argv)
+    reject_unported(args)
+
+    device = choice_device(args.device)
+    model = build_model(args.arch, device, args.weights, args.use_ema, args.half)
+    apply_fn = make_apply(model, device)
+
+    if os.path.isdir(args.inputs):
+        frame_paths = list_image_files(args.inputs)
+        if not frame_paths:
+            raise SystemExit(f"no images found in {args.inputs}")
+        t0 = time.perf_counter()
+        if args.self_ensemble:
+            # each frame becomes two batch-4 calls (one per orientation);
+            # frame-level batching is superseded
+            from srganfd_tpu_torch.ops.self_ensemble import self_ensemble_batched
+
+            os.makedirs(args.output, exist_ok=True)
+            for p in frame_paths:
+                sr = self_ensemble_batched(apply_fn, load_image_rgb(p))
+                _write_png(os.path.join(args.output, os.path.basename(p)), sr)
+            dt = time.perf_counter() - t0
+            print(
+                f"SR'd {len(frame_paths)} frames (x8 self-ensemble) to "
+                f"{args.output} in {dt:.1f}s ({len(frame_paths) / dt:.2f} frames/s)"
+            )
+            return
+        stats = run_sequence(model, frame_paths, args.output, batch=args.batch, device=device)
+        dt = time.perf_counter() - t0
+        print(
+            f"SR'd {stats['frames']} frames ({stats['buckets']} shape bucket(s)) "
+            f"to {args.output} in {dt:.1f}s ({stats['frames'] / dt:.2f} frames/s)"
+        )
+        return
+
+    img = load_image_rgb(args.inputs)
+    if args.tile:
+        from srganfd_tpu_torch.parallel.tiled_inference import tiled_sr
+
+        def run_one(im):
+            return tiled_sr(apply_fn, im, model.upscale, tile=args.tile, overlap=args.tile_overlap)
+
+        sr = _maybe_ensemble(run_one, img, args.self_ensemble)
+    elif args.self_ensemble:
+        from srganfd_tpu_torch.ops.self_ensemble import self_ensemble_batched
+
+        sr = self_ensemble_batched(apply_fn, img)
+    else:
+        sr = apply_fn(img[None])[0]
+    os.makedirs(os.path.dirname(os.path.abspath(args.output)), exist_ok=True)
+    _write_png(args.output, sr)
+    print(f"SR image saved to {args.output} ({sr.shape[1]}x{sr.shape[0]})")
+
+
+if __name__ == "__main__":
+    main()

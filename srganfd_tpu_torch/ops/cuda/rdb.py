@@ -1,0 +1,154 @@
+"""Residual Dense Block forward: the hand-written CUDA kernel and its plain
+PyTorch version.
+
+Counterpart of ``srganfd_tpu/ops/pallas/rdb.py``. Both TPU entry points
+(``rdb_forward_pallas`` with H tiles, ``rdb_forward_pallas_v2`` with whole
+images per grid cell) compute one function; on Hopper one kernel,
+``csrc/rdb.cu``, serves both, so the tiling arguments are gone.
+
+- :func:`rdb_forward` launches the kernel for a CUDA tensor and takes the
+  plain version for a CPU tensor; any other device raises. There is no
+  fallback from a CUDA tensor to the plain version.
+- :func:`rdb_forward_ref` is the plain version, with the kernel's rounding
+  points (operands in x's dtype, f32 sums, ``out_k`` rounded to x's dtype,
+  ``y * 0.2 + x`` in f32).
+- ``launches`` counts kernel calls, one per RDB (the kernel itself makes
+  five CUDA launches, one per conv).
+
+Forward only: the serving path runs under ``torch.inference_mode()``, and
+a CUDA call that would need a gradient raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from srganfd_tpu_torch.ops.cuda.build import load_library
+
+__all__ = ["rdb_forward", "rdb_forward_ref", "pack_rdb_weights", "launches"]
+
+launches = 0  # rdb_forward kernel calls in this process; reset by assigning 0
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_lib: ctypes.CDLL | None = None
+
+
+def _conv_shapes(ch: int, gc: int) -> list[tuple[int, int, int, int]]:
+    return [(3, 3, ch + k * gc, gc if k < 4 else ch) for k in range(5)]
+
+
+def pack_rdb_weights(
+    kernels: list[torch.Tensor], biases: list[torch.Tensor], dtype: torch.dtype
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The five HWIO kernels as one flat tensor in the kernel's
+    ``[cin][3*3][cout]`` order and x's dtype, and the five biases as one
+    f32 tensor. Callers that run many times keep the result (see
+    ``models.blocks.ResidualDenseBlock``)."""
+    w = torch.cat([k.detach().permute(2, 0, 1, 3).reshape(-1) for k in kernels])
+    b = torch.cat([b.detach().reshape(-1) for b in biases])
+    return w.to(dtype).contiguous(), b.float().contiguous()
+
+
+def rdb_forward_ref(
+    x: torch.Tensor, kernels: list[torch.Tensor], biases: list[torch.Tensor]
+) -> torch.Tensor:
+    """Plain RDB forward. x: (N, H, W, ch); kernels[k]: (3, 3, ch + k*gc,
+    gc|ch) HWIO; biases to match. Returns (N, H, W, ch) in x's dtype."""
+    dt = x.dtype
+    x32 = x.float().permute(0, 3, 1, 2)
+    feats = [x32]
+    y = x32
+    for k in range(5):
+        w = kernels[k].to(dt).float().permute(3, 2, 0, 1)
+        y = F.conv2d(torch.cat(feats, 1), w, biases[k].float(), padding=1)
+        if k < 4:
+            feats.append(F.leaky_relu(y, 0.2).to(dt).float())
+    return (y * 0.2 + x32).to(dt).permute(0, 2, 3, 1)
+
+
+def _check(x, kernels, biases, w, b) -> tuple[int, int]:
+    if x.dim() != 4:
+        raise ValueError(f"x must be (N, H, W, ch), got shape {tuple(x.shape)}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"rdb kernel takes float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be contiguous NHWC and 16-byte aligned")
+    ch, gc = x.shape[-1], kernels[0].shape[-1]
+    if ch % 8 or gc % 8:
+        raise ValueError(f"rdb kernel needs ch and gc multiples of 8, got {ch}, {gc}")
+    if len(kernels) != 5 or len(biases) != 5:
+        raise ValueError("an RDB has five convs")
+    for k, (kern, bias, shape) in enumerate(zip(kernels, biases, _conv_shapes(ch, gc))):
+        if tuple(kern.shape) != shape or tuple(bias.shape) != (shape[-1],):
+            raise ValueError(
+                f"conv{k}: kernel {tuple(kern.shape)} / bias {tuple(bias.shape)}, "
+                f"expected {shape} / ({shape[-1]},)"
+            )
+    n_w = sum(s[0] * s[1] * s[2] * s[3] for s in _conv_shapes(ch, gc))
+    n_b = 4 * gc + ch
+    for name, t, dtype, numel in (("weights", w, x.dtype, n_w), ("biases", b, torch.float32, n_b)):
+        if t.device != x.device or t.dtype != dtype or t.numel() != numel or not t.is_contiguous():
+            raise ValueError(
+                f"packed {name}: {t.dtype}[{t.numel()}] on {t.device}, "
+                f"expected contiguous {dtype}[{numel}] on {x.device}"
+            )
+    if torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in (*kernels, *biases))
+    ):
+        raise RuntimeError(
+            "rdb_forward has no backward yet: run under torch.inference_mode() "
+            "(the training slice adds the autograd.Function)"
+        )
+    return ch, gc
+
+
+def rdb_forward(
+    x: torch.Tensor,
+    kernels: list[torch.Tensor],
+    biases: list[torch.Tensor],
+    packed: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """Fused RDB forward, the signature of ``rdb_forward_pallas`` without
+    the TPU tiling arguments. x: (N, H, W, ch) contiguous, f32 or bf16;
+    kernels HWIO. ``packed`` is :func:`pack_rdb_weights` of the same
+    weights, made once by the caller; without it the weights are packed
+    on every call."""
+    global launches
+    if x.device.type == "cpu":
+        return rdb_forward_ref(x, kernels, biases)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"rdb_forward runs on cuda or cpu tensors, got {x.device}")
+    w, b = packed if packed is not None else pack_rdb_weights(kernels, biases, x.dtype)
+    ch, gc = _check(x, kernels, biases, w, b)
+    n, h, wd, _ = x.shape
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    feat = torch.empty((n, h, wd, 4 * gc), dtype=x.dtype, device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.rdb_forward_cuda(
+            x.data_ptr(), feat.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+            n, h, wd, ch, gc, _DTYPE_CODES[x.dtype], stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"rdb_forward_cuda failed: {lib.rdb_error_string(rc).decode()} ({rc})")
+    launches += 1
+    return out
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = load_library("rdb")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rdb_forward_cuda.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.rdb_forward_cuda.restype = i
+        lib.rdb_error_string.argtypes = [i]
+        lib.rdb_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
