@@ -10,7 +10,7 @@ shapes and times it, then drives two serving paths end to end at full
 width, with seeded weights: ``bsrgan_x2`` (64 channels, growth 32, 23
 RRDBs) and ``bsrgantrans_x2`` (the same trunk, then 2 transformer layers
 of 4 heads and FFN 2048 over the H/2 x W/2 tokens, ``--attn-chunk 1024
---attn-backend flash``):
+--attn-backend flash``), and trains ``bsrgan_x2`` at full width:
 
 1. kernel phases: ``rdb_forward`` vs ``rdb_forward_ref`` and
    ``flash_attention`` vs ``flash_attention_ref``, in f32 and bf16,
@@ -30,7 +30,22 @@ of 4 heads and FFN 2048 over the H/2 x W/2 tokens, ``--attn-chunk 1024
    with the plain attention to hold the transformer layers and the whole
    model to it;
 5. ``bsrgantrans_x2`` infer: ``cli.infer --attn-chunk 1024 --attn-backend
-   flash --half --batch 2`` on a directory.
+   flash --half --batch 2`` on a directory;
+6. the filter2d kernel (the BSRGAN chain's blur) against ``filter2d_ref``
+   at the training shape (16, 320, 320, 3) with K = 25 and at ragged
+   shapes, with asymmetric kernels; CUDA-event times of the kernel, the
+   plain version and a cuDNN grouped convolution, beside the card's bound;
+7. the RDB under autograd: ``rdb_apply``'s gradients against autograd
+   through ``rdb_forward_ref`` at the training shape x (16, 72, 72, 64),
+   f32 and bf16, and the time of one forward+backward;
+8. training: ``cli.train.run_train`` on the ``bsrnet`` config unchanged
+   (full-width ``bsrgan_x2``, batch 16, pre-crop 320, GT 144, bf16) over
+   seeded synthetic frames, 2 epochs of 6 steps, then ``--resume auto``
+   for a third; every forward must make 69 RDB kernel calls and every
+   chain 2 filter2d kernel calls. Both checkpoints load as weights and
+   ``cli.infer --use-ema`` serves a frame from one. One f32 step is run
+   again with both kernels swapped for their plain versions, from the
+   same state and batch, to hold the step to them.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after.
@@ -358,12 +373,12 @@ def serve_phase(work: str, rdb, blocks) -> tuple[int, dict]:
         x = torch.from_numpy(load_image_rgb(frames[0])[None]).cuda()
         with torch.inference_mode():
             y_kernel = engine.model(x)
-            orig = blocks.rdb_forward
-            blocks.rdb_forward = lambda xh, k, b, packed=None: rdb.rdb_forward_ref(xh, k, b)
+            orig = blocks.rdb_apply
+            blocks.rdb_apply = lambda xh, k, b, packed=None: rdb.rdb_forward_ref(xh, k, b)
             try:
                 y_plain = engine.model(x)
             finally:
-                blocks.rdb_forward = orig
+                blocks.rdb_apply = orig
         err = (y_kernel - y_plain).abs().max().item()
         mse = ((y_kernel - y_plain) ** 2).mean().item()
         psnr = 10 * math.log10(1.0 / mse) if mse > 0 else float("inf")
@@ -557,13 +572,340 @@ def trans_infer_phase(work: str, weights: str, rdb, attn) -> dict:
     return calls
 
 
+# the bsrnet training step's shapes: a chain call per batch of 16 pre-crops
+# of 320x320, two blurs of K = 25; the generator's RDBs on 72x72 LR crops
+FILTER_SHAPE, FILTER_K = (16, 320, 320, 3), 25
+TRAIN_RDB_SHAPE = (16, 72, 72, CH)
+FILTERS_PER_CHAIN = 2
+TRAIN_STEPS_PER_EPOCH, TRAIN_EPOCHS = 6, 2
+TRAIN_FRAME = 360  # edge of the synthetic GT frames, above the 320 pre-crop
+
+
+def asymmetric_kernels(n: int, k: int, seed: int) -> torch.Tensor:
+    """Positive K x K kernels that sum to 1 with no symmetry, so that a
+    flipped kernel (a convolution) shows; the chain's Gaussians would not."""
+    g = torch.Generator().manual_seed(seed)
+    ks = torch.rand((n, k, k), generator=g)
+    return (ks / ks.sum(dim=(1, 2), keepdim=True)).cuda()
+
+
+def filter2d_kernel_phase(f2d) -> dict:
+    """filter2d vs filter2d_ref at the chain's shape and ragged ones, then
+    times at the chain's shape."""
+    import torch.nn.functional as F
+
+    err = 0.0
+    for i, (shape, k) in enumerate([(FILTER_SHAPE, FILTER_K), ((3, 37, 53, 3), 7),
+                                    ((3, 37, 53, 3), 25)]):
+        x = torch.rand(shape, generator=torch.Generator().manual_seed(200 + i)).cuda()
+        ks = asymmetric_kernels(shape[0], k, seed=300 + i)
+        got = f2d.filter2d(x, ks)
+        torch.cuda.synchronize()
+        want = f2d.filter2d_ref(x, ks)
+        e = (got - want).abs().max().item()
+        err = max(err, e)
+        print(f"filter2d {shape} K={k} f32: max abs {e:.3g} (|out| <= {want.abs().max().item():.3g})",
+              flush=True)
+        # the same f32 products, summed in another order; TF32 is off
+        check(e <= 1e-5, f"filter2d {shape} K={k}: max abs {e}")
+
+    x = torch.rand(FILTER_SHAPE, generator=torch.Generator().manual_seed(210)).cuda()
+    ks = asymmetric_kernels(FILTER_SHAPE[0], FILTER_K, seed=310)
+    n, h, w, c = FILTER_SHAPE
+    pad = FILTER_K // 2
+    # the library yardstick: one cuDNN f32 grouped convolution over the
+    # reflect-padded, batch-folded input (the literal form of the JAX
+    # filter2d_depthwise), laid out beforehand
+    xpad = F.pad(x.permute(0, 3, 1, 2).reshape(1, n * c, h, w), (pad,) * 4, mode="reflect")
+    weight = ks.repeat_interleave(c, dim=0)[:, None].contiguous()
+    with torch.inference_mode():
+        kernel_ms = cuda_ms(lambda: f2d.filter2d(x, ks))
+        plain_ms = cuda_ms(lambda: f2d.filter2d_ref(x, ks))
+        library_ms = cuda_ms(lambda: F.conv2d(xpad, weight, groups=n * c))
+    flops = 2 * n * h * w * c * FILTER_K * FILTER_K
+    bytes_moved = 4 * (2 * n * h * w * c + n * FILTER_K * FILTER_K)  # images in, out, taps
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, bytes_moved / PEAK_HBM_BYTES * 1e3
+    print(
+        f"filter2d timing at {FILTER_SHAPE} K={FILTER_K} f32: kernel {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, cuDNN grouped conv {library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+        f"({flops:.3e} FLOP at the f32 CUDA-core peak, {bytes_moved:.3e} B: {t_bytes:.4f} ms), "
+        f"{flops / kernel_ms / 1e9:.1f} TFLOP/s",
+        flush=True,
+    )
+    return {
+        "name": "filter2d",
+        "route": "cuda",
+        "source": "srganfd_tpu_torch/csrc/filter2d.cu",
+        "replaces": "srganfd_tpu/ops/pallas/filter2d.py:54",
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "shape": list(FILTER_SHAPE),
+        "k": FILTER_K,
+        "dtype": "float32",
+    }
+
+
+def rdb_grad_phase(rdb) -> dict:
+    """rdb_apply (kernel forward, backward through the recomputed plain
+    version) against plain autograd through rdb_forward_ref at the training
+    shape; then one forward+backward timed."""
+    out = {}
+    for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x, ks, bs = rdb_inputs(TRAIN_RDB_SHAPE, seed=400)
+        cot = torch.randn(TRAIN_RDB_SHAPE, generator=torch.Generator().manual_seed(401)).cuda().to(dt)
+        leaves = [x.to(dt).requires_grad_(), *[t.requires_grad_() for t in ks + bs]]
+        plain = [t.detach().clone().requires_grad_() for t in leaves]
+        before = rdb.launches
+        y = rdb.rdb_apply(leaves[0], leaves[1:6], leaves[6:])
+        check(rdb.launches == before + 1, "rdb_apply did not launch the kernel")
+        got = torch.autograd.grad(y, leaves, cot)
+        want = torch.autograd.grad(rdb.rdb_forward_ref(plain[0], plain[1:6], plain[6:]), plain, cot)
+        rel = max(((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+                  for g, w in zip(got, want))
+        print(f"rdb_apply {TRAIN_RDB_SHAPE} {name}: gradients vs autograd through the plain "
+              f"version, max relative {rel:.3g} (x, 5 kernels, 5 biases)", flush=True)
+        # both pull the cotangent through the same recomputed plain forward;
+        # only cuDNN's backward algorithms (their summation order) differ
+        check(rel <= (1e-4 if dt == torch.float32 else 1e-2), f"{name} rdb_apply gradients: {rel}")
+        out[f"grad_max_rel_err_{name}"] = rel
+
+        def fwd_bwd():
+            y = rdb.rdb_apply(leaves[0], leaves[1:6], leaves[6:])
+            torch.autograd.grad(y, leaves, cot)
+
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: rdb.rdb_apply(leaves[0], leaves[1:6], leaves[6:]), iters=10)
+            # what the backward recomputes first
+            plain_ms = cuda_ms(lambda: rdb.rdb_forward_ref(leaves[0], leaves[1:6], leaves[6:]), iters=10)
+        out[f"train_fwd_ms_{name}"] = fwd_ms
+        out[f"train_plain_fwd_ms_{name}"] = plain_ms
+        out[f"train_fwd_bwd_ms_{name}"] = cuda_ms(fwd_bwd, iters=5, warmup=1)
+        print(f"rdb_apply {TRAIN_RDB_SHAPE} {name}: kernel forward {fwd_ms:.4f} ms, the plain forward "
+              f"the backward recomputes {plain_ms:.4f} ms, forward+backward "
+              f"{out[f'train_fwd_bwd_ms_{name}']:.4f} ms", flush=True)
+    return out
+
+
+def write_gt_frames(d: str, n: int, size: int, seed: int) -> None:
+    """Smooth structure plus noise and a few sharp edges, so that blur and
+    JPEG both change the frames."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(d, exist_ok=True)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    for i in range(n):
+        f = rng.uniform(1, 6, 2)
+        base = 0.5 + 0.25 * np.sin(2 * np.pi * (f[0] * xx + f[1] * yy + rng.uniform()))
+        base += 0.15 * (((xx * 8 + yy * 3 + i) % 1.0) > 0.5)
+        img = np.clip(base[..., None] + 0.05 * rng.standard_normal((size, size, 3)), 0, 1)
+        cv2.imwrite(os.path.join(d, f"gt_{i:03d}.png"), (img * 255).astype(np.uint8))
+
+
+def f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters) -> dict:
+    """One full-width f32 bsrnet step from the seeded init on one host batch,
+    with both kernels and then with rdb_forward_ref and filter2d_ref swapped
+    in (a switch of this script only): the chain's LR, the loss and the
+    updated G must agree."""
+    from srganfd_tpu_torch.cli.degrade_adapter import DegradationAdapter
+    from srganfd_tpu_torch.train.loop import Trainer
+
+    cfg = cfg.replace(compute_dtype="float32")
+    runs = []
+    orig = blocks.rdb_apply, filters.filter2d
+    try:
+        for plain in (False, True):
+            if plain:
+                blocks.rdb_apply = lambda x, k, b, packed=None: rdb.rdb_forward_ref(x, k, b)
+                filters.filter2d = f2d.filter2d_ref
+            trainer = Trainer(cfg, steps_per_epoch=TRAIN_STEPS_PER_EPOCH, device="cuda")
+            state = trainer.init_state()
+            before = rdb.launches, f2d.launches
+            batch = DegradationAdapter(cfg, seed=cfg.seed, train=True, device="cuda")(host, 0)
+            loss = trainer.train_step(state, batch["gt"], batch["lr"])["pixel_loss"].item()
+            made = rdb.launches - before[0], f2d.launches - before[1]
+            check(made == ((0, 0) if plain else (RDB_PER_FORWARD, FILTERS_PER_CHAIN)),
+                  f"f32 step (plain={plain}) made {made} kernel calls")
+            runs.append((batch["lr"].clone(), loss,
+                         {k: v.detach().clone() for k, v in state.g_model.state_dict().items()}))
+            del trainer, state, batch
+    finally:
+        blocks.rdb_apply, filters.filter2d = orig
+    (lr_k, loss_k, g_k), (lr_p, loss_p, g_p) = runs
+    lr_err = (lr_k - lr_p).abs().max().item()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    g_rel = max(((g_k[k] - g_p[k]).abs().max() / g_p[k].abs().max().clamp_min(1e-12)).item() for k in g_p)
+    print(f"f32 bsrnet step, kernels vs plain versions: chain LR max abs {lr_err:.3g}, loss "
+          f"{loss_k:.7f} vs {loss_p:.7f} (relative {loss_rel:.3g}), updated G max relative {g_rel:.3g}",
+          flush=True)
+    check(lr_err <= 1e-5, f"f32 chain, filter2d kernel vs plain: {lr_err}")
+    check(loss_rel <= 1e-5 and g_rel <= 1e-5, f"f32 step vs plain: loss {loss_rel}, G {g_rel}")
+    return {"lr_max_abs": lr_err, "loss_rel": loss_rel, "g_max_rel": g_rel}
+
+
+def train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
+    """Full-width bsrnet through cli.train.run_train: 2 epochs, then a
+    resume for a third; returns the kernel calls it made and its numbers."""
+    from srganfd_tpu_torch import configs
+    from srganfd_tpu_torch.cli import infer
+    from srganfd_tpu_torch.cli import train as cli_train
+    from srganfd_tpu_torch.convert import load_generator_weights
+    from srganfd_tpu_torch.data.datasets import BatchLoader
+    from srganfd_tpu_torch.models import create_model
+    from srganfd_tpu_torch.ops.degrade import apply_bsrgan_batch_cropped, bsrgan_lr_size, plan_bsrgan_batch
+    from srganfd_tpu_torch.train.loop import Trainer
+
+    train_dir, valid_dir = os.path.join(work, "train_gt"), os.path.join(work, "valid_gt")
+    write_gt_frames(train_dir, 24, TRAIN_FRAME, seed=10)
+    write_gt_frames(valid_dir, 4, TRAIN_FRAME, seed=11)
+    cfg = configs.get_config("bsrnet").replace(
+        train_gt_images_dir=train_dir, valid_gt_images_dir=valid_dir,
+        results_dir=os.path.join(work, "results"),
+    )
+    print(f"bsrnet: {cfg.g_arch} {cfg.g_kwargs or 'full width (64/32/23)'}, batch {cfg.batch_size}, "
+          f"pre-crop {cfg.crop_image_size}, GT {cfg.gt_image_size}, {cfg.compute_dtype}, Adam eps "
+          f"{cfg.model_eps}", flush=True)
+
+    losses, steps = [], []  # steps: (step index, host clock at entry, at end)
+    real_step = Trainer.train_step
+
+    def recorded_step(self, state, gt, lr_img):
+        entry = time.perf_counter()
+        index = state.step
+        metrics = real_step(self, state, gt, lr_img)
+        losses.append(metrics["g_loss"].item())  # waits for the step
+        steps.append((index, entry, time.perf_counter()))
+        return metrics
+
+    Trainer.train_step = recorded_step
+    torch.cuda.reset_peak_memory_stats()
+    rdb.launches = f2d.launches = 0
+    try:
+        run_s = []
+        for epochs, resume in ((TRAIN_EPOCHS, ""), (TRAIN_EPOCHS + 1, "auto")):
+            t0 = time.perf_counter()
+            result = cli_train.run_train(cfg.replace(epochs=epochs), TRAIN_STEPS_PER_EPOCH,
+                                         resume=resume, device="cuda")
+            torch.cuda.synchronize()
+            run_s.append(time.perf_counter() - t0)
+    finally:
+        Trainer.train_step = real_step
+    calls = {"rdb": rdb.launches, "filter2d": f2d.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_steps = TRAIN_STEPS_PER_EPOCH * (TRAIN_EPOCHS + 1)
+    n_valid = TRAIN_EPOCHS + 1  # one batch of the 4 valid frames per epoch
+    check(len(losses) == n_steps, f"{len(losses)} train steps, expected {n_steps}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
+    check(calls == {"rdb": RDB_PER_FORWARD * (n_steps + n_valid),
+                    "filter2d": FILTERS_PER_CHAIN * (n_steps + n_valid)},
+          f"training made {calls} kernel calls for {n_steps} steps and {n_valid} validation batches")
+    state = result["state"]
+    check(state.step == n_steps, f"resumed run ended at step {state.step}")
+
+    init = create_model(cfg.g_arch, generator=torch.Generator().manual_seed(cfg.seed)).state_dict()
+    g = {k: v.detach().cpu() for k, v in state.g_model.state_dict().items()}
+    ema = {k: v.cpu() for k, v in state.ema_g.items()}
+    g_moved = max((g[k] - init[k]).abs().max().item() for k in init)
+    ema_moved = max((ema[k] - init[k]).abs().max().item() for k in init)
+    g_vs_ema = max((g[k] - ema[k]).abs().max().item() for k in init)
+    check(g_moved > 0 and ema_moved > 0 and g_vs_ema > 0,
+          f"G moved {g_moved}, EMA-G moved {ema_moved}, G vs EMA-G {g_vs_ema}")
+    ckpt_dir = os.path.join(cfg.results_dir, cfg.exp_name)
+    for name in ("ckpt_last.pth", "ckpt_best.pth"):
+        for use_ema in (False, True):
+            sd = load_generator_weights(os.path.join(ckpt_dir, name), use_ema=use_ema)
+            check(set(sd) == set(init), f"{name} (use_ema={use_ema}) holds other tensors")
+    last_g = load_generator_weights(os.path.join(ckpt_dir, "ckpt_last.pth"))
+    check(all(torch.equal(last_g[k], g[k]) for k in g), "ckpt_last.pth is not the final G")
+
+    # host clock: the interval between the ends of consecutive steps of one
+    # epoch (the loader, the plan, the chain and the step: the throughput),
+    # and the time inside train_step (the step, and the chain queued before
+    # it); the first step of the first run against the p50 of the others
+    intervals = [(b[2] - a[2]) * 1e3 for a, b in zip(steps, steps[1:])
+                 if b[0] == a[0] + 1 and b[0] % TRAIN_STEPS_PER_EPOCH]
+    inside = [(end - entry) * 1e3 for _, entry, end in steps]
+    step_p50 = float(np.median(intervals))
+    first_excess = float(inside[0] - np.median(inside[1:]))
+    print(f"bsrnet training: losses {[round(v, 5) for v in losses]}", flush=True)
+    print(f"bsrnet training: {n_steps} steps + {n_valid} validation batches in "
+          f"{[round(t, 2) for t in run_s]} s; step p50 {step_p50:.2f} ms host clock over "
+          f"{len(intervals)} steps ({cfg.batch_size * 1e3 / step_p50:.2f} frames/s), inside "
+          f"train_step p50 {np.median(inside[1:]):.2f} ms, the first step +{first_excess:.1f} ms; "
+          f"peak memory {peak_gb:.2f} GB; {calls} kernel calls (per forward "
+          f"{calls['rdb'] // (n_steps + n_valid)} rdb_forward, per chain "
+          f"{calls['filter2d'] // (n_steps + n_valid)} filter2d)", flush=True)
+
+    # where a step's time goes, on the card (CUDA events), on the trained state
+    loader = BatchLoader(cli_train.build_datasets(cfg)[0], cfg.batch_size, seed=cfg.seed,
+                         num_workers=2)
+    it = iter(loader)
+    host = next(it)
+    it.close()
+    gt_dev = torch.from_numpy(host["gt"]).cuda()
+    plan = plan_bsrgan_batch(np.random.default_rng(0), cfg.batch_size, cfg.upscale_factor)
+    lim = bsrgan_lr_size(gt_dev.shape[1], plan) - cfg.gt_image_size // cfg.upscale_factor
+    tops = np.random.default_rng(1).integers(0, lim + 1, cfg.batch_size)
+    chain = lambda: apply_bsrgan_batch_cropped(gt_dev, plan, tops, tops, cfg.gt_image_size,
+                                               cfg.upscale_factor)
+    gt_c, lr_c = chain()
+    model = state.g_model
+
+    def fwd_bwd():
+        loss = (model(lr_c) - gt_c).abs().mean()
+        loss.backward()
+
+    breakdown = {
+        "chain_ms": cuda_ms(chain, iters=5, warmup=1),
+        "forward_ms": cuda_ms(lambda: model(lr_c), iters=5, warmup=1),
+        "forward_backward_ms": cuda_ms(fwd_bwd, iters=3, warmup=1),
+    }
+    trainer = Trainer(cfg, TRAIN_STEPS_PER_EPOCH, device="cuda")
+    breakdown["train_step_ms"] = cuda_ms(lambda: real_step(trainer, state, gt_c, lr_c), iters=3, warmup=1)
+    print(f"bsrnet step breakdown on the card (CUDA events, {cfg.compute_dtype}, batch "
+          f"{cfg.batch_size}): chain "
+          f"{breakdown['chain_ms']:.2f} ms, generator forward {breakdown['forward_ms']:.2f} ms, "
+          f"forward+backward {breakdown['forward_backward_ms']:.2f} ms, whole train step "
+          f"(forward, backward, Adam, EMA) {breakdown['train_step_ms']:.2f} ms", flush=True)
+    del model, state, result, trainer
+
+    f32 = f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters)
+
+    out_png = os.path.join(work, "train_sr.png")
+    rdb.launches = 0
+    infer.main(["--model-arch", cfg.g_arch, "--weights", os.path.join(ckpt_dir, "ckpt_best.pth"),
+                "--use-ema", "--inputs-path", os.path.join(valid_dir, "gt_000.png"),
+                "--output-path", out_png])
+    import cv2
+
+    img = cv2.imread(out_png)
+    want = (2 * TRAIN_FRAME, 2 * TRAIN_FRAME, 3)
+    check(img is not None and img.shape == want, f"infer of the trained EMA-G: {img is None or img.shape}")
+    check(rdb.launches == RDB_PER_FORWARD, f"infer of the trained EMA-G: {rdb.launches} rdb calls")
+    print(f"cli.infer --use-ema on ckpt_best.pth: {TRAIN_FRAME}x{TRAIN_FRAME} -> "
+          f"{img.shape[1]}x{img.shape[0]}", flush=True)
+    numbers = {
+        "steps": n_steps, "validation_batches": n_valid, "losses": losses,
+        "step_ms_p50": step_p50, "inside_step_ms_p50": float(np.median(inside[1:])),
+        "frames_per_s": cfg.batch_size * 1e3 / step_p50, "first_step_excess_ms": first_excess,
+        "peak_memory_gb": peak_gb, "run_s": run_s, **breakdown, "f32_step_vs_plain": f32,
+    }
+    return calls, numbers
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     sys.path.insert(0, ROOT)
     from srganfd_tpu_torch.models import blocks
+    from srganfd_tpu_torch.ops import filters
     from srganfd_tpu_torch.ops.cuda import attention as attn
     from srganfd_tpu_torch.ops.cuda import build, rdb
+    from srganfd_tpu_torch.ops.cuda import filter2d as f2d
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -582,6 +924,8 @@ def main() -> None:
 
     entry = kernel_phase(rdb)
     flash_entry = flash_kernel_phase(attn)
+    filter_entry = filter2d_kernel_phase(f2d)
+    entry.update(rdb_grad_phase(rdb))
     base = os.path.join(ROOT, "build")
     os.makedirs(base, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=base) as work:
@@ -591,7 +935,8 @@ def main() -> None:
         trans_launches, trans_forward_ms, transformer_ms = trans_serve_phase(
             work, weights, rdb, attn, blocks)
         trans_infer = trans_infer_phase(work, weights, rdb, attn)
-    launches += trans_launches["rdb"] + trans_infer["rdb"]
+        train_launches, train = train_phase(work, rdb, f2d, blocks, filters)
+    launches += trans_launches["rdb"] + trans_infer["rdb"] + train_launches["rdb"]
     flash_launches = trans_launches["flash"] + trans_infer["flash"]
     check(launches > 0, "the main paths launched no rdb_forward kernel")
     check(flash_launches > 0, "the bsrgantrans_x2 path launched no flash_attention kernel")
@@ -602,6 +947,11 @@ def main() -> None:
     flash_entry["launches_per_forward"] = ATTN_PER_FORWARD
     flash_entry["forward_ms"] = trans_forward_ms  # bsrgantrans_x2 at 256x256, whole generator
     flash_entry["transformer_ms"] = transformer_ms  # its two encoder layers
+    check(train_launches["filter2d"] > 0, "the training path launched no filter2d kernel")
+    entry["train_launches"] = train_launches["rdb"]
+    filter_entry["launches"] = train_launches["filter2d"]
+    filter_entry["launches_per_chain"] = FILTERS_PER_CHAIN
+    filter_entry["chain_ms"] = train["chain_ms"]  # the whole chain of one bsrnet step
     print(f"bsrgan_x2 256x256 forward: f32 {forward_ms['f32']:.2f} ms, bf16 {forward_ms['bf16']:.2f} ms; "
           f"69 RDB kernels alone: f32 {RDB_PER_FORWARD * entry['kernel_f32_ms']:.2f} ms, "
           f"bf16 {RDB_PER_FORWARD * entry['kernel_ms']:.2f} ms", flush=True)
@@ -610,8 +960,15 @@ def main() -> None:
               f"{RDB_PER_FORWARD * entry[key]:.2f} ms, 2 flash kernels "
               f"{ATTN_PER_FORWARD * flash_entry[key]:.2f} ms, 2 transformer layers "
               f"{transformer_ms[tag]:.2f} ms", flush=True)
+    print(f"bsrnet step (bf16, batch 16): {train['train_step_ms']:.2f} ms on the card, of which the "
+          f"forward {train['forward_ms']:.2f} ms (69 RDB kernels at {TRAIN_RDB_SHAPE} alone "
+          f"{RDB_PER_FORWARD * entry['train_fwd_ms_bf16']:.2f} ms) and forward+backward "
+          f"{train['forward_backward_ms']:.2f} ms; the chain {train['chain_ms']:.2f} ms (2 filter2d "
+          f"kernels {FILTERS_PER_CHAIN * filter_entry['ms']:.2f} ms); host-clock step p50 "
+          f"{train['step_ms_p50']:.2f} ms", flush=True)
+    print(json.dumps({"train": {k: v for k, v in train.items() if k != "losses"}}))
     print(smi)
-    print(json.dumps({"kernels": [entry, flash_entry]}))
+    print(json.dumps({"kernels": [entry, flash_entry, filter_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

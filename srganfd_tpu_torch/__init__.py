@@ -9,9 +9,10 @@ the CPU.
 
 Ported so far: the RRDB generator family (``rrdbnet_x*``, ``bsrgan_x*``,
 ``bsrgansa_x2``) and the transformer-bottleneck ``bsrgantrans_x2``, served
-through ``cli.serve`` (stdio and watch transports) and ``cli.infer``; the
-RDB and flash-attention kernels (``csrc/rdb.cu``,
-``csrc/flash_attention.cu``).
+through ``cli.serve`` (stdio and watch transports) and ``cli.infer``;
+training of ``bsrgan_x2`` through ``cli.train --config bsrnet`` with the
+BSRGAN degradation chain; the RDB, flash-attention and filter2d kernels
+(``csrc/rdb.cu``, ``csrc/flash_attention.cu``, ``csrc/filter2d.cu``).
 """
 
 __version__ = "0.1.0"

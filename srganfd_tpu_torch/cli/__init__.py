@@ -1,1 +1,1 @@
-"""Command-line entry points of the port: ``infer`` and ``serve``."""
+"""Command-line entry points of the port: ``infer``, ``serve`` and ``train``."""

@@ -297,12 +297,14 @@ def load_generator_weights(path: str, use_ema: bool = False) -> dict[str, torch.
     """Reference-named generator state dict from
 
     - a ``.pth``/``.pt``: ``{"state_dict": ...}`` as ``tools/export_to_torch.py``
-      writes it, or a bare state dict;
+      writes it, a checkpoint of ``cli.train`` (``state_dict`` and
+      ``ema_state_dict``), or a bare state dict;
     - a ``.npz`` of the Flax tree with '/'-joined key paths, either the
       generator's params or a state holding ``g_params``/``ema_g_params``.
 
-    ``use_ema`` picks ``ema_g_params`` where the file holds both; a file
-    that holds one set of weights cannot honour it and raises.
+    ``use_ema`` picks ``ema_g_params`` (``ema_state_dict``) where the file
+    holds both; a file that holds one set of weights cannot honour it and
+    raises.
     """
     if os.path.isdir(path):
         raise ValueError(
@@ -318,10 +320,12 @@ def load_generator_weights(path: str, use_ema: bool = False) -> dict[str, torch.
         elif use_ema:
             raise ValueError(f"--use-ema: {path} holds no ema_g_params")
         return {k: torch.from_numpy(v) for k, v in flax_to_state_dict(tree).items()}
-    if use_ema:
-        raise ValueError(
-            f"--use-ema: {path} holds one set of weights; export the EMA one with "
-            "`tools/export_to_torch.py --key ema_g_params`"
-        )
     payload = torch.load(path, map_location="cpu", weights_only=True)
+    if use_ema:
+        if "ema_state_dict" not in payload:
+            raise ValueError(
+                f"--use-ema: {path} holds one set of weights; export the EMA one with "
+                "`tools/export_to_torch.py --key ema_g_params`"
+            )
+        return payload["ema_state_dict"]
     return payload.get("state_dict", payload)

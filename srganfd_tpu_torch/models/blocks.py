@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from srganfd_tpu_torch.ops.cuda.attention import flash_attention, flash_attention_ref
-from srganfd_tpu_torch.ops.cuda.rdb import pack_rdb_weights, rdb_forward
+from srganfd_tpu_torch.ops.cuda.rdb import pack_rdb_weights, rdb_apply
 
 __all__ = [
     "lrelu", "Conv", "ResidualDenseBlock", "RRDB", "make_trunk", "init_kaiming_x01",
@@ -65,9 +65,10 @@ def init_kaiming_x01(module: nn.Module, generator: torch.Generator | None = None
 
 class ResidualDenseBlock(nn.Module):
     """5-conv dense block, LeakyReLU(0.2), 0.2-scaled residual
-    (ESRGAN/model.py:29-60), through ``ops/cuda/rdb.py`` ``rdb_forward``:
+    (ESRGAN/model.py:29-60), through ``ops/cuda/rdb.py`` ``rdb_apply``:
     the hand-written kernel on a CUDA tensor, the plain version on a CPU
-    tensor; both take any H x W."""
+    tensor, both taking any H x W; gradients through the plain version,
+    recomputed."""
 
     def __init__(self, channels: int, growth_channels: int) -> None:
         super().__init__()
@@ -97,7 +98,7 @@ class ResidualDenseBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         packed = self.packed(x.dtype) if x.is_cuda else None  # the CPU path takes HWIO
-        y = rdb_forward(x.permute(0, 2, 3, 1).contiguous(), *self.kernels_biases(), packed=packed)
+        y = rdb_apply(x.permute(0, 2, 3, 1).contiguous(), *self.kernels_biases(), packed=packed)
         return y.permute(0, 3, 1, 2)
 
 

@@ -12,11 +12,15 @@ images per grid cell) compute one function; on Hopper one kernel,
 - :func:`rdb_forward_ref` is the plain version, with the kernel's rounding
   points (operands in x's dtype, f32 sums, ``out_k`` rounded to x's dtype,
   ``y * 0.2 + x`` in f32).
+- :func:`rdb_apply` is the trainable RDB, a ``torch.autograd.Function``
+  (the counterpart of the JAX ``rdb_apply`` custom VJP): its forward is
+  :func:`rdb_forward`, the kernel on a CUDA tensor; it saves only x and
+  the weights, and its backward recomputes :func:`rdb_forward_ref` and
+  pulls the cotangent through it, as ``_rdb_apply_bwd``
+  (``ops/pallas/rdb.py:163-166``) does through ``_rdb_xla``. The JAX
+  package has no backward kernel, so neither has the port.
 - ``launches`` counts kernel calls, one per RDB (the kernel itself makes
   five CUDA launches, one per conv).
-
-Forward only: the serving path runs under ``torch.inference_mode()``, and
-a CUDA call that would need a gradient raises.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch.nn.functional as F
 
 from srganfd_tpu_torch.ops.cuda.build import load_library
 
-__all__ = ["rdb_forward", "rdb_forward_ref", "pack_rdb_weights", "launches"]
+__all__ = ["rdb_forward", "rdb_forward_ref", "rdb_apply", "pack_rdb_weights", "launches"]
 
 launches = 0  # rdb_forward kernel calls in this process; reset by assigning 0
 
@@ -95,13 +99,6 @@ def _check(x, kernels, biases, w, b) -> tuple[int, int]:
                 f"packed {name}: {t.dtype}[{t.numel()}] on {t.device}, "
                 f"expected contiguous {dtype}[{numel}] on {x.device}"
             )
-    if torch.is_grad_enabled() and (
-        x.requires_grad or any(t.requires_grad for t in (*kernels, *biases))
-    ):
-        raise RuntimeError(
-            "rdb_forward has no backward yet: run under torch.inference_mode() "
-            "(the training slice adds the autograd.Function)"
-        )
     return ch, gc
 
 
@@ -115,8 +112,14 @@ def rdb_forward(
     the TPU tiling arguments. x: (N, H, W, ch) contiguous, f32 or bf16;
     kernels HWIO. ``packed`` is :func:`pack_rdb_weights` of the same
     weights, made once by the caller; without it the weights are packed
-    on every call."""
+    on every call. The inference entry point; where grad mode is on and an
+    input requires grad it goes through :func:`rdb_apply`, so the result
+    is never silently cut from the graph."""
     global launches
+    if torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in (*kernels, *biases))
+    ):
+        return rdb_apply(x, kernels, biases, packed)
     if x.device.type == "cpu":
         return rdb_forward_ref(x, kernels, biases)
     if x.device.type != "cuda":
@@ -139,6 +142,41 @@ def rdb_forward(
         raise RuntimeError(f"rdb_forward_cuda failed: {lib.rdb_error_string(rc).decode()} ({rc})")
     launches += 1
     return out
+
+
+class _RdbApply(torch.autograd.Function):
+    """Kernel forward, backward by recomputing the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, packed, *params):
+        ctx.save_for_backward(x, *params)
+        return rdb_forward(x, list(params[:5]), list(params[5:]), packed)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, *params = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip([x, *params], ctx.needs_input_grad[:1] + ctx.needs_input_grad[2:])]
+            y = rdb_forward_ref(inputs[0], inputs[1:6], inputs[6:])
+            wanted = [t for t in inputs if t.requires_grad]
+            got = iter(torch.autograd.grad(y, wanted, grad) if wanted else ())
+        grads = [next(got) if t.requires_grad else None for t in inputs]
+        return grads[0], None, *grads[1:]
+
+
+def rdb_apply(
+    x: torch.Tensor,
+    kernels: list[torch.Tensor],
+    biases: list[torch.Tensor],
+    packed: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """Trainable fused RDB, the arguments of :func:`rdb_forward`: the kernel
+    (or, on the CPU, the plain version) forward; gradients for x, the five
+    HWIO kernels and the five biases through the plain version, recomputed
+    with the forward's rounding points (operands and ``out_k`` in x's
+    dtype, f32 sums)."""
+    return _RdbApply.apply(x, packed, *kernels, *biases)
 
 
 def _library() -> ctypes.CDLL:

@@ -1,4 +1,5 @@
-"""The port's kernels on the card (RDB, flash attention). Every test here carries the ``cuda``
+"""The port's kernels on the card (RDB, flash attention, filter2d), the RDB
+under autograd and one training step. Every test here carries the ``cuda``
 marker and skips without a CUDA device: a hand-written CUDA kernel has no
 CPU mode. On a machine with an NVIDIA GPU (sm_90a) and nvcc, run from the
 root of the checkout:
@@ -17,6 +18,7 @@ import torch
 
 from srganfd_tpu_torch.models import create_model
 from srganfd_tpu_torch.ops.cuda import attention as attn_mod
+from srganfd_tpu_torch.ops.cuda import filter2d as f2d_mod
 from srganfd_tpu_torch.ops.cuda import rdb as rdb_mod
 
 pytestmark = pytest.mark.cuda
@@ -83,8 +85,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     x12, ks12, bs12 = _inputs((1, 8, 8, 12), 8, seed=3, device=cuda)
     with pytest.raises(ValueError, match="multiples of 8"):
         rdb_mod.rdb_forward(x12, ks12, bs12)
-    with pytest.raises(RuntimeError, match="no backward"):
-        rdb_mod.rdb_forward(x.clone().requires_grad_(), ks, bs)
     assert rdb_mod.launches == before
 
 
@@ -215,3 +215,119 @@ def test_bsrgantrans_on_cuda_matches_cpu(cuda):
     assert rdb_mod.launches == rdb_before + 3
     assert attn_mod.launches == attn_before + 2
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rdb_apply_gradients_on_the_card(cuda, dtype):
+    """The kernel forward under autograd: one launch, and the gradients of
+    x, the kernels and the biases equal autograd through the plain version
+    up to cuDNN's summation order (its backward convolutions may pick
+    other algorithms from call to call)."""
+    x, ks, bs = _inputs((2, 12, 10, 16), 8, seed=5, device=cuda)
+    cot = torch.randn(x.shape, generator=torch.Generator().manual_seed(6)).to(cuda, dtype)
+    leaves = [x.to(dtype).requires_grad_(), *[t.clone().requires_grad_() for t in ks + bs]]
+    plain = [t.detach().clone().requires_grad_() for t in leaves]
+    before = rdb_mod.launches
+    y = rdb_mod.rdb_apply(leaves[0], leaves[1:6], leaves[6:])
+    assert rdb_mod.launches == before + 1
+    got = torch.autograd.grad(y, leaves, cot)
+    y_ref = rdb_mod.rdb_forward_ref(plain[0], plain[1:6], plain[6:])
+    want = torch.autograd.grad(y_ref, plain, cot)
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=1e-5 if dtype == torch.float32 else 1.6e-2,
+                               rtol=1e-5 if dtype == torch.float32 else 1.6e-2)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        assert (g.float() - w.float()).abs().max() <= tol * w.float().abs().max()
+
+
+@pytest.mark.parametrize(
+    "shape,k",
+    [((2, 37, 53, 3), 25), ((3, 20, 24, 3), 7), ((2, 13, 30, 3), 25), ((1, 40, 70, 5), 31),
+     ((2, 9, 11, 3), 1), ((16, 64, 64, 3), 25)],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else f"k{v}",
+)
+def test_filter2d_kernel_matches_plain_version(cuda, shape, k):
+    """Asymmetric kernels (a flipped kernel fails), ragged tiles, C = 5
+    (two channel passes), pads reaching deep into narrow edges."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.rand(shape, generator=g).to(cuda)
+    ks = torch.rand((shape[0], k, k), generator=g)
+    ks = (ks / ks.sum(dim=(1, 2), keepdim=True)).to(cuda)
+    before = f2d_mod.launches
+    got = f2d_mod.filter2d(x, ks)
+    torch.cuda.synchronize()
+    assert f2d_mod.launches == before + 1
+    assert got.shape == x.shape and got.dtype == torch.float32
+    torch.testing.assert_close(got, f2d_mod.filter2d_ref(x, ks), atol=1e-5, rtol=0)
+
+
+def test_filter2d_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
+    def refuse(*args):
+        raise AssertionError("a CUDA tensor reached filter2d_ref")
+
+    monkeypatch.setattr(f2d_mod, "filter2d_ref", refuse)
+    x = torch.rand((1, 16, 16, 3), device=cuda)
+    assert torch.isfinite(f2d_mod.filter2d(x, torch.rand((1, 5, 5), device=cuda))).all()
+
+
+def test_filter2d_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.rand((1, 40, 40, 3), device=cuda)
+    before = f2d_mod.launches
+    with pytest.raises(TypeError, match="float32"):
+        f2d_mod.filter2d(x.double(), torch.rand((1, 5, 5), device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="K <= 31"):
+        f2d_mod.filter2d(x, torch.rand((1, 33, 33), device=cuda))
+    with pytest.raises(ValueError, match="K odd"):
+        f2d_mod.filter2d(x, torch.rand((1, 4, 4), device=cuda))
+    assert f2d_mod.launches == before
+
+
+def test_filter2d_failed_launch_raises(cuda, monkeypatch):
+    class FailingLibrary:
+        def filter2d_cuda(self, *args):
+            return 9  # cudaErrorInvalidConfiguration
+
+        def filter2d_error_string(self, code):
+            return b"invalid configuration argument"
+
+    monkeypatch.setattr(f2d_mod, "_library", FailingLibrary)
+    before = f2d_mod.launches
+    with pytest.raises(RuntimeError, match="invalid configuration"):
+        f2d_mod.filter2d(torch.rand((1, 8, 8, 3), device=cuda), torch.rand((1, 3, 3), device=cuda))
+    assert f2d_mod.launches == before
+
+
+def test_train_step_with_kernels_matches_plain_versions(cuda, monkeypatch):
+    """One f32 bsrnet step at small widths, once with the RDB and filter2d
+    kernels and once with their plain versions, from the same state and
+    batch: the same loss and the same updated G."""
+    import numpy as np
+
+    from srganfd_tpu_torch import configs
+    from srganfd_tpu_torch.cli.degrade_adapter import DegradationAdapter
+    from srganfd_tpu_torch.models import blocks
+    from srganfd_tpu_torch.ops import filters
+    from srganfd_tpu_torch.train.loop import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_config("bsrnet", compute_dtype="float32", gt_image_size=32,
+                             g_kwargs={"channels": 16, "growth_channels": 8, "num_rrdb": 2})
+    host = {"gt": np.random.default_rng(8).uniform(size=(2, 64, 64, 3)).astype(np.float32)}
+    results = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(blocks, "rdb_apply",
+                                lambda x, k, b, packed=None: rdb_mod.rdb_forward_ref(x, k, b))
+            monkeypatch.setattr(filters, "filter2d", f2d_mod.filter2d_ref)
+        trainer = Trainer(cfg, device=cuda)
+        state = trainer.init_state()
+        launches = (rdb_mod.launches, f2d_mod.launches)
+        batch = DegradationAdapter(cfg, seed=0, train=True, device=cuda)(host, 0)
+        loss = trainer.train_step(state, batch["gt"], batch["lr"])["pixel_loss"].item()
+        made = (rdb_mod.launches - launches[0], f2d_mod.launches - launches[1])
+        assert made == ((0, 0) if plain else (6, 2))
+        results.append((loss, {k: v.detach().cpu() for k, v in state.g_model.state_dict().items()}))
+    (loss_k, g_k), (loss_p, g_p) = results
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    for k in g_p:
+        torch.testing.assert_close(g_k[k], g_p[k], atol=1e-7, rtol=1e-5)

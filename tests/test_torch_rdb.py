@@ -107,6 +107,87 @@ def test_rdb_forward_refuses_other_devices():
         rdb_mod.rdb_forward(t(x).to("meta"), [t(k) for k in ks], [t(b) for b in bs])
 
 
+def _leaves(x, kernels, biases, dtype=torch.float32):
+    t = torch.from_numpy
+    return [t(x).to(dtype).requires_grad_(), *[t(k).requires_grad_() for k in kernels],
+            *[t(b).requires_grad_() for b in biases]]
+
+
+def test_rdb_apply_gradients_match_jax():
+    """d/d(x, kernels, biases) of sum(y * c), against ``jax.grad`` through
+    the JAX ``rdb_apply`` (Pallas forward in interpret mode, XLA backward of
+    the recomputed block)."""
+    import functools
+
+    import jax
+
+    from srganfd_tpu.ops.pallas import rdb as jax_rdb
+
+    x, ks, bs = _inputs((2, 16, 12, CH), seed=6)
+    cot = np.random.default_rng(7).normal(size=x.shape).astype(np.float32)
+    leaves = _leaves(x, ks, bs)
+    y = rdb_mod.rdb_apply(leaves[0], leaves[1:6], leaves[6:])
+    got = torch.autograd.grad(y, leaves, torch.from_numpy(cot))
+
+    orig = jax_rdb.rdb_forward_pallas
+    jax_rdb.rdb_forward_pallas = functools.partial(orig, interpret=True)
+    try:
+        def loss(x_in, kernels, biases):
+            return jnp.sum(jax_rdb.rdb_apply(x_in, kernels, biases, 8) * cot)
+
+        want = jax.grad(loss, argnums=(0, 1, 2))(
+            jnp.asarray(x), tuple(map(jnp.asarray, ks)), tuple(map(jnp.asarray, bs)))
+    finally:
+        jax_rdb.rdb_forward_pallas = orig
+    want = [want[0], *want[1], *want[2]]
+    names = ["x"] + [f"kernel{k}" for k in range(5)] + [f"bias{k}" for k in range(5)]
+    for name, g, w in zip(names, got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rdb_apply_backward_is_autograd_through_the_plain_version(dtype):
+    """On the CPU the Function's backward (recompute, then pull the
+    cotangent through) is plain autograd through ``rdb_forward_ref``,
+    bit for bit, with the forward's rounding points in bf16 too."""
+    x, ks, bs = _inputs((1, 9, 11, CH), seed=8)
+    cot = torch.from_numpy(np.random.default_rng(9).normal(size=x.shape).astype(np.float32)).to(dtype)
+    a, b = _leaves(x, ks, bs, dtype), _leaves(x, ks, bs, dtype)
+    ya = rdb_mod.rdb_apply(a[0], a[1:6], a[6:])
+    yb = rdb_mod.rdb_forward_ref(b[0], b[1:6], b[6:])
+    assert torch.equal(ya, yb) and ya.dtype == dtype
+    for ga, gb in zip(torch.autograd.grad(ya, a, cot), torch.autograd.grad(yb, b, cot)):
+        assert torch.equal(ga, gb)
+
+
+def test_rdb_forward_under_grad_goes_through_rdb_apply():
+    """``rdb_forward`` with an input that needs a gradient is never cut from
+    the graph: it routes through the Function."""
+    x, ks, bs = _inputs((1, 6, 7, CH), seed=10)
+    leaves = _leaves(x, ks, bs)
+    y = rdb_mod.rdb_forward(leaves[0], leaves[1:6], leaves[6:])
+    assert y.grad_fn is not None and "RdbApply" in type(y.grad_fn).__name__
+    y.sum().backward()
+    assert all(t.grad is not None and t.grad.abs().sum() > 0 for t in leaves)
+
+
+def test_block_trains_and_repacks_after_each_optimizer_step():
+    """Gradients reach all ten parameters of a block, and an in-place Adam
+    update (the multi-tensor form, as on the card) changes the key of the
+    packed-weight cache, so the kernel never runs on stale weights."""
+    block = ResidualDenseBlock(CH, GC)
+    x = torch.randn(2, CH, 6, 5, generator=torch.Generator().manual_seed(11))
+    x = x.contiguous(memory_format=torch.channels_last)
+    block(x).square().mean().backward()
+    params = list(block.parameters())
+    assert len(params) == 10 and all(p.grad is not None and p.grad.abs().sum() > 0 for p in params)
+    block.packed(torch.float32)
+    key = block._packed[0]
+    torch.optim.Adam(block.parameters(), lr=1e-3, foreach=True).step()
+    block.packed(torch.float32)
+    assert block._packed[0] != key
+
+
 def test_pack_rdb_weights_layout():
     """The packed buffer is each HWIO kernel in [cin][3*3][cout] order, in
     x's dtype; biases stay f32."""
