@@ -13,11 +13,16 @@ of 4 heads and FFN 2048 over the H/2 x W/2 tokens, ``--attn-chunk 1024
 --attn-backend flash``), and trains ``bsrgan_x2`` at full width:
 
 1. kernel phases: ``rdb_forward`` vs ``rdb_forward_ref`` and
-   ``flash_attention`` vs ``flash_attention_ref``, in f32 and bf16,
-   including ragged shapes; CUDA-event times of each kernel, its plain
-   version and one library call that the port never makes (a bf16 cuDNN
-   5-conv chain; ``scaled_dot_product_attention``) at the serving shapes,
-   x (1, 256, 256, 64) and q (1, 16384, 4, 16), beside the card's bound;
+   ``flash_attention`` vs ``flash_attention_ref``, in f32 (the CUDA-core
+   kernels) and bf16 (the tensor-core kernels), including ragged shapes
+   at the edges of the bf16 kernels' tiles (RDB (16, 72, 72, 64),
+   (3, 17, 23, 64) and cin with a half-filled 16-channel step; flash
+   T in {1, 15, 17, 63, 65, 129} at D = 16 and 32); CUDA-event times of
+   each kernel, its plain version and one library call that the port
+   never makes (a bf16 cuDNN 5-conv chain; ``scaled_dot_product_attention``)
+   at the serving shapes, x (1, 256, 256, 64) and q (1, 16384, 4, 16), and
+   of the RDB at the training shape, beside the card's bound, with TFLOP/s
+   and the share of the bound;
 2. ``bsrgan_x2`` serving: ``ServingEngine`` over ``serve_stdio`` (4
    requests of 256x256, f32 then bf16), a ``--batch 2`` watch ``--once``
    drain and a 250x190 frame; every reply must be ok at the right size and
@@ -97,7 +102,7 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def rdb_inputs(shape, seed: int):
+def rdb_inputs(shape, seed: int, gc: int = GC):
     """x and kaiming-normal RDB weights (gain sqrt(2), no x0.1, so outputs
     are O(1) and a rounding slip shows), made on the CPU from a seed."""
     g = torch.Generator().manual_seed(seed)
@@ -105,7 +110,7 @@ def rdb_inputs(shape, seed: int):
     x = torch.randn(shape, generator=g)
     kernels, biases = [], []
     for k in range(5):
-        cin, cout = ch + k * GC, GC if k < 4 else ch
+        cin, cout = ch + k * gc, gc if k < 4 else ch
         kernels.append(torch.randn(3, 3, cin, cout, generator=g) * math.sqrt(2.0 / (9 * cin)))
         biases.append(torch.randn(cout, generator=g) * 0.1)
     dev = lambda t: t.cuda()
@@ -142,12 +147,24 @@ def cudnn_chain(x, kernels, biases):
     return run
 
 
+def rdb_flops(shape, gc: int = GC) -> int:
+    n, h, w, ch = shape
+    return 2 * n * h * w * sum(9 * (ch + k * gc) * (gc if k < 4 else ch) for k in range(5))
+
+
 def kernel_phase(rdb) -> dict:
-    """rdb_forward vs rdb_forward_ref at the main path's shapes, then times."""
+    """rdb_forward vs rdb_forward_ref at the main paths' shapes and at the
+    edges of the bf16 kernel's tiles (16x8 pixels, 16-channel steps), then
+    times."""
     errs = {"float32": 0.0, "bfloat16": 0.0}
-    cases = [(2, 64, 64, CH), (1, 37, 53, CH), SERVE_SHAPE, (2, 256, 256, CH), (1, 250, 190, CH)]
-    for i, shape in enumerate(cases):
-        x, ks, bs = rdb_inputs(shape, seed=i)
+    # (shape, gc): the serving shapes, the training shape (72 rows: a
+    # ragged last row tile), tiles ragged in both axes, and ch = 24 / 40
+    # (cin 24, 40, 56, ...: a half-filled last 16-channel step)
+    cases = [((2, 64, 64, CH), GC), ((1, 37, 53, CH), GC), (SERVE_SHAPE, GC), ((2, 256, 256, CH), GC),
+             ((1, 250, 190, CH), GC), (TRAIN_RDB_SHAPE, GC), ((3, 17, 23, CH), GC),
+             ((2, 37, 53, 24), 16), ((1, 20, 33, 40), 8)]
+    for i, (shape, gc) in enumerate(cases):
+        x, ks, bs = rdb_inputs(shape, seed=i, gc=gc)
         for dt in (torch.float32, torch.bfloat16):
             xd = x.to(dt)
             got = rdb.rdb_forward(xd, ks, bs).float()
@@ -157,7 +174,7 @@ def kernel_phase(rdb) -> dict:
             max_err, mean_err = diff.max().item(), diff.mean().item()
             name = "float32" if dt == torch.float32 else "bfloat16"
             errs[name] = max(errs[name], max_err)
-            print(f"rdb {shape} {dt}: max abs {max_err:.3g}, mean abs {mean_err:.3g}", flush=True)
+            print(f"rdb {shape} gc={gc} {dt}: max abs {max_err:.3g}, mean abs {mean_err:.3g}", flush=True)
             if dt == torch.float32:
                 # same f32 operands, sums in another order; TF32 is off
                 check(torch.allclose(got, want, atol=1e-4, rtol=0), f"f32 rdb {shape}: {max_err}")
@@ -185,25 +202,48 @@ def kernel_phase(rdb) -> dict:
         kernel_f32_ms = cuda_ms(lambda: rdb.rdb_forward(x, ks, bs, packed_f))
         plain_ms = cuda_ms(lambda: rdb.rdb_forward_ref(xb, ks, bs))
         library_ms = cuda_ms(cudnn_chain(xb, ks, bs))
+    # the training shape, and what its ragged last row tile costs: 72 rows
+    # take 5 tiles of 16 where 64 rows take 4
+    train = {}
+    for shape in (TRAIN_RDB_SHAPE, (16, 64, 72, CH)):
+        xt, kt, bt = rdb_inputs(shape, seed=101)
+        xt = xt.to(torch.bfloat16)
+        pt = rdb.pack_rdb_weights(kt, bt, torch.bfloat16)
+        with torch.inference_mode():
+            train[shape] = (cuda_ms(lambda: rdb.rdb_forward(xt, kt, bt, pt)), cuda_ms(cudnn_chain(xt, kt, bt)))
+    train_ms, train_library_ms = train[TRAIN_RDB_SHAPE]
+    ragged_ms = train_ms - train[(16, 64, 72, CH)][0] * 72 / 64
     n, h, w, ch = SERVE_SHAPE
-    mac_per_px = sum(9 * (ch + k * GC) * (GC if k < 4 else ch) for k in range(5))
-    flops = 2 * n * h * w * mac_per_px
+    flops = rdb_flops(SERVE_SHAPE)
     # x read once, output written once, weights (bf16) and biases (f32) read once
     bytes_moved = 2 * (2 * n * h * w * ch) + 2 * packed_b[0].numel() + 4 * packed_b[1].numel()
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, bytes_moved / PEAK_HBM_BYTES * 1e3
     # the f32 path: f32 x, output and weights, and the f32 rate of the CUDA cores
     bytes_f32 = 4 * (2 * n * h * w * ch) + 4 * packed_f[0].numel() + 4 * packed_f[1].numel()
     bound_f32_ms = max(flops / PEAK_F32_FLOPS, bytes_f32 / PEAK_HBM_BYTES) * 1e3
+    bound = max(t_ops, t_bytes)
     print(
         f"rdb timing at x {SERVE_SHAPE} bf16: kernel {kernel_ms:.4f} ms (f32 {kernel_f32_ms:.4f}), "
         f"plain {plain_ms:.4f} ms, cuDNN bf16 chain {library_ms:.4f} ms, "
-        f"bound {max(t_ops, t_bytes):.4f} ms ({flops:.3e} FLOP, {bytes_moved:.3e} B; "
-        f"f32 bound {bound_f32_ms:.4f} ms), {flops / kernel_ms / 1e9:.1f} TFLOP/s",
+        f"bound {bound:.4f} ms ({flops:.3e} FLOP, {bytes_moved:.3e} B; "
+        f"f32 bound {bound_f32_ms:.4f} ms); bf16 {flops / kernel_ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * bound / kernel_ms:.1f}% of its bound; f32 {flops / kernel_f32_ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * bound_f32_ms / kernel_f32_ms:.1f}% of its bound",
+        flush=True,
+    )
+    train_flops = rdb_flops(TRAIN_RDB_SHAPE)
+    print(
+        f"rdb timing at x {TRAIN_RDB_SHAPE} bf16: kernel {train_ms:.4f} ms "
+        f"({train_flops / train_ms / 1e9:.1f} TFLOP/s, {100 * train_flops / PEAK_BF16_FLOPS * 1e3 / train_ms:.1f}% "
+        f"of the operations bound), cuDNN bf16 chain {train_library_ms:.4f} ms; at (16, 64, 72, {CH}) "
+        f"{train[(16, 64, 72, CH)][0]:.4f} ms, so the ragged last row tile costs {ragged_ms:.4f} ms",
         flush=True,
     )
     return {
         "name": "rdb_forward",
         "route": "cuda",
+        "design": "bf16: tensor cores (implicit GEMM, mma.sync.m16n8k16 bf16->f32, ldmatrix from the "
+                  "shifted halo window, cp.async double buffer); f32: CUDA cores (direct conv, f32 FMA)",
         "source": "srganfd_tpu_torch/csrc/rdb.cu",
         "replaces": "srganfd_tpu/ops/pallas/rdb.py:331",
         "also_replaces": "srganfd_tpu/ops/pallas/rdb.py:254",
@@ -216,9 +256,17 @@ def kernel_phase(rdb) -> dict:
         "kernel_f32_ms": kernel_f32_ms,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
-        "bound_ms": max(t_ops, t_bytes),
+        "bound_ms": bound,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "bound_f32_ms": bound_f32_ms,
+        "tflops": flops / kernel_ms / 1e9,
+        "share_of_bound": bound / kernel_ms,
+        "tflops_f32": flops / kernel_f32_ms / 1e9,
+        "share_of_bound_f32": bound_f32_ms / kernel_f32_ms,
+        "train_shape": list(TRAIN_RDB_SHAPE),
+        "train_kernel_ms": train_ms,
+        "train_library_ms": train_library_ms,
+        "train_ragged_tile_ms": ragged_ms,
         "shape": list(SERVE_SHAPE),
         "dtype": "bfloat16",
     }
@@ -238,6 +286,9 @@ def flash_kernel_phase(attn) -> dict:
 
     errs = {"float32": 0.0, "bfloat16": 0.0}
     cases = [(n, t, 4, d) for d in (16, 32) for t in (100, 333, 16384, 11875) for n in (1, 2)]
+    # the edges of the bf16 kernel's tiles: 64 queries a block, 16 a warp,
+    # 64 keys a staged tile
+    cases += [(2, t, 4, d) for d in (16, 32) for t in (1, 15, 17, 63, 65, 129)]
     for i, shape in enumerate(cases):
         q, k, v = flash_inputs(shape, seed=i)
         for dt in (torch.float32, torch.bfloat16):
@@ -290,12 +341,17 @@ def flash_kernel_phase(attn) -> dict:
         f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, "
         f"bound {bound:.4f} ms (products {t_mm:.4f} ms for {flops:.3e} FLOP, exponentials "
         f"{t_exp:.4f} ms for {exps:.3e}, bytes {t_bytes:.4f} ms for {bytes_moved:.3e} B; "
-        f"f32 bound {bound_f32_ms:.4f} ms), {flops / kernel_ms / 1e9:.1f} TFLOP/s",
+        f"f32 bound {bound_f32_ms:.4f} ms); bf16 {flops / kernel_ms / 1e9:.1f} TFLOP/s of products, "
+        f"{100 * bound / kernel_ms:.1f}% of its bound; f32 {flops / kernel_f32_ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * bound_f32_ms / kernel_f32_ms:.1f}% of its bound",
         flush=True,
     )
     return {
         "name": "flash_attention",
         "route": "cuda",
+        "design": "bf16: tensor cores (FlashAttention-2 style, mma.sync.m16n8k16 for QK^T and PV with P "
+                  "split into bf16 hi + lo, ldmatrix(.trans), cp.async double buffer); f32: CUDA cores "
+                  "(one query row per thread, f32 FMA)",
         "source": "srganfd_tpu_torch/csrc/flash_attention.cu",
         "replaces": "srganfd_tpu/ops/pallas/attention.py:95",
         "max_abs_err": max(errs.values()),
@@ -314,6 +370,10 @@ def flash_kernel_phase(attn) -> dict:
         "bound_exponentials_ms": t_exp,
         "bound_bytes_ms": t_bytes,
         "bound_f32_ms": bound_f32_ms,
+        "tflops": flops / kernel_ms / 1e9,
+        "share_of_bound": bound / kernel_ms,
+        "tflops_f32": flops / kernel_f32_ms / 1e9,
+        "share_of_bound_f32": bound_f32_ms / kernel_f32_ms,
         "shape": list(FLASH_SHAPE),
         "dtype": "bfloat16",
     }
@@ -635,6 +695,7 @@ def filter2d_kernel_phase(f2d) -> dict:
     return {
         "name": "filter2d",
         "route": "cuda",
+        "design": "f32: CUDA cores (direct reflect-101 stencil, f32 FMA)",
         "source": "srganfd_tpu_torch/csrc/filter2d.cu",
         "replaces": "srganfd_tpu/ops/pallas/filter2d.py:54",
         "max_abs_err": err,
@@ -643,6 +704,8 @@ def filter2d_kernel_phase(f2d) -> dict:
         "library_ms": library_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "tflops": flops / kernel_ms / 1e9,
+        "share_of_bound": max(t_ops, t_bytes) / kernel_ms,
         "shape": list(FILTER_SHAPE),
         "k": FILTER_K,
         "dtype": "float32",
@@ -684,7 +747,8 @@ def rdb_grad_phase(rdb) -> dict:
         out[f"train_fwd_ms_{name}"] = fwd_ms
         out[f"train_plain_fwd_ms_{name}"] = plain_ms
         out[f"train_fwd_bwd_ms_{name}"] = cuda_ms(fwd_bwd, iters=5, warmup=1)
-        print(f"rdb_apply {TRAIN_RDB_SHAPE} {name}: kernel forward {fwd_ms:.4f} ms, the plain forward "
+        print(f"rdb_apply {TRAIN_RDB_SHAPE} {name}: forward (packing the weights, then the kernel) "
+              f"{fwd_ms:.4f} ms, the plain forward "
               f"the backward recomputes {plain_ms:.4f} ms, forward+backward "
               f"{out[f'train_fwd_bwd_ms_{name}']:.4f} ms", flush=True)
     return out
@@ -962,7 +1026,7 @@ def main() -> None:
               f"{transformer_ms[tag]:.2f} ms", flush=True)
     print(f"bsrnet step (bf16, batch 16): {train['train_step_ms']:.2f} ms on the card, of which the "
           f"forward {train['forward_ms']:.2f} ms (69 RDB kernels at {TRAIN_RDB_SHAPE} alone "
-          f"{RDB_PER_FORWARD * entry['train_fwd_ms_bf16']:.2f} ms) and forward+backward "
+          f"{RDB_PER_FORWARD * entry['train_kernel_ms']:.2f} ms) and forward+backward "
           f"{train['forward_backward_ms']:.2f} ms; the chain {train['chain_ms']:.2f} ms (2 filter2d "
           f"kernels {FILTERS_PER_CHAIN * filter_entry['ms']:.2f} ms); host-clock step p50 "
           f"{train['step_ms_p50']:.2f} ms", flush=True)

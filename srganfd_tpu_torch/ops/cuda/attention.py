@@ -6,7 +6,9 @@ Counterpart of ``srganfd_tpu/ops/pallas/attention.py``. The TPU kernel
 the K blocks on a sequential grid axis; on Hopper ``csrc/flash_attention.cu``
 computes the same function with a loop over K tiles inside each block,
 reads (N, T, H, D) through strides and masks the ragged tiles itself, so
-the block sizes and the padding copies are gone.
+the block sizes and the padding copies are gone. The kernel is chosen by
+dtype: bf16 runs on the tensor cores (``mma.sync``, P split into two bf16
+halves), f32 on the CUDA cores.
 
 - :func:`flash_attention` launches the kernel for a CUDA tensor and takes
   the plain version for a CPU tensor; any other device raises. There is no
@@ -75,6 +77,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous along D, got strides {t.stride()}")
+        # the bf16 kernel moves rows with 16-byte copies; a stride of a
+        # size-1 axis is never used
+        if q.dtype == torch.bfloat16 and (
+            t.data_ptr() % 16
+            or any(st % 8 for st, size in zip(t.stride()[:3], t.shape[:3]) if size > 1)
+        ):
+            raise ValueError(
+                f"bf16 {name} rows must be 16-byte aligned: data_ptr % 16 = "
+                f"{t.data_ptr() % 16}, element strides {t.stride()}"
+            )
 
 
 def _check_no_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

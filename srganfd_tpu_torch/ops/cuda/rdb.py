@@ -3,8 +3,10 @@ PyTorch version.
 
 Counterpart of ``srganfd_tpu/ops/pallas/rdb.py``. Both TPU entry points
 (``rdb_forward_pallas`` with H tiles, ``rdb_forward_pallas_v2`` with whole
-images per grid cell) compute one function; on Hopper one kernel,
-``csrc/rdb.cu``, serves both, so the tiling arguments are gone.
+images per grid cell) compute one function; on Hopper one source,
+``csrc/rdb.cu``, serves both, so the tiling arguments are gone. Its conv
+kernel is chosen by x's dtype: bf16 runs on the tensor cores (an implicit
+GEMM over ``mma.sync``), f32 on the CUDA cores.
 
 - :func:`rdb_forward` launches the kernel for a CUDA tensor and takes the
   plain version for a CPU tensor; any other device raises. There is no
@@ -44,16 +46,44 @@ def _conv_shapes(ch: int, gc: int) -> list[tuple[int, int, int, int]]:
     return [(3, 3, ch + k * gc, gc if k < 4 else ch) for k in range(5)]
 
 
+_CHUNK = 16  # input channels per tensor-core k-step of the bf16 kernel
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _pack_one(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One HWIO kernel in the order its conv reads it: ``[cin][3*3][cout]``
+    for the f32 (CUDA-core) kernel; for the bf16 (tensor-core) kernel
+    ``[cin/16][3*3][cout][16]``, the B fragments' order, with cin and cout
+    zero-padded to multiples of 16 (a half-filled last chunk reads zeros)."""
+    k = kernel.detach()
+    if dtype != torch.bfloat16:
+        return k.permute(2, 0, 1, 3).reshape(-1).to(dtype)
+    cin, cout = k.shape[2], k.shape[3]
+    cin_p, cout_p = _round_up(cin, _CHUNK), _round_up(cout, _CHUNK)
+    k = F.pad(k.to(dtype), (0, cout_p - cout, 0, cin_p - cin))
+    return k.reshape(9, cin_p // _CHUNK, _CHUNK, cout_p).permute(1, 0, 3, 2).reshape(-1)
+
+
+def _packed_numel(ch: int, gc: int, dtype: torch.dtype) -> int:
+    shapes = _conv_shapes(ch, gc)
+    if dtype != torch.bfloat16:
+        return sum(9 * cin * cout for _, _, cin, cout in shapes)
+    return sum(9 * _round_up(cin, _CHUNK) * _round_up(cout, _CHUNK) for _, _, cin, cout in shapes)
+
+
 def pack_rdb_weights(
     kernels: list[torch.Tensor], biases: list[torch.Tensor], dtype: torch.dtype
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The five HWIO kernels as one flat tensor in the kernel's
-    ``[cin][3*3][cout]`` order and x's dtype, and the five biases as one
-    f32 tensor. Callers that run many times keep the result (see
-    ``models.blocks.ResidualDenseBlock``)."""
-    w = torch.cat([k.detach().permute(2, 0, 1, 3).reshape(-1) for k in kernels])
+    """The five HWIO kernels as one flat tensor in x's dtype, each in the
+    order the kernel for that dtype reads it (see :func:`_pack_one`), and
+    the five biases as one f32 tensor. Callers that run many times keep the
+    result (see ``models.blocks.ResidualDenseBlock``)."""
+    w = torch.cat([_pack_one(k, dtype) for k in kernels])
     b = torch.cat([b.detach().reshape(-1) for b in biases])
-    return w.to(dtype).contiguous(), b.float().contiguous()
+    return w.contiguous(), b.float().contiguous()
 
 
 def rdb_forward_ref(
@@ -91,7 +121,7 @@ def _check(x, kernels, biases, w, b) -> tuple[int, int]:
                 f"conv{k}: kernel {tuple(kern.shape)} / bias {tuple(bias.shape)}, "
                 f"expected {shape} / ({shape[-1]},)"
             )
-    n_w = sum(s[0] * s[1] * s[2] * s[3] for s in _conv_shapes(ch, gc))
+    n_w = _packed_numel(ch, gc, x.dtype)
     n_b = 4 * gc + ch
     for name, t, dtype, numel in (("weights", w, x.dtype, n_w), ("biases", b, torch.float32, n_b)):
         if t.device != x.device or t.dtype != dtype or t.numel() != numel or not t.is_contiguous():

@@ -46,9 +46,16 @@ def _inputs(shape, gc, seed, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape,gc", [((2, 9, 13, 16), 8), ((1, 20, 33, 24), 16)],
-                         ids=["ch16", "ch24"])
+@pytest.mark.parametrize(
+    "shape,gc",
+    [((2, 9, 13, 16), 8), ((1, 20, 33, 24), 16), ((16, 72, 72, 64), 32), ((3, 17, 23, 64), 32),
+     ((2, 37, 53, 24), 16), ((1, 20, 33, 40), 8)],
+    ids=["ch16", "ch24", "train72", "ragged17x23", "cin24_half_step", "cin40_half_step"],
+)
 def test_kernel_matches_plain_version(cuda, shape, gc, dtype):
+    """Small widths, and the bf16 tensor-core kernel's edges: 72 rows (a
+    ragged last 16-row tile), tiles ragged in both axes, and cin = 24, 40,
+    ... (a half-filled last 16-channel step)."""
     x, ks, bs = _inputs(shape, gc, seed=0, device=cuda)
     x = x.to(dtype)
     before = rdb_mod.launches
@@ -63,6 +70,7 @@ def test_kernel_matches_plain_version(cuda, shape, gc, dtype):
     else:
         # one bf16 ulp at |y| ~ 2: an out_k rounded the other way
         torch.testing.assert_close(got.float(), want.float(), atol=1.6e-2, rtol=1.6e-2)
+        assert (got.float() - want.float()).abs().mean() <= 1e-3
 
 
 def test_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
@@ -130,8 +138,13 @@ def _qkv(shape, seed, device, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(2, 100, 4, 16), (1, 333, 8, 32), (1, 128, 2, 16), (3, 1, 1, 32)],
-                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize(
+    "shape",
+    [(2, 100, 4, 16), (1, 333, 8, 32), (1, 128, 2, 16), (3, 1, 1, 32)]
+    # the bf16 kernel's edges: 16 queries a warp, 64 a block, 64 keys a tile
+    + [(2, t, 4, d) for d in (16, 32) for t in (1, 15, 17, 63, 65, 129)],
+    ids=lambda s: "x".join(map(str, s)),
+)
 def test_flash_kernel_matches_plain_version(cuda, shape, dtype):
     q, k, v = _qkv(shape, 0, cuda, dtype)
     before = attn_mod.launches
@@ -148,14 +161,34 @@ def test_flash_kernel_matches_plain_version(cuda, shape, dtype):
         torch.testing.assert_close(got.float(), want.float(), atol=1e-5, rtol=2**-7)
 
 
-def test_flash_kernel_reads_strided_views(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernel_reads_strided_views(cuda, dtype):
     """q, k, v as views of one packed (N, T, 3, H, D) projection, as the
-    encoder layer passes them: no copy, the same result."""
-    qkv = torch.randn(2, 77, 3, 4, 16, generator=torch.Generator().manual_seed(1)).to(cuda)
+    encoder layer passes them (16-byte aligned rows, as the bf16 kernel
+    needs): no copy, the same result."""
+    qkv = torch.randn(2, 77, 3, 4, 16, generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
     q, k, v = qkv.unbind(2)
     got = attn_mod.flash_attention(q, k, v)
     want = attn_mod.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_flash_bf16_rejects_rows_not_16_byte_aligned(cuda):
+    q, k, v = _qkv((1, 8, 2, 16), 7, cuda, torch.bfloat16)
+    shifted = torch.empty(q.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:].view(q.shape)
+    shifted.copy_(q)
+    strided = torch.empty(1, 8, 2, 20, device=cuda, dtype=torch.bfloat16)[..., :16]  # row stride 20
+    strided.copy_(k)
+    before = attn_mod.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attn_mod.flash_attention(shifted, k, v)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attn_mod.flash_attention(q, strided, v)
+    assert attn_mod.launches == before
+    # f32 keeps the CUDA-core kernel, which reads any strides with D contiguous
+    got = attn_mod.flash_attention(q.float(), strided.float(), v.float())
+    torch.testing.assert_close(got, attn_mod.flash_attention_ref(q.float(), strided.float(), v.float()),
+                               atol=1e-5, rtol=1e-5)
 
 
 def test_flash_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):

@@ -189,18 +189,76 @@ def test_block_trains_and_repacks_after_each_optimizer_step():
 
 
 def test_pack_rdb_weights_layout():
-    """The packed buffer is each HWIO kernel in [cin][3*3][cout] order, in
-    x's dtype; biases stay f32."""
+    """f32: each HWIO kernel in [cin][3*3][cout] order; bf16: in the
+    tensor-core kernel's [cin/16][3*3][cout][16] order with cin and cout
+    zero-padded to multiples of 16 (here cout = 8 for convs 1-4 and cin =
+    24, 40 for convs 1 and 3: half-filled steps); biases stay f32."""
     _, ks, bs = _inputs((1, 1, 1, CH), seed=5)
-    w, b = rdb_mod.pack_rdb_weights([torch.from_numpy(k) for k in ks],
-                                    [torch.from_numpy(v) for v in bs], torch.bfloat16)
-    assert w.dtype == torch.bfloat16 and b.dtype == torch.float32
-    off = 0
+    kernels = [torch.from_numpy(k) for k in ks]
+    biases = [torch.from_numpy(v) for v in bs]
+    w32, b32 = rdb_mod.pack_rdb_weights(kernels, biases, torch.float32)
+    w16, b16 = rdb_mod.pack_rdb_weights(kernels, biases, torch.bfloat16)
+    assert w32.dtype == torch.float32 and w16.dtype == torch.bfloat16
+    assert b32.dtype == b16.dtype == torch.float32
+    off32 = off16 = 0
     for k in range(5):
         cin, cout = ks[k].shape[2], ks[k].shape[3]
-        got = w[off : off + cin * 9 * cout].float().reshape(cin, 3, 3, cout)
-        want = torch.from_numpy(ks[k]).to(torch.bfloat16).float().permute(2, 0, 1, 3)
-        assert torch.equal(got, want)
-        off += cin * 9 * cout
-    assert off == w.numel()
-    assert torch.equal(b, torch.cat([torch.from_numpy(v) for v in bs]))
+        want = torch.from_numpy(ks[k])
+        got = w32[off32 : off32 + cin * 9 * cout].reshape(cin, 3, 3, cout)
+        assert torch.equal(got, want.permute(2, 0, 1, 3))
+        off32 += cin * 9 * cout
+        cin_p, cout_p = -(-cin // 16) * 16, -(-cout // 16) * 16
+        got = w16[off16 : off16 + cin_p * 9 * cout_p].float().reshape(cin_p // 16, 3, 3, cout_p, 16)
+        padded = torch.zeros(3, 3, cin_p, cout_p)
+        padded[:, :, :cin, :cout] = want.to(torch.bfloat16).float()
+        assert torch.equal(got, padded.reshape(3, 3, cin_p // 16, 16, cout_p).permute(2, 0, 1, 4, 3))
+        off16 += cin_p * 9 * cout_p
+    assert off32 == w32.numel() and off16 == w16.numel()
+    assert torch.equal(b32, torch.cat(biases)) and torch.equal(b16, b32)
+
+
+def _emulate_bf16_kernel(x, w, b, ch, gc):
+    """The bf16 kernel's arithmetic from the packed buffers alone: per conv
+    an implicit GEMM over 16-channel steps and the 9 taps of the zero-padded
+    halo, reading B[step][tap][cout][16] exactly where the CUDA kernel reads
+    it; f32 sums, out_k rounded to bf16, ``y * 0.2 + x`` in f32."""
+    n, h, wd, _ = x.shape
+    feats = x.float()
+    off, boff = 0, 0
+    for k in range(5):
+        cin, cout = ch + k * gc, (gc if k < 4 else ch)
+        cin_p, cout_p = -(-cin // 16) * 16, -(-cout // 16) * 16
+        wk = w[off : off + cin_p * 9 * cout_p].float().reshape(cin_p // 16, 9, cout_p, 16)
+        src = torch.nn.functional.pad(feats[..., :cin], (0, cin_p - cin, 1, 1, 1, 1))
+        acc = torch.zeros(n, h, wd, cout_p)
+        for step in range(cin_p // 16):
+            for tap in range(9):
+                dy, dx = divmod(tap, 3)
+                a = src[:, dy : dy + h, dx : dx + wd, step * 16 : step * 16 + 16]
+                acc += a @ wk[step, tap].T
+        y = acc[..., :cout] + b[boff : boff + cout]
+        if k < 4:
+            feats = torch.cat([feats, torch.nn.functional.leaky_relu(y, 0.2).bfloat16().float()], -1)
+        off += cin_p * 9 * cout_p
+        boff += cout
+    return (y * 0.2 + x.float()).bfloat16()
+
+
+@pytest.mark.parametrize("ch,gc", [(CH, GC), (24, 16), (40, 8)], ids=["ch16", "ch24", "ch40"])
+def test_packed_bf16_weights_reproduce_the_block(ch, gc):
+    """Every packed weight, and the zero padding of half-filled 16-channel
+    steps and of couts below 16, lands where the bf16 kernel's loop reads
+    it: the emulated kernel equals the plain version up to f32 summation
+    order (one bf16 ulp where an out_k rounds the other way)."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(size=(2, 7, 9, ch)).astype(np.float32)).bfloat16()
+    kernels, biases = [], []
+    for k in range(5):
+        cin, cout = ch + k * gc, gc if k < 4 else ch
+        kernels.append(torch.from_numpy((rng.normal(size=(3, 3, cin, cout)) * np.sqrt(2 / (9 * cin))).astype(np.float32)))
+        biases.append(torch.from_numpy((rng.normal(size=(cout,)) * 0.1).astype(np.float32)))
+    w, b = rdb_mod.pack_rdb_weights(kernels, biases, torch.bfloat16)
+    got = _emulate_bf16_kernel(x, w, b, ch, gc).float()
+    want = rdb_mod.rdb_forward_ref(x, kernels, biases).float()
+    torch.testing.assert_close(got, want, atol=1.6e-2, rtol=1.6e-2)
+    assert (got - want).abs().mean() <= 1e-3
