@@ -13,16 +13,18 @@ of 4 heads and FFN 2048 over the H/2 x W/2 tokens, ``--attn-chunk 1024
 --attn-backend flash``), and trains ``bsrgan_x2`` at full width:
 
 1. kernel phases: ``rdb_forward`` vs ``rdb_forward_ref`` and
-   ``flash_attention`` vs ``flash_attention_ref``, in f32 (the CUDA-core
-   kernels) and bf16 (the tensor-core kernels), including ragged shapes
-   at the edges of the bf16 kernels' tiles (RDB (16, 72, 72, 64),
-   (3, 17, 23, 64) and cin with a half-filled 16-channel step; flash
+   ``flash_attention`` vs ``flash_attention_ref``, in f32 (the 3xTF32
+   tensor-core kernels) and bf16 (the bf16 tensor-core kernels), including
+   ragged shapes at the edges of the kernels' tiles (RDB (16, 72, 72, 64),
+   (3, 17, 23, 64), cin with a half-filled 16-channel step, gc 8; flash
    T in {1, 15, 17, 63, 65, 129} at D = 16 and 32); CUDA-event times of
    each kernel, its plain version and one library call that the port
-   never makes (a bf16 cuDNN 5-conv chain; ``scaled_dot_product_attention``)
-   at the serving shapes, x (1, 256, 256, 64) and q (1, 16384, 4, 16), and
-   of the RDB at the training shape, beside the card's bound, with TFLOP/s
-   and the share of the bound;
+   never makes (a cuDNN 5-conv chain; ``scaled_dot_product_attention``,
+   its backend named), in bf16 and in f32 with TF32 off, at the serving
+   shapes, x (1, 256, 256, 64) and q (1, 16384, 4, 16), and of the RDB at
+   the training shape, beside the card's bounds (f32: on the CUDA cores,
+   and as three TF32 products on the tensor cores), with TFLOP/s and the
+   share of the bound;
 2. ``bsrgan_x2`` serving: ``ServingEngine`` over ``serve_stdio`` (4
    requests of 256x256, f32 then bf16), a ``--batch 2`` watch ``--once``
    drain and a 250x190 frame; every reply must be ok at the right size and
@@ -50,7 +52,8 @@ of 4 heads and FFN 2048 over the H/2 x W/2 tokens, ``--attn-chunk 1024
    chain 2 filter2d kernel calls. Both checkpoints load as weights and
    ``cli.infer --use-ema`` serves a frame from one. One f32 step is run
    again with both kernels swapped for their plain versions, from the
-   same state and batch, to hold the step to them.
+   same state and batch, to hold the step to them (the LeakyReLU slopes
+   its backward takes differently, and the updated G, see ``train_phase``).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after.
@@ -79,6 +82,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # published dense peaks of one H100 SXM (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # tensor cores; the f32 kernels take three TF32 products per pair
+TF32_PRODUCTS = 3
 PEAK_HBM_BYTES = 3.35e12
 # exponentials: 16 per clock on each of the 132 SMs (the special-function
 # units, Hopper architecture white paper) at the 1.98 GHz boost clock
@@ -90,6 +95,11 @@ RDB_PER_FORWARD = 3 * NUM_RRDB
 FLASH_SHAPE = (1, 16384, 4, 16)
 ATTN_CHUNK = 1024
 ATTN_PER_FORWARD = 2
+# the f32 bsrnet step with the kernels against it with the plain versions
+# (see train_phase): LeakyReLU slopes its backward may take differently,
+# and the updated G's largest per-tensor relative difference
+F32_STEP_MAX_FLIPS = 250
+F32_STEP_MAX_G = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -130,7 +140,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def cudnn_chain(x, kernels, biases):
-    """The RDB as five bf16 cuDNN convs over torch.cat (library yardstick)."""
+    """The RDB as five cuDNN convs over torch.cat in x's dtype (library
+    yardstick; f32 runs in full f32 while cudnn.allow_tf32 is off)."""
     import torch.nn.functional as F
 
     xc = x.permute(0, 3, 1, 2)
@@ -154,15 +165,16 @@ def rdb_flops(shape, gc: int = GC) -> int:
 
 def kernel_phase(rdb) -> dict:
     """rdb_forward vs rdb_forward_ref at the main paths' shapes and at the
-    edges of the bf16 kernel's tiles (16x8 pixels, 16-channel steps), then
-    times."""
+    edges of the kernels' tiles (16x8 pixels, 16-channel bf16 and 8-channel
+    f32 steps, cout tiles of 16), then times."""
     errs = {"float32": 0.0, "bfloat16": 0.0}
     # (shape, gc): the serving shapes, the training shape (72 rows: a
-    # ragged last row tile), tiles ragged in both axes, and ch = 24 / 40
-    # (cin 24, 40, 56, ...: a half-filled last 16-channel step)
+    # ragged last row tile), tiles ragged in both axes, ch = 24 / 40 (cin
+    # 24, 40, 56, ...: a half-filled last 16-channel step) and gc 8 (couts
+    # of 8 in a tile of 16)
     cases = [((2, 64, 64, CH), GC), ((1, 37, 53, CH), GC), (SERVE_SHAPE, GC), ((2, 256, 256, CH), GC),
              ((1, 250, 190, CH), GC), (TRAIN_RDB_SHAPE, GC), ((3, 17, 23, CH), GC),
-             ((2, 37, 53, 24), 16), ((1, 20, 33, 40), 8)]
+             ((2, 37, 53, 24), 16), ((1, 20, 33, 40), 8), ((2, 19, 13, 24), 8)]
     for i, (shape, gc) in enumerate(cases):
         x, ks, bs = rdb_inputs(shape, seed=i, gc=gc)
         for dt in (torch.float32, torch.bfloat16):
@@ -176,7 +188,9 @@ def kernel_phase(rdb) -> dict:
             errs[name] = max(errs[name], max_err)
             print(f"rdb {shape} gc={gc} {dt}: max abs {max_err:.3g}, mean abs {mean_err:.3g}", flush=True)
             if dt == torch.float32:
-                # same f32 operands, sums in another order; TF32 is off
+                # same f32 operands, products split into three TF32 ones
+                # (~2^-22 relative dropped), sums in another order; TF32 is
+                # off for the plain version
                 check(torch.allclose(got, want, atol=1e-4, rtol=0), f"f32 rdb {shape}: {max_err}")
             else:
                 # 1.6e-2 is one bf16 ulp at |y| ~ 2: an out_k rounded the
@@ -202,6 +216,8 @@ def kernel_phase(rdb) -> dict:
         kernel_f32_ms = cuda_ms(lambda: rdb.rdb_forward(x, ks, bs, packed_f))
         plain_ms = cuda_ms(lambda: rdb.rdb_forward_ref(xb, ks, bs))
         library_ms = cuda_ms(cudnn_chain(xb, ks, bs))
+        plain_f32_ms = cuda_ms(lambda: rdb.rdb_forward_ref(x, ks, bs))
+        library_f32_ms = cuda_ms(cudnn_chain(x, ks, bs))
     # the training shape, and what its ragged last row tile costs: 72 rows
     # take 5 tiles of 16 where 64 rows take 4
     train = {}
@@ -218,17 +234,26 @@ def kernel_phase(rdb) -> dict:
     # x read once, output written once, weights (bf16) and biases (f32) read once
     bytes_moved = 2 * (2 * n * h * w * ch) + 2 * packed_b[0].numel() + 4 * packed_b[1].numel()
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, bytes_moved / PEAK_HBM_BYTES * 1e3
-    # the f32 path: f32 x, output and weights, and the f32 rate of the CUDA cores
-    bytes_f32 = 4 * (2 * n * h * w * ch) + 4 * packed_f[0].numel() + 4 * packed_f[1].numel()
+    # the f32 path: f32 x, output, weights (HWIO, once) and biases; at the f32
+    # rate of the CUDA cores, and as three TF32 products at the tensor cores'
+    bytes_f32 = 4 * (2 * n * h * w * ch) + 4 * sum(k.numel() for k in ks) + 4 * packed_f[1].numel()
     bound_f32_ms = max(flops / PEAK_F32_FLOPS, bytes_f32 / PEAK_HBM_BYTES) * 1e3
+    bound_tf32_ms = max(TF32_PRODUCTS * flops / PEAK_TF32_FLOPS, bytes_f32 / PEAK_HBM_BYTES) * 1e3
     bound = max(t_ops, t_bytes)
     print(
         f"rdb timing at x {SERVE_SHAPE} bf16: kernel {kernel_ms:.4f} ms (f32 {kernel_f32_ms:.4f}), "
         f"plain {plain_ms:.4f} ms, cuDNN bf16 chain {library_ms:.4f} ms, "
         f"bound {bound:.4f} ms ({flops:.3e} FLOP, {bytes_moved:.3e} B; "
         f"f32 bound {bound_f32_ms:.4f} ms); bf16 {flops / kernel_ms / 1e9:.1f} TFLOP/s, "
-        f"{100 * bound / kernel_ms:.1f}% of its bound; f32 {flops / kernel_f32_ms / 1e9:.1f} TFLOP/s, "
-        f"{100 * bound_f32_ms / kernel_f32_ms:.1f}% of its bound",
+        f"{100 * bound / kernel_ms:.1f}% of its bound",
+        flush=True,
+    )
+    print(
+        f"rdb timing at x {SERVE_SHAPE} f32: kernel (3xTF32) {kernel_f32_ms:.4f} ms, plain "
+        f"{plain_f32_ms:.4f} ms, cuDNN f32 chain (TF32 off) {library_f32_ms:.4f} ms; bound "
+        f"{bound_tf32_ms:.4f} ms as {TF32_PRODUCTS} TF32 products on the tensor cores, "
+        f"{bound_f32_ms:.4f} ms on the CUDA cores; {flops / kernel_f32_ms / 1e9:.1f} TFLOP/s of f32 "
+        f"products, {100 * bound_tf32_ms / kernel_f32_ms:.1f}% of the lower bound",
         flush=True,
     )
     train_flops = rdb_flops(TRAIN_RDB_SHAPE)
@@ -243,7 +268,8 @@ def kernel_phase(rdb) -> dict:
         "name": "rdb_forward",
         "route": "cuda",
         "design": "bf16: tensor cores (implicit GEMM, mma.sync.m16n8k16 bf16->f32, ldmatrix from the "
-                  "shifted halo window, cp.async double buffer); f32: CUDA cores (direct conv, f32 FMA)",
+                  "shifted halo window, cp.async double buffer); f32: the same GEMM as split-precision "
+                  "3xTF32 (mma.sync.m16n8k8 tf32->f32, three products per fragment pair)",
         "source": "srganfd_tpu_torch/csrc/rdb.cu",
         "replaces": "srganfd_tpu/ops/pallas/rdb.py:331",
         "also_replaces": "srganfd_tpu/ops/pallas/rdb.py:254",
@@ -259,10 +285,14 @@ def kernel_phase(rdb) -> dict:
         "bound_ms": bound,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "bound_f32_ms": bound_f32_ms,
+        "bound_f32_tf32_ms": bound_tf32_ms,
+        "plain_f32_ms": plain_f32_ms,
+        "library_f32_ms": library_f32_ms,
+        "library_f32": "cuDNN 5-conv chain, f32, TF32 off",
         "tflops": flops / kernel_ms / 1e9,
         "share_of_bound": bound / kernel_ms,
         "tflops_f32": flops / kernel_f32_ms / 1e9,
-        "share_of_bound_f32": bound_f32_ms / kernel_f32_ms,
+        "share_of_bound_f32": min(bound_f32_ms, bound_tf32_ms) / kernel_f32_ms,
         "train_shape": list(TRAIN_RDB_SHAPE),
         "train_kernel_ms": train_ms,
         "train_library_ms": train_library_ms,
@@ -278,6 +308,18 @@ def flash_inputs(shape, seed: int, dtype=torch.float32):
     return [torch.randn(shape, generator=g).to("cuda", dtype) for _ in range(3)]
 
 
+def sdpa_kernels(q, k, v) -> list[str]:
+    """The CUDA kernels one ``scaled_dot_product_attention`` call launches
+    on these inputs (torch.profiler): they name the backend it took."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, k, v)
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
 def flash_kernel_phase(attn) -> dict:
     """flash_attention vs flash_attention_ref at the main path's shapes
     (T = 16384 for 256x256 frames, 11875 for 250x190) and small ragged
@@ -286,8 +328,8 @@ def flash_kernel_phase(attn) -> dict:
 
     errs = {"float32": 0.0, "bfloat16": 0.0}
     cases = [(n, t, 4, d) for d in (16, 32) for t in (100, 333, 16384, 11875) for n in (1, 2)]
-    # the edges of the bf16 kernel's tiles: 64 queries a block, 16 a warp,
-    # 64 keys a staged tile
+    # the edges of the kernels' tiles: 64 queries a block, 16 a warp, 64
+    # keys a staged tile, 8 keys a P V k-step
     cases += [(2, t, 4, d) for d in (16, 32) for t in (1, 15, 17, 63, 65, 129)]
     for i, shape in enumerate(cases):
         q, k, v = flash_inputs(shape, seed=i)
@@ -302,8 +344,9 @@ def flash_kernel_phase(attn) -> dict:
             errs[name] = max(errs[name], max_err)
             print(f"flash {shape} {dt}: max abs {max_err:.3g}, mean abs {diff.mean().item():.3g}", flush=True)
             if dt == torch.float32:
-                # the same f32 math in another order (exp2 of pre-scaled
-                # scores, online rescaling); TF32 is off
+                # the same f32 math in another order (exp2 of scaled scores,
+                # online rescaling), products split into three TF32 ones
+                # (~2^-22 relative dropped); TF32 is off for the plain version
                 check(torch.allclose(got, want, atol=1e-5, rtol=1e-5), f"f32 flash {shape}: {max_err}")
             else:
                 # both round one f32 result to bf16: at most one bf16 ulp
@@ -328,6 +371,9 @@ def flash_kernel_phase(attn) -> dict:
         plain_ms = cuda_ms(lambda: attn.flash_attention_ref(qb, kb, vb, ATTN_CHUNK), iters=5, warmup=1)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qb.transpose(1, 2), kb.transpose(1, 2), vb.transpose(1, 2)))
+        plain_f32_ms = cuda_ms(lambda: attn.flash_attention_ref(q, k, v, ATTN_CHUNK), iters=5, warmup=1)
+        library_f32_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
     n, t, h, d = FLASH_SHAPE
     flops = 4 * n * h * t * t * d  # QK^T and PV
     exps = n * h * t * t
@@ -336,22 +382,32 @@ def flash_kernel_phase(attn) -> dict:
     t_bytes = bytes_moved / PEAK_HBM_BYTES * 1e3
     bound = max(t_mm, t_exp, t_bytes)
     bound_f32_ms = max(flops / PEAK_F32_FLOPS * 1e3, t_exp, 2 * bytes_moved / PEAK_HBM_BYTES * 1e3)
+    bound_tf32_ms = max(TF32_PRODUCTS * flops / PEAK_TF32_FLOPS * 1e3, t_exp,
+                        2 * bytes_moved / PEAK_HBM_BYTES * 1e3)
     print(
         f"flash timing at q {FLASH_SHAPE} bf16: kernel {kernel_ms:.4f} ms (f32 {kernel_f32_ms:.4f}), "
         f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, "
         f"bound {bound:.4f} ms (products {t_mm:.4f} ms for {flops:.3e} FLOP, exponentials "
         f"{t_exp:.4f} ms for {exps:.3e}, bytes {t_bytes:.4f} ms for {bytes_moved:.3e} B; "
         f"f32 bound {bound_f32_ms:.4f} ms); bf16 {flops / kernel_ms / 1e9:.1f} TFLOP/s of products, "
-        f"{100 * bound / kernel_ms:.1f}% of its bound; f32 {flops / kernel_f32_ms / 1e9:.1f} TFLOP/s, "
-        f"{100 * bound_f32_ms / kernel_f32_ms:.1f}% of its bound",
+        f"{100 * bound / kernel_ms:.1f}% of its bound",
+        flush=True,
+    )
+    print(
+        f"flash timing at q {FLASH_SHAPE} f32: kernel (3xTF32) {kernel_f32_ms:.4f} ms, plain "
+        f"{plain_f32_ms:.4f} ms, scaled_dot_product_attention f32 {library_f32_ms:.4f} ms; bound "
+        f"{bound_tf32_ms:.4f} ms as {TF32_PRODUCTS} TF32 products on the tensor cores, {bound_f32_ms:.4f} "
+        f"ms on the CUDA cores; {flops / kernel_f32_ms / 1e9:.1f} TFLOP/s of f32 products, "
+        f"{100 * bound_tf32_ms / kernel_f32_ms:.1f}% of the lower bound",
         flush=True,
     )
     return {
         "name": "flash_attention",
         "route": "cuda",
         "design": "bf16: tensor cores (FlashAttention-2 style, mma.sync.m16n8k16 for QK^T and PV with P "
-                  "split into bf16 hi + lo, ldmatrix(.trans), cp.async double buffer); f32: CUDA cores "
-                  "(one query row per thread, f32 FMA)",
+                  "split into bf16 hi + lo, ldmatrix(.trans), cp.async double buffer); f32: the same "
+                  "blocks as split-precision 3xTF32 (mma.sync.m16n8k8 tf32->f32, three products per "
+                  "fragment pair, S registers fed to P V with keys relabelled)",
         "source": "srganfd_tpu_torch/csrc/flash_attention.cu",
         "replaces": "srganfd_tpu/ops/pallas/attention.py:95",
         "max_abs_err": max(errs.values()),
@@ -370,10 +426,14 @@ def flash_kernel_phase(attn) -> dict:
         "bound_exponentials_ms": t_exp,
         "bound_bytes_ms": t_bytes,
         "bound_f32_ms": bound_f32_ms,
+        "bound_f32_tf32_ms": bound_tf32_ms,
+        "plain_f32_ms": plain_f32_ms,
+        "library_f32_ms": library_f32_ms,
+        "library_f32": "scaled_dot_product_attention, f32",
         "tflops": flops / kernel_ms / 1e9,
         "share_of_bound": bound / kernel_ms,
         "tflops_f32": flops / kernel_f32_ms / 1e9,
-        "share_of_bound_f32": bound_f32_ms / kernel_f32_ms,
+        "share_of_bound_f32": min(bound_f32_ms, bound_tf32_ms) / kernel_f32_ms,
         "shape": list(FLASH_SHAPE),
         "dtype": "bfloat16",
     }
@@ -396,9 +456,10 @@ def write_frames(d: str, n: int, h: int, w: int, seed: int) -> list[str]:
     return paths
 
 
-def serve_phase(work: str, rdb, blocks) -> tuple[int, dict]:
-    """Full-width bsrgan_x2 serving; returns the RDB kernel calls it made
-    and the generator's forward time on the card per dtype."""
+def serve_phase(work: str, rdb, blocks) -> tuple[int, dict, int]:
+    """Full-width bsrgan_x2 serving; returns the RDB kernel calls it made,
+    the generator's forward time on the card per dtype, and the calls of
+    the f32 requests."""
     import cv2
 
     from srganfd_tpu_torch.cli.serve import ServingEngine, serve_stdio, serve_watch
@@ -420,6 +481,8 @@ def serve_phase(work: str, rdb, blocks) -> tuple[int, dict]:
         wall = time.perf_counter() - t0
         calls = rdb.launches
         launches += calls
+        if not half:
+            f32_launches = calls
         replies = [json.loads(line) for line in out.getvalue().splitlines()]
         check(len(replies) == 5, f"{tag}: {len(replies)} replies")
         for r in replies[:4]:
@@ -478,7 +541,7 @@ def serve_phase(work: str, rdb, blocks) -> tuple[int, dict]:
     check(reply["ok"] and reply["out_hw"] == [500, 380], f"odd frame reply {reply}")
     check(calls == RDB_PER_FORWARD, f"odd frame: {calls} rdb_forward calls")
     print(f"serve 250x190 bf16: {reply}", flush=True)
-    return launches, forward_ms
+    return launches, forward_ms, f32_launches
 
 
 def infer_phase(work: str, rdb) -> int:
@@ -524,11 +587,11 @@ def spread_weights(work: str) -> str:
     return path
 
 
-def trans_serve_phase(work: str, weights: str, rdb, attn, blocks) -> tuple[dict, dict, dict]:
+def trans_serve_phase(work: str, weights: str, rdb, attn, blocks) -> tuple[dict, dict, dict, dict]:
     """Full-width bsrgantrans_x2 served over stdio with --attn-chunk 1024
     --attn-backend flash; returns the kernel calls it made, the generator's
     forward time and its two transformer layers' time on the card per
-    dtype."""
+    dtype, and the kernel calls of the f32 requests."""
     from srganfd_tpu_torch.cli.serve import ServingEngine, serve_stdio
     from srganfd_tpu_torch.data.datasets import load_image_rgb
 
@@ -551,6 +614,8 @@ def trans_serve_phase(work: str, weights: str, rdb, attn, blocks) -> tuple[dict,
         calls = {"rdb": rdb.launches, "flash": attn.launches}
         for key in launches:
             launches[key] += calls[key]
+        if not half:
+            f32_launches = calls
         replies = [json.loads(line) for line in out.getvalue().splitlines()]
         check(len(replies) == 6, f"trans {tag}: {len(replies)} replies")
         for r, want_hw in zip(replies[:5], [[512, 512]] * 4 + [[500, 380]]):
@@ -604,7 +669,7 @@ def trans_serve_phase(work: str, weights: str, rdb, attn, blocks) -> tuple[dict,
         print(f"bsrgantrans_x2 {tag}: one 256x256 forward on the card {forward_ms[tag]:.2f} ms, "
               f"its two transformer layers {transformer_ms[tag]:.2f} ms", flush=True)
         del engine, model
-    return launches, forward_ms, transformer_ms
+    return launches, forward_ms, transformer_ms, f32_launches
 
 
 def trans_infer_phase(work: str, weights: str, rdb, attn) -> dict:
@@ -770,11 +835,34 @@ def write_gt_frames(d: str, n: int, size: int, seed: int) -> None:
         cv2.imwrite(os.path.join(d, f"gt_{i:03d}.png"), (img * 255).astype(np.uint8))
 
 
+def rdb_preactivations(x, kernels, biases):
+    """The four LeakyReLU inputs of one RDB as its backward recomputes them
+    (``rdb_forward_ref``'s f32 path), each (N, gc, H, W)."""
+    import torch.nn.functional as F
+
+    feats, zs = [x.float().permute(0, 3, 1, 2)], []
+    for k in range(4):
+        w = kernels[k].float().permute(3, 2, 0, 1)
+        z = F.conv2d(torch.cat(feats, 1), w, biases[k].float(), padding=1)
+        zs.append(z)
+        feats.append(F.leaky_relu(z, 0.2))
+    return zs
+
+
+def slope_flips(rdbs_a, rdbs_b) -> list[int]:
+    """Per RDB, the LeakyReLU slopes that two runs' backwards take
+    differently: elements of the recomputed pre-activations, at each run's
+    RDB input, whose signs differ. ``rdbs_*``: (x, kernels, biases) per RDB."""
+    return [sum(int(((za > 0) != (zb > 0)).sum())
+                for za, zb in zip(rdb_preactivations(*a), rdb_preactivations(*b)))
+            for a, b in zip(rdbs_a, rdbs_b)]
+
+
 def f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters) -> dict:
-    """One full-width f32 bsrnet step from the seeded init on one host batch,
-    with both kernels and then with rdb_forward_ref and filter2d_ref swapped
-    in (a switch of this script only): the chain's LR, the loss and the
-    updated G must agree."""
+    """One full-width f32 bsrnet step from the seeded init on one host
+    batch, with both kernels and then with rdb_forward_ref and filter2d_ref
+    swapped in (a switch of this script only): the chain's LR, the loss and
+    the updated G, and the slope flips between the two backwards."""
     from srganfd_tpu_torch.cli.degrade_adapter import DegradationAdapter
     from srganfd_tpu_torch.train.loop import Trainer
 
@@ -783,8 +871,14 @@ def f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters) -> dict:
     orig = blocks.rdb_apply, filters.filter2d
     try:
         for plain in (False, True):
+            seen = []
+
+            def recorded(x, k, b, packed=None, plain=plain):
+                seen.append((x.detach().clone(), [t.detach().clone() for t in k], [t.detach().clone() for t in b]))
+                return rdb.rdb_forward_ref(x, k, b) if plain else orig[0](x, k, b, packed)
+
+            blocks.rdb_apply = recorded
             if plain:
-                blocks.rdb_apply = lambda x, k, b, packed=None: rdb.rdb_forward_ref(x, k, b)
                 filters.filter2d = f2d.filter2d_ref
             trainer = Trainer(cfg, steps_per_epoch=TRAIN_STEPS_PER_EPOCH, device="cuda")
             state = trainer.init_state()
@@ -795,20 +889,24 @@ def f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters) -> dict:
             check(made == ((0, 0) if plain else (RDB_PER_FORWARD, FILTERS_PER_CHAIN)),
                   f"f32 step (plain={plain}) made {made} kernel calls")
             runs.append((batch["lr"].clone(), loss,
-                         {k: v.detach().clone() for k, v in state.g_model.state_dict().items()}))
+                         {k: v.detach().clone() for k, v in state.g_model.state_dict().items()}, seen))
             del trainer, state, batch
     finally:
         blocks.rdb_apply, filters.filter2d = orig
-    (lr_k, loss_k, g_k), (lr_p, loss_p, g_p) = runs
-    lr_err = (lr_k - lr_p).abs().max().item()
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    g_rel = max(((g_k[k] - g_p[k]).abs().max() / g_p[k].abs().max().clamp_min(1e-12)).item() for k in g_p)
-    print(f"f32 bsrnet step, kernels vs plain versions: chain LR max abs {lr_err:.3g}, loss "
-          f"{loss_k:.7f} vs {loss_p:.7f} (relative {loss_rel:.3g}), updated G max relative {g_rel:.3g}",
-          flush=True)
-    check(lr_err <= 1e-5, f"f32 chain, filter2d kernel vs plain: {lr_err}")
-    check(loss_rel <= 1e-5 and g_rel <= 1e-5, f"f32 step vs plain: loss {loss_rel}, G {g_rel}")
-    return {"lr_max_abs": lr_err, "loss_rel": loss_rel, "g_max_rel": g_rel}
+    (lr_k, loss_k, g_k, rdbs_k), (lr_p, loss_p, g_p, rdbs_p) = runs
+    rel = {k: ((g_k[k] - g_p[k]).abs().max() / g_p[k].abs().max().clamp_min(1e-12)).item() for k in g_p}
+    worst = max(rel, key=rel.get)
+    flips = slope_flips(rdbs_k, rdbs_p)
+    out = {"lr_max_abs": (lr_k - lr_p).abs().max().item(), "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
+           "g_max_rel": rel[worst], "g_worst": worst, "slope_flips": sum(flips),
+           "rdbs_with_flips": sum(f > 0 for f in flips),
+           "preactivations": RDB_PER_FORWARD * sum(z.numel() for z in rdb_preactivations(*rdbs_p[0]))}
+    print(f"f32 bsrnet step, kernels vs plain versions: chain LR max abs {out['lr_max_abs']:.3g}, loss "
+          f"{loss_k:.7f} vs {loss_p:.7f} (relative {out['loss_rel']:.3g}), updated G max relative "
+          f"{rel[worst]:.3g} ({worst}); LeakyReLU slopes the backwards take differently: "
+          f"{out['slope_flips']} of {out['preactivations']}, in {out['rdbs_with_flips']} of "
+          f"{RDB_PER_FORWARD} RDBs", flush=True)
+    return out
 
 
 def train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
@@ -822,6 +920,7 @@ def train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
     from srganfd_tpu_torch.models import create_model
     from srganfd_tpu_torch.ops.degrade import apply_bsrgan_batch_cropped, bsrgan_lr_size, plan_bsrgan_batch
     from srganfd_tpu_torch.train.loop import Trainer
+    from srganfd_tpu_torch.train.state import ema_update
 
     train_dir, valid_dir = os.path.join(work, "train_gt"), os.path.join(work, "valid_gt")
     write_gt_frames(train_dir, 24, TRAIN_FRAME, seed=10)
@@ -929,15 +1028,57 @@ def train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
         "forward_backward_ms": cuda_ms(fwd_bwd, iters=3, warmup=1),
     }
     trainer = Trainer(cfg, TRAIN_STEPS_PER_EPOCH, device="cuda")
-    breakdown["train_step_ms"] = cuda_ms(lambda: real_step(trainer, state, gt_c, lr_c), iters=3, warmup=1)
+    # each step's update bumps the parameters, so the next forward repacks
+    # every RDB's weights: count the packs by dtype, and time the pieces
+    # that the step adds to forward+backward
+    packs, real_pack = {}, blocks.pack_rdb_weights
+
+    def counted_pack(kernels, biases, dtype):
+        packs[str(dtype)] = packs.get(str(dtype), 0) + 1
+        return real_pack(kernels, biases, dtype)
+
+    blocks.pack_rdb_weights = counted_pack
+    try:
+        breakdown["train_step_ms"] = cuda_ms(lambda: real_step(trainer, state, gt_c, lr_c), iters=3, warmup=1)
+    finally:
+        blocks.pack_rdb_weights = real_pack
+    check(set(packs) == {str(trainer.dtype)}, f"4 {trainer.dtype} steps packed {packs}")
+    rdbs = [m for m in model.modules() if isinstance(m, blocks.ResidualDenseBlock)]
+    with torch.no_grad():
+        breakdown["repack_ms"] = cuda_ms(
+            lambda: [real_pack(*m.kernels_biases(), trainer.dtype) for m in rdbs], iters=3, warmup=1)
+        breakdown["adam_ms"] = cuda_ms(state.g_opt.step, iters=3, warmup=1)
+        params = dict(model.named_parameters())
+        breakdown["ema_ms"] = cuda_ms(lambda: ema_update(state.ema_g, params, cfg.model_ema_decay), iters=3,
+                                      warmup=1)
     print(f"bsrnet step breakdown on the card (CUDA events, {cfg.compute_dtype}, batch "
           f"{cfg.batch_size}): chain "
           f"{breakdown['chain_ms']:.2f} ms, generator forward {breakdown['forward_ms']:.2f} ms, "
           f"forward+backward {breakdown['forward_backward_ms']:.2f} ms, whole train step "
-          f"(forward, backward, Adam, EMA) {breakdown['train_step_ms']:.2f} ms", flush=True)
+          f"(forward, backward, Adam, EMA) {breakdown['train_step_ms']:.2f} ms; of what the step adds: "
+          f"repacking {len(rdbs)} RDBs' weights {breakdown['repack_ms']:.2f} ms, Adam "
+          f"{breakdown['adam_ms']:.2f} ms, EMA {breakdown['ema_ms']:.2f} ms; packs in 4 steps {packs}",
+          flush=True)
     del model, state, result, trainer
 
+    # One f32 step held to the plain versions: the chain's LR and the loss
+    # to 1e-5. The updated G cannot be held to 1e-5: any forward that does
+    # not round as cuDNN does makes the backward take a few dozen LeakyReLU
+    # slopes differently, and one such flip moves a trunk bias's update,
+    # which starts at zero, by 4e-6 to 2.4e-4 of itself. An exactly summed
+    # f32 forward does the same, and no limit on G tells it from a forward
+    # with one TF32 product (f32_step_study.py, PERF.md §6). The flips
+    # themselves do: 21-44 for the kernels and for the exact forward,
+    # 1391-1466 for one TF32 product, over 4 states x 2 batches in three
+    # runs; F32_STEP_MAX_FLIPS is near their geometric midpoint. G is held
+    # to F32_STEP_MAX_G, above every reading of a correct forward (2.4e-4
+    # at most), for what a step can get grossly wrong: a gradient lost or
+    # misrouted.
     f32 = f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters)
+    check(f32["lr_max_abs"] <= 1e-5, f"f32 chain, filter2d kernel vs plain: {f32['lr_max_abs']}")
+    check(f32["loss_rel"] <= 1e-5, f"f32 step vs plain: loss {f32['loss_rel']}")
+    check(f32["slope_flips"] <= F32_STEP_MAX_FLIPS, f"f32 step vs plain: {f32['slope_flips']} slope flips")
+    check(f32["g_max_rel"] <= F32_STEP_MAX_G, f"f32 step vs plain: G {f32['g_max_rel']} ({f32['g_worst']})")
 
     out_png = os.path.join(work, "train_sr.png")
     rdb.launches = 0
@@ -993,10 +1134,10 @@ def main() -> None:
     base = os.path.join(ROOT, "build")
     os.makedirs(base, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=base) as work:
-        launches, forward_ms = serve_phase(work, rdb, blocks)
+        launches, forward_ms, f32_launches = serve_phase(work, rdb, blocks)
         launches += infer_phase(work, rdb)
         weights = spread_weights(work)
-        trans_launches, trans_forward_ms, transformer_ms = trans_serve_phase(
+        trans_launches, trans_forward_ms, transformer_ms, trans_f32 = trans_serve_phase(
             work, weights, rdb, attn, blocks)
         trans_infer = trans_infer_phase(work, weights, rdb, attn)
         train_launches, train = train_phase(work, rdb, f2d, blocks, filters)
@@ -1005,9 +1146,12 @@ def main() -> None:
     check(launches > 0, "the main paths launched no rdb_forward kernel")
     check(flash_launches > 0, "the bsrgantrans_x2 path launched no flash_attention kernel")
     entry["launches"] = launches
+    # of which f32 (the 3xTF32 kernels): the f32 stdio requests
+    entry["launches_f32"] = f32_launches + trans_f32["rdb"]
     entry["launches_per_forward"] = RDB_PER_FORWARD
     entry["forward_ms"] = forward_ms  # bsrgan_x2 at 256x256, whole generator
     flash_entry["launches"] = flash_launches
+    flash_entry["launches_f32"] = trans_f32["flash"]
     flash_entry["launches_per_forward"] = ATTN_PER_FORWARD
     flash_entry["forward_ms"] = trans_forward_ms  # bsrgantrans_x2 at 256x256, whole generator
     flash_entry["transformer_ms"] = transformer_ms  # its two encoder layers
@@ -1019,6 +1163,8 @@ def main() -> None:
     print(f"bsrgan_x2 256x256 forward: f32 {forward_ms['f32']:.2f} ms, bf16 {forward_ms['bf16']:.2f} ms; "
           f"69 RDB kernels alone: f32 {RDB_PER_FORWARD * entry['kernel_f32_ms']:.2f} ms, "
           f"bf16 {RDB_PER_FORWARD * entry['kernel_ms']:.2f} ms", flush=True)
+    print(f"f32 kernel launches on the main paths: rdb_forward {entry['launches_f32']} of "
+          f"{launches}, flash_attention {flash_entry['launches_f32']} of {flash_launches}", flush=True)
     for tag, key in (("f32", "kernel_f32_ms"), ("bf16", "kernel_ms")):
         print(f"bsrgantrans_x2 256x256 forward {tag}: {trans_forward_ms[tag]:.2f} ms; 69 RDB kernels "
               f"{RDB_PER_FORWARD * entry[key]:.2f} ms, 2 flash kernels "
@@ -1030,6 +1176,11 @@ def main() -> None:
           f"{train['forward_backward_ms']:.2f} ms; the chain {train['chain_ms']:.2f} ms (2 filter2d "
           f"kernels {FILTERS_PER_CHAIN * filter_entry['ms']:.2f} ms); host-clock step p50 "
           f"{train['step_ms_p50']:.2f} ms", flush=True)
+    # last, so that no timed phase runs after a profiler session
+    q, k, v = (t.transpose(1, 2) for t in flash_inputs(FLASH_SHAPE, seed=100))
+    flash_entry["library_f32_kernels"] = sdpa_kernels(q, k, v)
+    print(f"scaled_dot_product_attention f32 at q {FLASH_SHAPE} launches {flash_entry['library_f32_kernels']}",
+          flush=True)
     print(json.dumps({"train": {k: v for k, v in train.items() if k != "losses"}}))
     print(smi)
     print(json.dumps({"kernels": [entry, flash_entry, filter_entry]}))

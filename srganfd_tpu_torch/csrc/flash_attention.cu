@@ -11,16 +11,13 @@
 // input type; the output is rounded to q's type once, as `o_ref[0] = (acc /
 // l).astype(...)` does.
 //
-// Two kernels, chosen by dtype (no fallback from one to the other):
-//
-// f32, `flash_fwd_kernel<float, D>` (the CUDA-core design): one
-// block of 128 threads owns one (batch, head) and 128 consecutive queries,
-// one query row per thread, with q (pre-scaled by log2(e) / sqrt(D)) and
-// the f32 accumulator for its D outputs in registers. The block walks the
-// keys in tiles of 128 staged in shared memory as f32, every thread reading
-// the same key at a time (a broadcast); per 32 scores it updates the running
-// max, rescales, and adds exp2(s - m) * v: the online softmax of
-// srganfd_tpu/ops/pallas/attention.py:72-84, in f32 FMAs.
+// Two kernels, chosen by dtype (no fallback from one to the other), both
+// FlashAttention-2 style on the tensor cores: a block of 4 warps owns one
+// (batch, head) and a run of queries, each warp 16 query rows (the f32
+// kernel 32 at D = 16), and walks the keys in tiles of 64 with the online
+// softmax of
+// srganfd_tpu/ops/pallas/attention.py:72-84. q, k, v and o rows must be
+// 16-byte aligned (the wrapper checks).
 //
 // bf16, `flash_fwd_bf16_kernel<D>` (tensor cores, FlashAttention-2 style):
 // a block of 4 warps owns one (batch, head) and 64 queries, each warp 16
@@ -46,8 +43,30 @@
 // from the f32 reference (tests/test_torch_flash_numerics.py). The split
 // uses integer and f32 operations only, no f32 -> bf16 conversions. The
 // normaliser sums the f32 p; the output is acc / l, rounded to bf16 once.
-// Ragged query rows are computed and not stored. q, k, v and o rows must
-// be 16-byte aligned (the wrapper checks).
+// Ragged query rows are computed and not stored.
+//
+// f32, `flash_fwd_tf32_kernel<D, MT>` (split-precision 3xTF32): the same
+// tiles over mma.sync.m16n8k8 (TF32 in, f32 accumulate), each warp MT
+// m-tiles of 16 query rows (2 at D = 16, so a block owns 128 queries; 1 at
+// D = 32, as registers allow). TF32 keeps 10 mantissa bits, which misses
+// the f32 check, so every operand is split into two TF32 values, a ~ hi +
+// lo (|a - hi - lo| <= 2^-22 |a|), and each fragment pair takes three
+// products, a_lo b_hi + a_hi b_lo + a_hi b_hi, the large one last. q is
+// split once in registers (2 k-steps at D = 16, 4 at D = 32). K and V tiles
+// are loaded into registers one tile ahead (16-byte loads, zeros past the
+// last key), split, and stored in shared memory as interleaved (hi, lo)
+// pairs, so one 64-bit load fetches both halves of a fragment element; the
+// rows are padded so that those loads hit 32 distinct banks per half-warp.
+// S comes out in f32 accumulator registers, (g, 2t) and (g, 2t+1) of each
+// 8-key n-tile, which is not the TF32 A layout, (g, t) and (g, t+4): the
+// registers {c0, c2, c1, c3} are fed as {a0, a1, a2, a3} unchanged, which
+// relabels the keys (k-slot t is key 2t, slot t + 4 is key 2t + 1), and the
+// V fragment reads V rows 2t and 2t + 1 to match, with shared loads
+// (ldmatrix moves 16-bit elements). p = exp2f(s * log2(e)/sqrt(D) - m *
+// log2(e)/sqrt(D)) in f32, split like the operands. Each tile's P V goes
+// into a fresh accumulator, added to the running one in f32 (acc * corr +
+// pv): the tensor cores' f32 accumulation does not round to nearest, so it
+// runs over 64 keys at a time. The output is acc / l in f32.
 //
 // Bound at the serving shape of `bsrgantrans_x2` (a 256x256 frame gives
 // T = 128 * 128 = 16,384 tokens after the stride-2 conv; N = 1, H = 4,
@@ -67,8 +86,14 @@
 // than the special-function unit's rate: the exponentials are not what
 // the kernel waits on, the split's lo half is. Polynomial exp2 on the
 // FMA pipe, wgmma and warp specialisation (softmax of one tile under the
-// products of the next) are later work. The f32 path stays on the CUDA
-// cores (TF32 would not meet its 1e-5 check) at ~4x its bound.
+// products of the next) are later work.
+//
+// f32 at the same shape: three TF32 products per pair are 3 * 6.87e10
+// FLOP, 417 us at the H100's 495 TFLOP/s dense TF32 peak, above the
+// exponentials' 257 us (1,026 us for one product each at the CUDA cores'
+// 67 TFLOP/s f32 peak). Beside the 3x products, the f32 kernel splits
+// every p (and every q, k and v element once), and reads each K and V
+// fragment element with a 64-bit shared load where bf16 uses ldmatrix.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,110 +102,12 @@
 
 namespace {
 
-constexpr int BQ = 128;   // query rows per block, one per thread
-constexpr int BK = 128;   // keys per shared-memory tile
-constexpr int SUB = 32;   // scores held in registers at a time
 constexpr float LOG2E = 1.4426950408889634f;
-
-static_assert(BK % SUB == 0, "a tile holds whole score chunks");
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
 
 // element strides of the N, T and H axes; the D axis has stride 1
 struct Strides {
   long long n, t, h;
 };
-
-// One tile of `valid` keys (valid == BK unless MASKED) from shared memory
-// into the running (m, l, acc) of this thread's query row.
-template <int D, bool MASKED>
-__device__ __forceinline__ void attend_tile(const float (*s_k)[D], const float (*s_v)[D],
-                                            const float* qr, float* acc, float& m, float& l,
-                                            int valid) {
-#pragma unroll 1
-  for (int j0 = 0; j0 < BK; j0 += SUB) {
-    if (MASKED && j0 >= valid) break;  // uniform over the block
-    float s[SUB];
-    float mx = m;
-#pragma unroll
-    for (int j = 0; j < SUB; ++j) {
-      float a = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) a = fmaf(qr[d], s_k[j0 + j][d], a);
-      if (MASKED && j0 + j >= valid) a = -INFINITY;
-      s[j] = a;
-      mx = fmaxf(mx, a);
-    }
-    // m = -inf before the first chunk, whose key 0 is always valid, so mx
-    // is finite here and the correction is exp2(-inf) = 0
-    const float corr = exp2f(m - mx);
-    m = mx;
-    l *= corr;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= corr;
-#pragma unroll
-    for (int j = 0; j < SUB; ++j) {
-      const float p = exp2f(s[j] - mx);
-      l += p;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(p, s_v[j0 + j][d], acc[d]);
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(BQ)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int t_len, int heads, int q_tiles, Strides sq, Strides sk,
-                 Strides sv, Strides so, float q_scale) {
-  __shared__ __align__(16) float s_k[BK][D];
-  __shared__ __align__(16) float s_v[BK][D];
-
-  const int bh = blockIdx.x / q_tiles;
-  const int n = bh / heads;
-  const int h = bh % heads;
-  const int row = (blockIdx.x % q_tiles) * BQ + threadIdx.x;
-  const bool live = row < t_len;
-
-  float qr[D], acc[D];
-  const T* qp = q + n * sq.n + (long long)row * sq.t + h * sq.h;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = live ? to_f32(qp[d]) * q_scale : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  const T* kb = k + n * sk.n + h * sk.h;
-  const T* vb = v + n * sv.n + h * sv.h;
-  for (int k0 = 0; k0 < t_len; k0 += BK) {
-    for (int e = threadIdx.x; e < BK * D; e += BQ) {
-      const int r = e / D, d = e % D;
-      const long long key = k0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (key < t_len) {
-        kv = to_f32(kb[key * sk.t + d]);
-        vv = to_f32(vb[key * sv.t + d]);
-      }
-      s_k[r][d] = kv;
-      s_v[r][d] = vv;
-    }
-    __syncthreads();
-    const int valid = t_len - k0;
-    if (valid >= BK) {
-      attend_tile<D, false>(s_k, s_v, qr, acc, m, l, BK);
-    } else {
-      attend_tile<D, true>(s_k, s_v, qr, acc, m, l, valid);
-    }
-    __syncthreads();
-  }
-
-  if (!live) return;
-  T* op = o + n * so.n + (long long)row * so.t + h * so.h;
-#pragma unroll
-  for (int d = 0; d < D; ++d) store(op + d, acc[d] / l);
-}
 
 // ---- bf16: tensor cores -------------------------------------------------
 
@@ -441,19 +368,6 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int n, int t, int h,
-               const Strides* st, cudaStream_t stream) {
-  const int q_tiles = (t + BQ - 1) / BQ;
-  const long long blocks = (long long)n * h * q_tiles;
-  if (blocks > 0x7fffffffLL) return -1;
-  const float q_scale = LOG2E / sqrtf((float)D);
-  flash_fwd_kernel<float, D><<<(unsigned)blocks, BQ, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), t, h, q_tiles, st[0], st[1], st[2], st[3], q_scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int n, int t, int h,
                 const Strides* st, cudaStream_t stream) {
   const int q_tiles = (t + FQ - 1) / FQ;
@@ -467,12 +381,281 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int n, int
   return (int)cudaGetLastError();
 }
 
+// ---- f32: tensor cores, split-precision 3xTF32 --------------------------
+
+// x rounded to TF32 (10 explicit mantissa bits) to nearest, ties away from
+// zero, as cvt.rna.tf32.f32 does for finite x: the low 13 bits are zero.
+// Integer operations, so that the CPU tests replay it bit for bit.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x ~ hi + lo, both TF32, |x - hi - lo| <= 2^-22 |x| (x - hi is exact)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c (16x8 f32) += a (16x8 tf32, row) * b (8x8 tf32, col)
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b in split precision: the two small cross terms first, so that
+// hi * hi, the large one, is added last. b0, b1: (hi, lo) pairs.
+__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* a_hi, const uint32_t* a_lo,
+                                           const uint2& b0, const uint2& b1) {
+  mma_tf32(c, a_lo, b0.x, b1.x);
+  mma_tf32(c, a_hi, b0.y, b1.y);
+  mma_tf32(c, a_hi, b0.x, b1.x);
+}
+
+// 4 floats as 4 interleaved (hi, lo) pairs into shared memory
+__device__ __forceinline__ void store_split4(const float4& v, uint32_t* dst) {
+  uint4 a, b;
+  split_tf32(v.x, a.x, a.y);
+  split_tf32(v.y, a.z, a.w);
+  split_tf32(v.z, b.x, b.y);
+  split_tf32(v.w, b.z, b.w);
+  reinterpret_cast<uint4*>(dst)[0] = a;
+  reinterpret_cast<uint4*>(dst)[1] = b;
+}
+
+// MT m-tiles of 16 query rows per warp: each K and V fragment read from
+// shared memory serves MT of them
+template <int D, int MT>
+__global__ void __launch_bounds__(FTHREADS)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o, int t_len, int heads,
+                      int q_tiles, Strides sq, Strides sk, Strides sv, Strides so, float scale_log2) {
+  static_assert(D == 16 || D == 32, "head dim");
+  // Rows of (hi, lo) pairs, padded so that the 64-bit fragment reads of a
+  // half-warp hit 32 distinct banks: K (key g, d t) at word g * LK + 2t with
+  // LK = 2 (D + 4) = 8 mod 32; V (key 2t, d g) at word 2t * LV + 2g with
+  // LV = 2 (D + 2), 2 LV = 8 mod 32. Rows stay 16-byte aligned.
+  constexpr int LK = 2 * (D + 4), LV = 2 * (D + 2);
+  __shared__ __align__(16) uint32_t s_k[FK * LK];
+  __shared__ __align__(16) uint32_t s_v[FK * LV];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;  // fragment row group, column
+  const int bh = blockIdx.x / q_tiles;
+  const int n = bh / heads;
+  const int h = bh % heads;
+  const int row0 = (blockIdx.x % q_tiles) * FQ * MT + warp * 16 * MT;
+
+  // q rows row0 + 16 mt + g and + 8 as split A fragments, one per 8 of D
+  uint32_t qh[MT][D / 8][4], ql[MT][D / 8][4];
+  const float* qb = q + n * sq.n + h * sq.h;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + mt * 16 + g + (i & 1) * 8;
+        const int col = kk * 8 + (i >> 1) * 4 + tig;
+        split_tf32(row < t_len ? qb[(long long)row * sq.t + col] : 0.f, qh[mt][kk][i], ql[mt][kk][i]);
+      }
+
+  // each thread's 16-byte loads of a tile, the same units of K and of V;
+  // source rows fixed up front and stepped per tile
+  constexpr int UNITS = D / 4;  // 16-byte units of a row
+  constexpr int LOADS = FK * UNITS / FTHREADS;
+  static_assert(FK * UNITS % FTHREADS == 0, "whole units per thread");
+  const float* kp[LOADS];
+  const float* vp[LOADS];
+  int key[LOADS], col[LOADS];
+#pragma unroll
+  for (int i = 0; i < LOADS; ++i) {
+    const int u = threadIdx.x + i * FTHREADS;
+    key[i] = u / UNITS;
+    col[i] = (u % UNITS) * 4;
+    kp[i] = k + n * sk.n + h * sk.h + key[i] * sk.t + col[i];
+    vp[i] = v + n * sv.n + h * sv.h + key[i] * sv.t + col[i];
+  }
+  const long long k_step = FK * sk.t, v_step = FK * sv.t;
+  float4 rk[LOADS], rv[LOADS];
+  // tile j into registers; called for j = 0, 1, 2, ... in turn
+  auto load_tile = [&](int j) {
+#pragma unroll
+    for (int i = 0; i < LOADS; ++i) {
+      const bool ok = j * FK + key[i] < t_len;
+      rk[i] = ok ? *reinterpret_cast<const float4*>(kp[i]) : make_float4(0.f, 0.f, 0.f, 0.f);
+      rv[i] = ok ? *reinterpret_cast<const float4*>(vp[i]) : make_float4(0.f, 0.f, 0.f, 0.f);
+      kp[i] += k_step;
+      vp[i] += v_step;
+    }
+  };
+  auto store_tile = [&]() {
+#pragma unroll
+    for (int i = 0; i < LOADS; ++i) {
+      store_split4(rk[i], s_k + key[i] * LK + 2 * col[i]);
+      store_split4(rv[i], s_v + key[i] * LV + 2 * col[i]);
+    }
+  };
+
+  float acc[MT][D / 8][4];
+  float m[MT][2], l[MT][2];  // running max of the raw scores (rows g, g + 8); this thread's share of the normaliser
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+
+  const int n_tiles = (t_len + FK - 1) / FK;
+  load_tile(0);
+  store_tile();
+  __syncthreads();
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) load_tile(j + 1);  // in flight while this tile is computed
+
+    // S = q k^T: 8 n-tiles of 8 keys; B = (d t, key g) and (d t + 4, key g)
+    float s[MT][FK / 8][4];
+#pragma unroll
+    for (int t = 0; t < FK / 8; ++t) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[mt][t][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint32_t* r = s_k + (t * 8 + g) * LK + 2 * (kk * 8 + tig);
+        const uint2 b0 = *reinterpret_cast<const uint2*>(r), b1 = *reinterpret_cast<const uint2*>(r + 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_3xtf32(s[mt][t], qh[mt][kk], ql[mt][kk], b0, b1);
+      }
+    }
+
+    const int valid = t_len - j * FK;
+    if (valid < FK) {  // the ragged last tile only (uniform over the block)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int t = 0; t < FK / 8; ++t)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (t * 8 + tig * 2 + (i & 1) >= valid) s[mt][t][i] = -INFINITY;
+    }
+    // new row max over the quad; the scale is positive, so the max of the
+    // raw scores picks the same key
+    float ms[MT][2], corr[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mx[2] = {m[mt][0], m[mt][1]};
+#pragma unroll
+      for (int t = 0; t < FK / 8; ++t)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[mt][t][i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // m = -inf before the first tile, whose key 0 is valid: mx is finite
+        // and the correction exp2(-inf) = 0
+        corr[mt][r] = exp2f((m[mt][r] - mx[r]) * scale_log2);
+        m[mt][r] = mx[r];
+        ms[mt][r] = mx[r] * scale_log2;
+        l[mt][r] *= corr[mt][r];
+      }
+    }
+
+    // pv = p v over this tile, 8 keys per k-step. The S registers {c0, c2,
+    // c1, c3} = (g, 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1) are the A
+    // fragment with k-slot t = key 2t and slot t + 4 = key 2t + 1, so B =
+    // (slot t, d g) is V row 2t and (slot t + 4, d g) V row 2t + 1.
+    float pv[MT][D / 8][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pv[mt][dt][i] = 0.f;
+#pragma unroll
+    for (int t = 0; t < FK / 8; ++t) {
+      uint32_t ph[MT][4], pl[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        float p[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p[i] = exp2f(fmaf(s[mt][t][i], scale_log2, -ms[mt][i >> 1]));
+        l[mt][0] += p[0] + p[1];
+        l[mt][1] += p[2] + p[3];
+        split_tf32(p[0], ph[mt][0], pl[mt][0]);
+        split_tf32(p[2], ph[mt][1], pl[mt][1]);
+        split_tf32(p[1], ph[mt][2], pl[mt][2]);
+        split_tf32(p[3], ph[mt][3], pl[mt][3]);
+      }
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        const uint32_t* r = s_v + (t * 8 + 2 * tig) * LV + 2 * (dt * 8 + g);
+        const uint2 b0 = *reinterpret_cast<const uint2*>(r), b1 = *reinterpret_cast<const uint2*>(r + LV);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_3xtf32(pv[mt][dt], ph[mt], pl[mt], b0, b1);
+      }
+    }
+    // each tile's P V enters the running sum in f32, so the tensor cores'
+    // accumulation (which does not round to nearest) runs over 64 keys
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][dt][i] = fmaf(acc[mt][dt][i], corr[mt][i >> 1], pv[mt][dt][i]);
+
+    __syncthreads();  // every warp is done with this tile
+    if (j + 1 < n_tiles) {
+      store_tile();
+      __syncthreads();
+    }
+  }
+
+  float* ob = o + n * so.n + h * so.h;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[mt][r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const int row = row0 + mt * 16 + g + r * 8;
+      if (row >= t_len) continue;
+      float* orow = ob + (long long)row * so.t + tig * 2;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+        *reinterpret_cast<float2*>(orow + dt * 8) =
+            make_float2(acc[mt][dt][2 * r] / lr, acc[mt][dt][2 * r + 1] / lr);
+    }
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int n, int t, int h,
+               const Strides* st, cudaStream_t stream) {
+  // two m-tiles a warp at D = 16; at D = 32 one, as registers allow
+  constexpr int MT = D == 16 ? 2 : 1;
+  const int q_tiles = (t + FQ * MT - 1) / (FQ * MT);
+  const long long blocks = (long long)n * h * q_tiles;
+  if (blocks > 0x7fffffffLL) return -1;
+  flash_fwd_tf32_kernel<D, MT><<<(unsigned)blocks, FTHREADS, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), t, h, q_tiles, st[0], st[1], st[2], st[3],
+      LOG2E / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point. q, k, v, o: (n, t, h, d) with element strides
 // strides[3 * i + {0, 1, 2}] for the N, T and H axes of q, k, v, o in turn
-// (D contiguous). dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
-// cores; rows 16-byte aligned); d: 16 or 32. Returns
+// (D contiguous, rows 16-byte aligned). dtype: 0 = float32 (3xTF32),
+// 1 = bfloat16; both on the tensor cores; d: 16 or 32. Returns
 // cudaGetLastError() after the launch, or -1 for arguments the kernel does
 // not take. Launches on `stream`; does not synchronise.
 extern "C" int flash_attention_cuda(const void* q, const void* k, const void* v, void* o, int n,

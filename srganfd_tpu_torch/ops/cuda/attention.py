@@ -7,8 +7,9 @@ the K blocks on a sequential grid axis; on Hopper ``csrc/flash_attention.cu``
 computes the same function with a loop over K tiles inside each block,
 reads (N, T, H, D) through strides and masks the ragged tiles itself, so
 the block sizes and the padding copies are gone. The kernel is chosen by
-dtype: bf16 runs on the tensor cores (``mma.sync``, P split into two bf16
-halves), f32 on the CUDA cores.
+dtype; both run on the tensor cores (``mma.sync``): bf16 with P split into
+two bf16 halves, f32 as split-precision 3xTF32 (every operand split into
+two TF32 halves, three products per pair).
 
 - :func:`flash_attention` launches the kernel for a CUDA tensor and takes
   the plain version for a CPU tensor; any other device raises. There is no
@@ -77,14 +78,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous along D, got strides {t.stride()}")
-        # the bf16 kernel moves rows with 16-byte copies; a stride of a
-        # size-1 axis is never used
-        if q.dtype == torch.bfloat16 and (
-            t.data_ptr() % 16
-            or any(st % 8 for st, size in zip(t.stride()[:3], t.shape[:3]) if size > 1)
+        # both kernels move rows with 16-byte loads; a stride of a size-1
+        # axis is never used
+        per = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(
+            st % per for st, size in zip(t.stride()[:3], t.shape[:3]) if size > 1
         ):
             raise ValueError(
-                f"bf16 {name} rows must be 16-byte aligned: data_ptr % 16 = "
+                f"{t.dtype} {name} rows must be 16-byte aligned: data_ptr % 16 = "
                 f"{t.data_ptr() % 16}, element strides {t.stride()}"
             )
 
@@ -99,9 +100,9 @@ def _check_no_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Exact softmax attention, the function of the JAX ``flash_attention``
-    without its TPU block sizes. q/k/v: (N, T, H, D), f32 or bf16, any
-    strides with D contiguous (views of one packed projection work as they
-    are). Returns a contiguous (N, T, H, D) tensor in q's dtype."""
+    without its TPU block sizes. q/k/v: (N, T, H, D), f32 or bf16, D
+    contiguous and rows 16-byte aligned (views of one packed projection, as
+    the encoder layer passes them, work as they are). Returns a contiguous (N, T, H, D) tensor in q's dtype."""
     global launches
     _check_no_grad(q, k, v)
     if q.device.type == "cpu":

@@ -5,8 +5,9 @@ Counterpart of ``srganfd_tpu/ops/pallas/rdb.py``. Both TPU entry points
 (``rdb_forward_pallas`` with H tiles, ``rdb_forward_pallas_v2`` with whole
 images per grid cell) compute one function; on Hopper one source,
 ``csrc/rdb.cu``, serves both, so the tiling arguments are gone. Its conv
-kernel is chosen by x's dtype: bf16 runs on the tensor cores (an implicit
-GEMM over ``mma.sync``), f32 on the CUDA cores.
+kernel is chosen by x's dtype; both run on the tensor cores as an implicit
+GEMM over ``mma.sync``: bf16 directly, f32 as split-precision 3xTF32 (each
+operand split into two TF32 halves, three products per pair).
 
 - :func:`rdb_forward` launches the kernel for a CUDA tensor and takes the
   plain version for a CPU tensor; any other device raises. There is no
@@ -34,7 +35,10 @@ import torch.nn.functional as F
 
 from srganfd_tpu_torch.ops.cuda.build import load_library
 
-__all__ = ["rdb_forward", "rdb_forward_ref", "rdb_apply", "pack_rdb_weights", "launches"]
+__all__ = [
+    "rdb_forward", "rdb_forward_ref", "rdb_apply", "pack_rdb_weights", "tf32_round", "split_tf32",
+    "launches",
+]
 
 launches = 0  # rdb_forward kernel calls in this process; reset by assigning 0
 
@@ -47,22 +51,44 @@ def _conv_shapes(ch: int, gc: int) -> list[tuple[int, int, int, int]]:
 
 
 _CHUNK = 16  # input channels per tensor-core k-step of the bf16 kernel
+_F32_CHUNK = 8  # input channels per k-step of the f32 (3xTF32) kernel
+_COUT_PAD = 16  # both kernels read couts in groups of 16
 
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """f32 ``t`` rounded to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero: ``cvt.rna.tf32.f32`` for finite values, and the
+    integer form the f32 kernel computes (add half of the dropped 13 bits'
+    range to the magnitude, then clear them)."""
+    u = t.float().contiguous().view(torch.int32)
+    return ((u + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``t`` as hi + lo, both TF32: ``|t - hi - lo| <= 2^-22 |t|``."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t.float() - hi)
+
+
 def _pack_one(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """One HWIO kernel in the order its conv reads it: ``[cin][3*3][cout]``
-    for the f32 (CUDA-core) kernel; for the bf16 (tensor-core) kernel
-    ``[cin/16][3*3][cout][16]``, the B fragments' order, with cin and cout
-    zero-padded to multiples of 16 (a half-filled last chunk reads zeros)."""
+    """One HWIO kernel in the order its conv reads it, the B fragments'
+    order, with cout zero-padded to a multiple of 16. bf16:
+    ``[cin/16][3*3][cout][16]``, cin zero-padded to a multiple of 16 (a
+    half-filled last chunk reads zeros). f32: ``[cin/8][hi, lo][3*3][cout][8]``,
+    the kernel split into its TF32 halves (:func:`split_tf32`)."""
     k = kernel.detach()
-    if dtype != torch.bfloat16:
-        return k.permute(2, 0, 1, 3).reshape(-1).to(dtype)
     cin, cout = k.shape[2], k.shape[3]
-    cin_p, cout_p = _round_up(cin, _CHUNK), _round_up(cout, _CHUNK)
+    cout_p = _round_up(cout, _COUT_PAD)
+    if dtype != torch.bfloat16:
+        cin_p = _round_up(cin, _F32_CHUNK)
+        parts = torch.stack(split_tf32(F.pad(k.float(), (0, cout_p - cout, 0, cin_p - cin))))
+        parts = parts.reshape(2, 9, cin_p // _F32_CHUNK, _F32_CHUNK, cout_p)
+        return parts.permute(2, 0, 1, 4, 3).reshape(-1)
+    cin_p = _round_up(cin, _CHUNK)
     k = F.pad(k.to(dtype), (0, cout_p - cout, 0, cin_p - cin))
     return k.reshape(9, cin_p // _CHUNK, _CHUNK, cout_p).permute(1, 0, 3, 2).reshape(-1)
 
@@ -70,8 +96,9 @@ def _pack_one(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def _packed_numel(ch: int, gc: int, dtype: torch.dtype) -> int:
     shapes = _conv_shapes(ch, gc)
     if dtype != torch.bfloat16:
-        return sum(9 * cin * cout for _, _, cin, cout in shapes)
-    return sum(9 * _round_up(cin, _CHUNK) * _round_up(cout, _CHUNK) for _, _, cin, cout in shapes)
+        return sum(2 * 9 * _round_up(cin, _F32_CHUNK) * _round_up(cout, _COUT_PAD)
+                   for _, _, cin, cout in shapes)
+    return sum(9 * _round_up(cin, _CHUNK) * _round_up(cout, _COUT_PAD) for _, _, cin, cout in shapes)
 
 
 def pack_rdb_weights(

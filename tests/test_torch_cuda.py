@@ -49,13 +49,14 @@ def _inputs(shape, gc, seed, device):
 @pytest.mark.parametrize(
     "shape,gc",
     [((2, 9, 13, 16), 8), ((1, 20, 33, 24), 16), ((16, 72, 72, 64), 32), ((3, 17, 23, 64), 32),
-     ((2, 37, 53, 24), 16), ((1, 20, 33, 40), 8)],
-    ids=["ch16", "ch24", "train72", "ragged17x23", "cin24_half_step", "cin40_half_step"],
+     ((2, 37, 53, 24), 16), ((1, 20, 33, 40), 8), ((2, 19, 13, 24), 8)],
+    ids=["ch16", "ch24", "train72", "ragged17x23", "cin24_half_step", "cin40_half_step", "ch24_gc8"],
 )
 def test_kernel_matches_plain_version(cuda, shape, gc, dtype):
-    """Small widths, and the bf16 tensor-core kernel's edges: 72 rows (a
-    ragged last 16-row tile), tiles ragged in both axes, and cin = 24, 40,
-    ... (a half-filled last 16-channel step)."""
+    """Small widths, and the tensor-core kernels' edges: 72 rows (a ragged
+    last 16-row tile), 16x8 pixel tiles ragged in both axes, cin = 24, 40,
+    ... (a half-filled last 16-channel step in bf16; 8-channel steps in
+    f32), and couts of 8 (gc 8: a cout tile of 16 half filled)."""
     x, ks, bs = _inputs(shape, gc, seed=0, device=cuda)
     x = x.to(dtype)
     before = rdb_mod.launches
@@ -164,8 +165,8 @@ def test_flash_kernel_matches_plain_version(cuda, shape, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_kernel_reads_strided_views(cuda, dtype):
     """q, k, v as views of one packed (N, T, 3, H, D) projection, as the
-    encoder layer passes them (16-byte aligned rows, as the bf16 kernel
-    needs): no copy, the same result."""
+    encoder layer passes them (16-byte aligned rows, as both kernels need):
+    no copy, the same result."""
     qkv = torch.randn(2, 77, 3, 4, 16, generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
     q, k, v = qkv.unbind(2)
     got = attn_mod.flash_attention(q, k, v)
@@ -185,10 +186,25 @@ def test_flash_bf16_rejects_rows_not_16_byte_aligned(cuda):
     with pytest.raises(ValueError, match="16-byte aligned"):
         attn_mod.flash_attention(q, strided, v)
     assert attn_mod.launches == before
-    # f32 keeps the CUDA-core kernel, which reads any strides with D contiguous
+    # f32 rows of 20 elements are 80 bytes: 16-byte aligned
     got = attn_mod.flash_attention(q.float(), strided.float(), v.float())
     torch.testing.assert_close(got, attn_mod.flash_attention_ref(q.float(), strided.float(), v.float()),
                                atol=1e-5, rtol=1e-5)
+
+
+def test_flash_f32_rejects_rows_not_16_byte_aligned(cuda):
+    """The 3xTF32 kernel loads K and V rows 16 bytes at a time: f32 rows
+    must start on 16 bytes (element strides multiples of 4)."""
+    q, k, v = _qkv((1, 8, 2, 16), 8, cuda)
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    shifted.copy_(k)
+    strided = torch.empty(1, 8, 2, 18, device=cuda)[..., :16]  # row stride 18
+    strided.copy_(v)
+    before = attn_mod.launches
+    for args in ((q, shifted, v), (q, k, strided), (shifted, k, v)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            attn_mod.flash_attention(*args)
+    assert attn_mod.launches == before
 
 
 def test_flash_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):

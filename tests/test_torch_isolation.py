@@ -1,6 +1,7 @@
 """The port stands alone: importing any module of ``srganfd_tpu_torch``
 pulls in no JAX and nothing of the JAX package, and no source of the
-port (nor ``chip_smoke.py``, which runs it on the card) names either."""
+port (nor ``chip_smoke.py`` and ``f32_step_study.py``, which run it on the
+card) names either."""
 
 import pathlib
 import re
@@ -11,7 +12,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "srganfd_tpu_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + [
+    ROOT / "chip_smoke.py", ROOT / "f32_step_study.py"]
 
 FORBIDDEN_IMPORT = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|orbax|srganfd_tpu(?!_torch))\b", re.M

@@ -189,10 +189,12 @@ def test_block_trains_and_repacks_after_each_optimizer_step():
 
 
 def test_pack_rdb_weights_layout():
-    """f32: each HWIO kernel in [cin][3*3][cout] order; bf16: in the
-    tensor-core kernel's [cin/16][3*3][cout][16] order with cin and cout
-    zero-padded to multiples of 16 (here cout = 8 for convs 1-4 and cin =
-    24, 40 for convs 1 and 3: half-filled steps); biases stay f32."""
+    """f32: each HWIO kernel split into TF32 hi and lo halves, in the 3xTF32
+    kernel's [cin/8][hi, lo][3*3][cout][8] order with cout zero-padded to a
+    multiple of 16; bf16: in the tensor-core kernel's [cin/16][3*3][cout][16]
+    order with cin and cout zero-padded to multiples of 16 (here cout = 8
+    for convs 1-4 and cin = 24, 40 for convs 1 and 3: half-filled steps);
+    biases stay f32."""
     _, ks, bs = _inputs((1, 1, 1, CH), seed=5)
     kernels = [torch.from_numpy(k) for k in ks]
     biases = [torch.from_numpy(v) for v in bs]
@@ -204,10 +206,16 @@ def test_pack_rdb_weights_layout():
     for k in range(5):
         cin, cout = ks[k].shape[2], ks[k].shape[3]
         want = torch.from_numpy(ks[k])
-        got = w32[off32 : off32 + cin * 9 * cout].reshape(cin, 3, 3, cout)
-        assert torch.equal(got, want.permute(2, 0, 1, 3))
-        off32 += cin * 9 * cout
-        cin_p, cout_p = -(-cin // 16) * 16, -(-cout // 16) * 16
+        cout_p = -(-cout // 16) * 16
+        got = w32[off32 : off32 + 2 * cin * 9 * cout_p].reshape(cin // 8, 2, 3, 3, cout_p, 8)
+        padded = torch.zeros(3, 3, cin, cout_p)
+        padded[..., :cout] = want
+        for part, half in enumerate(rdb_mod.split_tf32(padded)):
+            assert torch.equal(got[:, part], half.reshape(3, 3, cin // 8, 8, cout_p).permute(2, 0, 1, 4, 3))
+        hi_lo = (got[:, 0] + got[:, 1]).permute(1, 2, 0, 4, 3).reshape(3, 3, cin, cout_p)[..., :cout]
+        assert ((hi_lo - want).abs() <= want.abs() * 2.0**-21).all()
+        off32 += 2 * cin * 9 * cout_p
+        cin_p = -(-cin // 16) * 16
         got = w16[off16 : off16 + cin_p * 9 * cout_p].float().reshape(cin_p // 16, 3, 3, cout_p, 16)
         padded = torch.zeros(3, 3, cin_p, cout_p)
         padded[:, :, :cin, :cout] = want.to(torch.bfloat16).float()
