@@ -38,10 +38,14 @@ of 4 heads and FFN 2048 over the H/2 x W/2 tokens, ``--attn-chunk 1024
    model to it;
 5. ``bsrgantrans_x2`` infer: ``cli.infer --attn-chunk 1024 --attn-backend
    flash --half --batch 2`` on a directory;
-6. the filter2d kernel (the BSRGAN chain's blur) against ``filter2d_ref``
-   at the training shape (16, 320, 320, 3) with K = 25 and at ragged
-   shapes, with asymmetric kernels; CUDA-event times of the kernel, the
-   plain version and a cuDNN grouped convolution, beside the card's bound;
+6. the filter2d kernel (the BSRGAN chain's blur, 3xTF32 on the tensor
+   cores) against ``filter2d_ref`` at the training shape (16, 320, 320, 3)
+   with K = 25, on asymmetric kernels and on one plan's zero-padded
+   kernels, and at ragged shapes with K = 1, 7, 25 and 31; CUDA-event
+   times of the kernel, the plain version and a cuDNN grouped convolution
+   at the training shape, beside the card's bounds (f32 on the CUDA cores,
+   and as three TF32 products on the tensor cores), and on the plan's
+   kernels beside the bound of their nonzero taps;
 7. the RDB under autograd: ``rdb_apply``'s gradients against autograd
    through ``rdb_forward_ref`` at the training shape x (16, 72, 72, 64),
    f32 and bf16, and the time of one forward+backward;
@@ -51,9 +55,11 @@ of 4 heads and FFN 2048 over the H/2 x W/2 tokens, ``--attn-chunk 1024
    for a third; every forward must make 69 RDB kernel calls and every
    chain 2 filter2d kernel calls. Both checkpoints load as weights and
    ``cli.infer --use-ema`` serves a frame from one. One f32 step is run
-   again with both kernels swapped for their plain versions, from the
-   same state and batch, to hold the step to them (the LeakyReLU slopes
-   its backward takes differently, and the updated G, see ``train_phase``).
+   with the RDB kernel and again with ``rdb_forward_ref``, from the same
+   state on one batch (the chain's, with the filter2d kernel, held to the
+   plain chain's), to hold the step to the plain one
+   (``train/step_check.py``: the LeakyReLU slopes its backward takes
+   differently, and the updated G; see ``train_phase``).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after.
@@ -95,11 +101,6 @@ RDB_PER_FORWARD = 3 * NUM_RRDB
 FLASH_SHAPE = (1, 16384, 4, 16)
 ATTN_CHUNK = 1024
 ATTN_PER_FORWARD = 2
-# the f32 bsrnet step with the kernels against it with the plain versions
-# (see train_phase): LeakyReLU slopes its backward may take differently,
-# and the updated G's largest per-tensor relative difference
-F32_STEP_MAX_FLIPS = 250
-F32_STEP_MAX_G = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -715,23 +716,31 @@ def asymmetric_kernels(n: int, k: int, seed: int) -> torch.Tensor:
 
 
 def filter2d_kernel_phase(f2d) -> dict:
-    """filter2d vs filter2d_ref at the chain's shape and ragged ones, then
-    times at the chain's shape."""
+    """filter2d vs filter2d_ref at the chain's shape and ragged ones, with
+    K from 1 to 31 and the chain's own zero-padded kernels, then times at
+    the chain's shape."""
     import torch.nn.functional as F
 
+    from srganfd_tpu_torch.ops.degrade import plan_bsrgan_batch
+
+    # the chain's kernels: one plan's first blurs, every size 7..25 centred
+    # in a zero 25 x 25 frame
+    plan_ks = torch.from_numpy(plan_bsrgan_batch(np.random.default_rng(220), FILTER_SHAPE[0], 2).kernels_a).cuda()
+    cases = [(FILTER_SHAPE, FILTER_K, None), (FILTER_SHAPE, FILTER_K, plan_ks), ((3, 37, 53, 3), 1, None),
+             ((3, 37, 53, 3), 7, None), ((3, 37, 53, 3), 25, None), ((3, 37, 53, 3), 31, None)]
     err = 0.0
-    for i, (shape, k) in enumerate([(FILTER_SHAPE, FILTER_K), ((3, 37, 53, 3), 7),
-                                    ((3, 37, 53, 3), 25)]):
+    for i, (shape, k, ks) in enumerate(cases):
         x = torch.rand(shape, generator=torch.Generator().manual_seed(200 + i)).cuda()
-        ks = asymmetric_kernels(shape[0], k, seed=300 + i)
+        ks = asymmetric_kernels(shape[0], k, seed=300 + i) if ks is None else ks
         got = f2d.filter2d(x, ks)
         torch.cuda.synchronize()
         want = f2d.filter2d_ref(x, ks)
         e = (got - want).abs().max().item()
         err = max(err, e)
-        print(f"filter2d {shape} K={k} f32: max abs {e:.3g} (|out| <= {want.abs().max().item():.3g})",
-              flush=True)
-        # the same f32 products, summed in another order; TF32 is off
+        print(f"filter2d {shape} K={k}{' (plan)' if i == 1 else ''} f32: max abs {e:.3g} "
+              f"(|out| <= {want.abs().max().item():.3g})", flush=True)
+        # the kernel takes each product as three TF32 ones (~2^-22 relative
+        # dropped) and sums in another order; TF32 is off for the plain version
         check(e <= 1e-5, f"filter2d {shape} K={k}: max abs {e}")
 
     x = torch.rand(FILTER_SHAPE, generator=torch.Generator().manual_seed(210)).cuda()
@@ -749,28 +758,59 @@ def filter2d_kernel_phase(f2d) -> dict:
         library_ms = cuda_ms(lambda: F.conv2d(xpad, weight, groups=n * c))
     flops = 2 * n * h * w * c * FILTER_K * FILTER_K
     bytes_moved = 4 * (2 * n * h * w * c + n * FILTER_K * FILTER_K)  # images in, out, taps
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, bytes_moved / PEAK_HBM_BYTES * 1e3
+    t_bytes = bytes_moved / PEAK_HBM_BYTES * 1e3
+    # f32 products on the CUDA cores, or three TF32 products each on the
+    # tensor cores, as the kernel takes them
+    bound_f32_ms = max(flops / PEAK_F32_FLOPS * 1e3, t_bytes)
+    bound_tf32_ms = max(TF32_PRODUCTS * flops / PEAK_TF32_FLOPS * 1e3, t_bytes)
     print(
-        f"filter2d timing at {FILTER_SHAPE} K={FILTER_K} f32: kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, cuDNN grouped conv {library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-        f"({flops:.3e} FLOP at the f32 CUDA-core peak, {bytes_moved:.3e} B: {t_bytes:.4f} ms), "
-        f"{flops / kernel_ms / 1e9:.1f} TFLOP/s",
+        f"filter2d timing at {FILTER_SHAPE} K={FILTER_K} f32: kernel (3xTF32) {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, cuDNN grouped conv {library_ms:.4f} ms; bound {bound_tf32_ms:.4f} ms as "
+        f"{TF32_PRODUCTS} TF32 products on the tensor cores, {bound_f32_ms:.4f} ms on the CUDA cores "
+        f"({flops:.3e} FLOP, {bytes_moved:.3e} B: {t_bytes:.4f} ms); {flops / kernel_ms / 1e9:.1f} TFLOP/s "
+        f"of f32 products, {100 * bound_tf32_ms / kernel_ms:.1f}% of the lower bound",
+        flush=True,
+    )
+    # the chain's own kernels: the kernel skips their rows of zero taps, so
+    # the bound counts the products of the nonzero taps of each
+    with torch.inference_mode():
+        plan_ms = cuda_ms(lambda: f2d.filter2d(x, plan_ks))
+        plan_plain_ms = cuda_ms(lambda: f2d.filter2d_ref(x, plan_ks))
+    plan_flops = 2 * h * w * c * int((plan_ks != 0).sum())
+    plan_bound_ms = max(TF32_PRODUCTS * plan_flops / PEAK_TF32_FLOPS * 1e3, t_bytes)
+    rows_live = (plan_ks != 0).any(-1).float().mean().item()
+    print(
+        f"filter2d timing at {FILTER_SHAPE} on one plan's kernels (sizes 7..25 zero-padded to 25: "
+        f"{100 * plan_flops / flops:.1f}% of the taps, {100 * rows_live:.1f}% of the rows nonzero): kernel "
+        f"{plan_ms:.4f} ms, plain {plan_plain_ms:.4f} ms; bound on the nonzero taps {plan_bound_ms:.4f} ms "
+        f"as {TF32_PRODUCTS} TF32 products, {100 * plan_bound_ms / plan_ms:.1f}% of it",
         flush=True,
     )
     return {
         "name": "filter2d",
         "route": "cuda",
-        "design": "f32: CUDA cores (direct reflect-101 stencil, f32 FMA)",
+        "design": "f32: tensor cores, a banded GEMM per kernel row (A: staged input rows, B: the "
+                  "Toeplitz band of the row's taps, 8 + K - 1 deep) as split-precision 3xTF32 "
+                  "(mma.sync.m16n8k8 tf32->f32, three products per fragment pair); rows of zero "
+                  "taps skipped",
         "source": "srganfd_tpu_torch/csrc/filter2d.cu",
         "replaces": "srganfd_tpu/ops/pallas/filter2d.py:54",
         "max_abs_err": err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": bound_tf32_ms,
+        "bound_by": "operations" if bound_tf32_ms > t_bytes else "bytes",
+        "bound_f32_ms": bound_f32_ms,
+        "bound_f32_tf32_ms": bound_tf32_ms,
         "tflops": flops / kernel_ms / 1e9,
-        "share_of_bound": max(t_ops, t_bytes) / kernel_ms,
+        "share_of_bound": bound_tf32_ms / kernel_ms,
+        "share_of_bound_f32": bound_f32_ms / kernel_ms,
+        "plan_ms": plan_ms,
+        "plan_plain_ms": plan_plain_ms,
+        "plan_bound_ms": plan_bound_ms,
+        "plan_nonzero_tap_share": plan_flops / flops,
+        "plan_nonzero_row_share": rows_live,
         "shape": list(FILTER_SHAPE),
         "k": FILTER_K,
         "dtype": "float32",
@@ -835,40 +875,29 @@ def write_gt_frames(d: str, n: int, size: int, seed: int) -> None:
         cv2.imwrite(os.path.join(d, f"gt_{i:03d}.png"), (img * 255).astype(np.uint8))
 
 
-def rdb_preactivations(x, kernels, biases):
-    """The four LeakyReLU inputs of one RDB as its backward recomputes them
-    (``rdb_forward_ref``'s f32 path), each (N, gc, H, W)."""
-    import torch.nn.functional as F
-
-    feats, zs = [x.float().permute(0, 3, 1, 2)], []
-    for k in range(4):
-        w = kernels[k].float().permute(3, 2, 0, 1)
-        z = F.conv2d(torch.cat(feats, 1), w, biases[k].float(), padding=1)
-        zs.append(z)
-        feats.append(F.leaky_relu(z, 0.2))
-    return zs
-
-
-def slope_flips(rdbs_a, rdbs_b) -> list[int]:
-    """Per RDB, the LeakyReLU slopes that two runs' backwards take
-    differently: elements of the recomputed pre-activations, at each run's
-    RDB input, whose signs differ. ``rdbs_*``: (x, kernels, biases) per RDB."""
-    return [sum(int(((za > 0) != (zb > 0)).sum())
-                for za, zb in zip(rdb_preactivations(*a), rdb_preactivations(*b)))
-            for a, b in zip(rdbs_a, rdbs_b)]
-
-
 def f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters) -> dict:
-    """One full-width f32 bsrnet step from the seeded init on one host
-    batch, with both kernels and then with rdb_forward_ref and filter2d_ref
-    swapped in (a switch of this script only): the chain's LR, the loss and
-    the updated G, and the slope flips between the two backwards."""
+    """One full-width f32 bsrnet step from the seeded init, with the RDB
+    kernel and then with rdb_forward_ref swapped in (a switch of this script
+    only), on one batch: the chain's, with the filter2d kernel, whose LR is
+    held to the plain chain's apart. The readings of
+    ``train.step_check``: the chain's LR, the loss, the slope flips between
+    the two backwards and the updated G outside and inside the flipped
+    channels."""
     from srganfd_tpu_torch.cli.degrade_adapter import DegradationAdapter
+    from srganfd_tpu_torch.train import step_check
     from srganfd_tpu_torch.train.loop import Trainer
 
     cfg = cfg.replace(compute_dtype="float32")
-    runs = []
     orig = blocks.rdb_apply, filters.filter2d
+    before = f2d.launches
+    batch = DegradationAdapter(cfg, seed=cfg.seed, train=True, device="cuda")(host, 0)
+    check(f2d.launches - before == FILTERS_PER_CHAIN, f"the f32 chain made {f2d.launches - before} filter2d calls")
+    filters.filter2d = f2d.filter2d_ref
+    try:
+        plain_lr = DegradationAdapter(cfg, seed=cfg.seed, train=True, device="cuda")(host, 0)["lr"]
+    finally:
+        filters.filter2d = orig[1]
+    runs = []
     try:
         for plain in (False, True):
             seen = []
@@ -878,34 +907,30 @@ def f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters) -> dict:
                 return rdb.rdb_forward_ref(x, k, b) if plain else orig[0](x, k, b, packed)
 
             blocks.rdb_apply = recorded
-            if plain:
-                filters.filter2d = f2d.filter2d_ref
             trainer = Trainer(cfg, steps_per_epoch=TRAIN_STEPS_PER_EPOCH, device="cuda")
             state = trainer.init_state()
-            before = rdb.launches, f2d.launches
-            batch = DegradationAdapter(cfg, seed=cfg.seed, train=True, device="cuda")(host, 0)
+            before = rdb.launches
             loss = trainer.train_step(state, batch["gt"], batch["lr"])["pixel_loss"].item()
-            made = rdb.launches - before[0], f2d.launches - before[1]
-            check(made == ((0, 0) if plain else (RDB_PER_FORWARD, FILTERS_PER_CHAIN)),
-                  f"f32 step (plain={plain}) made {made} kernel calls")
-            runs.append((batch["lr"].clone(), loss,
-                         {k: v.detach().clone() for k, v in state.g_model.state_dict().items()}, seen))
-            del trainer, state, batch
+            made = rdb.launches - before
+            check(made == (0 if plain else RDB_PER_FORWARD), f"f32 step (plain={plain}) made {made} rdb calls")
+            names = [n for n, m in state.g_model.named_modules() if isinstance(m, blocks.ResidualDenseBlock)]
+            runs.append((loss, {k: v.detach().clone() for k, v in state.g_model.state_dict().items()}, seen))
+            del trainer, state
     finally:
-        blocks.rdb_apply, filters.filter2d = orig
-    (lr_k, loss_k, g_k, rdbs_k), (lr_p, loss_p, g_p, rdbs_p) = runs
-    rel = {k: ((g_k[k] - g_p[k]).abs().max() / g_p[k].abs().max().clamp_min(1e-12)).item() for k in g_p}
-    worst = max(rel, key=rel.get)
-    flips = slope_flips(rdbs_k, rdbs_p)
-    out = {"lr_max_abs": (lr_k - lr_p).abs().max().item(), "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
-           "g_max_rel": rel[worst], "g_worst": worst, "slope_flips": sum(flips),
-           "rdbs_with_flips": sum(f > 0 for f in flips),
-           "preactivations": RDB_PER_FORWARD * sum(z.numel() for z in rdb_preactivations(*rdbs_p[0]))}
-    print(f"f32 bsrnet step, kernels vs plain versions: chain LR max abs {out['lr_max_abs']:.3g}, loss "
-          f"{loss_k:.7f} vs {loss_p:.7f} (relative {out['loss_rel']:.3g}), updated G max relative "
-          f"{rel[worst]:.3g} ({worst}); LeakyReLU slopes the backwards take differently: "
-          f"{out['slope_flips']} of {out['preactivations']}, in {out['rdbs_with_flips']} of "
-          f"{RDB_PER_FORWARD} RDBs", flush=True)
+        blocks.rdb_apply = orig[0]
+    (loss_k, g_k, rdbs_k), (loss_p, g_p, rdbs_p) = runs
+    flips, channels = step_check.slope_flips(rdbs_k, rdbs_p)
+    out = {"lr_max_abs": (batch["lr"] - plain_lr).abs().max().item(), "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
+           "slope_flips": sum(flips), "rdbs_with_flips": sum(f > 0 for f in flips),
+           "preactivations": RDB_PER_FORWARD * sum(z.numel() for z in step_check.rdb_preactivations(*rdbs_p[0])),
+           **step_check.g_agreement(g_k, g_p, step_check.flipped_channels(names, channels))}
+    print(f"f32 bsrnet step, kernels vs plain versions on one batch: chain LR (filter2d kernel vs plain) max "
+          f"abs {out['lr_max_abs']:.3g}, loss {loss_k:.7f} vs {loss_p:.7f} (relative {out['loss_rel']:.3g}); "
+          f"LeakyReLU slopes the backwards take differently: {out['slope_flips']} of {out['preactivations']}, "
+          f"in {out['rdbs_with_flips']} of {RDB_PER_FORWARD} RDBs; updated G per tensor max relative "
+          f"{out['g_outside']:.3g} outside the flipped channels ({out['g_outside_worst']}), "
+          f"{out['g_inside']:.3g} inside ({out['g_inside_worst']}, {out['g_excluded_elements']} elements)",
+          flush=True)
     return out
 
 
@@ -919,6 +944,7 @@ def train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
     from srganfd_tpu_torch.data.datasets import BatchLoader
     from srganfd_tpu_torch.models import create_model
     from srganfd_tpu_torch.ops.degrade import apply_bsrgan_batch_cropped, bsrgan_lr_size, plan_bsrgan_batch
+    from srganfd_tpu_torch.train import step_check
     from srganfd_tpu_torch.train.loop import Trainer
     from srganfd_tpu_torch.train.state import ema_update
 
@@ -1061,24 +1087,24 @@ def train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
           flush=True)
     del model, state, result, trainer
 
-    # One f32 step held to the plain versions: the chain's LR and the loss
-    # to 1e-5. The updated G cannot be held to 1e-5: any forward that does
-    # not round as cuDNN does makes the backward take a few dozen LeakyReLU
-    # slopes differently, and one such flip moves a trunk bias's update,
-    # which starts at zero, by 4e-6 to 2.4e-4 of itself. An exactly summed
-    # f32 forward does the same, and no limit on G tells it from a forward
-    # with one TF32 product (f32_step_study.py, PERF.md §6). The flips
-    # themselves do: 21-44 for the kernels and for the exact forward,
-    # 1391-1466 for one TF32 product, over 4 states x 2 batches in three
-    # runs; F32_STEP_MAX_FLIPS is near their geometric midpoint. G is held
-    # to F32_STEP_MAX_G, above every reading of a correct forward (2.4e-4
-    # at most), for what a step can get grossly wrong: a gradient lost or
-    # misrouted.
+    # One f32 step held to the plain one (train/step_check.py's LIMITS): the
+    # chain's LR and the loss to 1e-5; both steps take the kernel chain's
+    # batch, so they differ only in the RDB forward. A forward that does not
+    # round as cuDNN does makes the backward take a few dozen LeakyReLU
+    # slopes differently (20-44 for the kernels and for an exactly summed
+    # forward, ~1400 for one TF32 product; held to 250), and one flip moves
+    # a zero-started bias's update by up to ~2.4e-4 of itself: G is held to
+    # 1e-3, above every correct reading, for a gradient lost or misrouted.
+    # G to 1e-5 outside the flipped channels (CHANNEL_RULE) is printed, not
+    # held: flips after the trunk reach every trunk bias, and no excluded
+    # set passes every correct reading and fails a planted 1e-4 fault
+    # (f32_step_study.py, PERF.md section 6).
     f32 = f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters)
-    check(f32["lr_max_abs"] <= 1e-5, f"f32 chain, filter2d kernel vs plain: {f32['lr_max_abs']}")
-    check(f32["loss_rel"] <= 1e-5, f"f32 step vs plain: loss {f32['loss_rel']}")
-    check(f32["slope_flips"] <= F32_STEP_MAX_FLIPS, f"f32 step vs plain: {f32['slope_flips']} slope flips")
-    check(f32["g_max_rel"] <= F32_STEP_MAX_G, f"f32 step vs plain: G {f32['g_max_rel']} ({f32['g_worst']})")
+    failed = step_check.step_check_failures(f32, step_check.LIMITS)
+    check(not failed, f"f32 step vs plain: {failed}")
+    f32["channel_rule_failures"] = step_check.step_check_failures(f32, step_check.CHANNEL_RULE)
+    print(f"f32 step, G to 1e-5 outside the flipped channels (not held): "
+          f"{f32['channel_rule_failures'] or 'passes'}", flush=True)
 
     out_png = os.path.join(work, "train_sr.png")
     rdb.launches = 0

@@ -1,4 +1,5 @@
-// Per-sample 2-D filter for Hopper (sm_90a), bound through ctypes.
+// Per-sample 2-D filter for Hopper (sm_90a) on the tensor cores, bound
+// through ctypes.
 //
 // Replaces the TPU kernel `filter2d_pallas` (srganfd_tpu/ops/pallas/filter2d.py,
 // body `_filter_kernel`), which computes `ops.filters.filter2d`, the blur of
@@ -9,52 +10,95 @@
 // images (N, H, W, C) f32 channels-last, kernels (N, K, K) f32 with K odd,
 // xpad the image reflect-101-padded by K/2 on both spatial axes (the edge
 // pixel is not repeated, as in jnp.pad / F.pad mode="reflect"; needs
-// K/2 < H and K/2 < W). A correlation: the kernel is not flipped. Products
-// and sums in f32 (the JAX chain asks for Precision.HIGHEST), summed over
-// dy then dx.
-//
-// Design (simple first): one block per (sample, 32x32 output tile). The
-// tile and its K-1 halo are staged in shared memory one chunk of up to 3
-// channels at a time (the chain has C = 3), with the reflect-101 index map
-// resolved during the load, so no padded copy of the image is ever made;
-// the sample's K*K taps sit in shared memory too and are read as
-// broadcasts. Each of the 128 threads owns 8 adjacent output columns of one
-// row: for each tap row it loads the 8 + K - 1 input values it needs into
-// registers once and runs K * 8 FMAs per channel on them (the tap loop is
-// unrolled, K is a template argument), about 5 FMAs per shared-memory
-// load. Rows of the staged planes are padded to 1 mod 32 floats so the 32
-// lanes of a warp (8 rows x 4 column groups) hit 32 distinct banks. Ragged
-// edge tiles are masked at the store.
-//
-// The TPU kernel's banded-Toeplitz matmuls are not carried over: they exist
-// to feed the MXU and inflate the work by (W + K - 1) / K.
+// K/2 < H and K/2 < W). A correlation: the kernel is not flipped. f32
+// operands and sums (the JAX chain asks for Precision.HIGHEST).
 //
 // Bound at the chain's shape, (16, 320, 320, 3) with K = 25: 16 * 320 *
 // 320 * 3 * 625 MAC = 6.14e9 FLOP, 0.092 ms at the H100's 67 TFLOP/s f32
-// CUDA-core peak, against 0.012 ms for the 2 x 19.7 MB that must move at
-// 3.35 TB/s: bound by the f32 operations (no TF32: the products must be
-// f32). What this design leaves on the table: shared-memory loads still
-// share the issue slots with the FMAs, and the staging loads are 12-byte
-// strided (C = 3 channels-last).
+// CUDA-core peak, or 0.037 ms as three TF32 products per pair at 495
+// TFLOP/s, against 0.012 ms for the 2 x 19.7 MB that must move at 3.35
+// TB/s: bound by the operations. On the chain's own kernels (rows of zero
+// taps skipped, below) the operations are those of the nonzero rows.
+//
+// Design: a banded GEMM per kernel row on mma.sync.m16n8k8 TF32, in
+// split-precision 3xTF32. For kernel row dy and 8 output columns from x0,
+//   out[y, x0 + n] += sum_j A[y, j] B[j, n],
+//   A[y, j] = xpad[y + dy, x0 + j],  B[j, n] = k[dy, j - n] (0 outside 0..K-1),
+// a Toeplitz band of depth 8 + K - 1, rounded up to S k-steps of 8 (32 for
+// K = 25: 25 of every 32 issued products are useful). B does not depend on
+// x0 or y, so a warp reads each B fragment once per kernel row for all its
+// output columns; A fragments of adjacent 8-column groups overlap (k-step
+// s of group g + 1 is k-step s + 1 of group g), so a warp computing G = 10
+// groups reads G + S - 1 A fragments per kernel row for G * S k-steps. The
+// TPU kernel's bands as wide as the image (work x (W + K - 1) / K) are not
+// carried over.
+//
+// - 3xTF32: every operand x ~ hi + lo, both TF32 (tf32_rna below, the
+//   rounding of csrc/rdb.cu); each pair takes lo*hi + hi*lo + hi*hi. The
+//   taps are split once per block into a (hi, lo) table; an A value is
+//   split when its fragment is read (8-byte shared-memory reads of f32:
+//   half the traffic of staged (hi, lo) pairs, and the planes fit two
+//   blocks an SM). Each kernel row's products go into a fresh accumulator
+//   that is then added to the running sum in f32: the tensor cores' f32
+//   accumulation does not round to nearest, and its error grows with the
+//   chain.
+// - k-slot order: in each k-step, mma k-slot t holds column 2t and slot
+//   t + 4 column 2t + 1, so a lane's a0/a2 (and a1/a3) are adjacent
+//   columns, one 8-byte read; b0 = k[dy, 8s + 2t - g], b1 = k[dy, 8s + 2t +
+//   1 - g] (g = lane / 4, t = lane % 4), two adjacent table entries.
+// - Issue order: a warp issues in order, so each A fragment's products go
+//   round the (up to S) groups that use it before the next product: one
+//   accumulator is not written by two mma in a row.
+// - Rows of zero taps are skipped (a warp vote per kernel row): on finite
+//   input they add nothing, and the chain's kernels of 7..25 zero-padded
+//   to 25 have 57% of their rows nonzero. (On Inf or NaN input the plain
+//   version can give NaN where the kernel does not.)
+// - Tiles: one block per (sample, 32 x 80 output tile), six warps, one per
+//   (16-row m-tile, channel), up to 3 channels staged together (C = 3 in
+//   the chain; wider C takes several passes); two blocks an SM for K <= 31
+//   (78 KB of shared memory at K = 25), so one block's staging overlaps
+//   the other's products.
+// - Staging: the tile and its K - 1 halo, (32 + K - 1) rows of 80 + 8(S - 1)
+//   columns, one pixel (its channels) a thread, adjacent threads on
+//   adjacent pixels, each channel into its own f32 plane; reflect-101 is
+//   resolved during the load, so no padded copy is made. Plane rows are 8
+//   mod 32 floats, so a half-warp's 8-byte A reads (rows g .. g + 3) cover
+//   all 32 banks.
+// - Stores go straight from the accumulators, masked at ragged edges.
+//   Measured against the alternatives (PERF.md, section 6): 16-byte staging
+//   loads, one float a thread, a persistent kernel staging the next tile
+//   with cp.async, and the output written through shared memory as
+//   contiguous runs were each slower at the chain's K = 25.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TH = 32;                 // output tile rows
-constexpr int TW = 32;                 // output tile columns
-constexpr int PX = 8;                  // output columns per thread
-constexpr int CP = 3;                  // channels staged per pass
-constexpr int THREADS = TH * TW / PX;  // 128
 constexpr int KMAX = 31;               // largest K taken
+constexpr int G = 10;                  // 8-column groups per warp
+constexpr int TW = 8 * G;              // output tile columns: 80
+constexpr int MT = 2;                  // 16-row m-tiles per tile
+constexpr int TH = 16 * MT;            // output tile rows: 32
+constexpr int CP = 3;                  // channels staged per pass
+constexpr int WARPS = MT * CP;         // one per (m-tile, channel)
+constexpr int THREADS = 32 * WARPS;    // 192
+constexpr int UNROLL = 8;              // staged pixels in flight per thread
 
-static_assert(TW / PX == 4, "bank layout below assumes 4 column groups per row");
-
-// staged row length: at least TW + K - 1 floats, and 1 mod 32
-__host__ __device__ constexpr int staged_width(int k) {
-  return ((TW + k - 1 + 30) / 32) * 32 + 1;
-}
+template <int K>
+struct Geom {
+  static constexpr int PAD = K / 2;
+  static constexpr int S = (K + 14) / 8;       // k-steps of a band: ceil((8 + K - 1) / 8)
+  static constexpr int TWK = TW + K - 1;       // columns the tile's outputs read
+  static constexpr int SW = TW + 8 * (S - 1);  // staged columns; those >= TWK are zero
+  static constexpr int LD = SW + (40 - SW % 32) % 32;  // floats a plane row: 8 mod 32
+  static constexpr int SH = TH + K - 1;        // staged rows
+  static constexpr int PLANE = SH * LD + (42 - SH * LD % 32) % 32;  // plane stride: 10 mod 32
+  static constexpr int NE = 8 * S + 8;         // (hi, lo) tap entries a kernel row
+  static constexpr size_t SMEM = sizeof(float) * (2 * K * NE + CP * PLANE);
+  static_assert(LD % 32 == 8, "8-byte A reads of rows g .. g + 3 take other banks");
+  static_assert(SMEM <= 232448, "above a block's shared memory");
+};
 
 __device__ __forceinline__ int reflect101(int i, int n) {
   i = i < 0 ? -i : i;
@@ -63,74 +107,168 @@ __device__ __forceinline__ int reflect101(int i, int n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
-template <int K>
-__global__ void __launch_bounds__(THREADS)
-filter2d_kernel(const float* __restrict__ images, const float* __restrict__ kernels,
-                float* __restrict__ out, int h, int w, int c, int tiles_x) {
-  constexpr int PAD = K / 2;
-  constexpr int SH = TH + K - 1;
-  constexpr int SW = staged_width(K);
-  extern __shared__ float smem[];
-  float* s_k = smem;                 // K*K taps
-  float* s_in = smem + K * K;        // CP planes of SH x SW
+// x rounded to TF32 (10 explicit mantissa bits) to nearest, ties away from
+// zero, as cvt.rna.tf32.f32 does for finite x (csrc/rdb.cu's rounding)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
 
-  const int tid = threadIdx.x;
-  const int row = tid / (TW / PX);          // 0..31
-  const int col0 = (tid % (TW / PX)) * PX;  // 0, 8, 16, 24
+// x ~ hi + lo, both TF32, |x - hi - lo| <= 2^-22 |x|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c (16x8 f32) += a (16x8 tf32, row) * b (8x8 tf32, col)
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a * b, the first product of a fresh accumulator
+__device__ __forceinline__ void mma_tf32_first(float* d, const uint32_t* a, uint32_t b0,
+                                               uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+template <int K>
+__global__ void __launch_bounds__(THREADS, 2)
+filter2d_tf32_kernel(const float* __restrict__ images, const float* __restrict__ kernels,
+                     float* __restrict__ out, int h, int w, int c, int tiles_x) {
+  using Gm = Geom<K>;
+  constexpr int PAD = Gm::PAD, S = Gm::S, TWK = Gm::TWK, SW = Gm::SW, LD = Gm::LD;
+  constexpr int SH = Gm::SH, PLANE = Gm::PLANE, NE = Gm::NE;
+  extern __shared__ __align__(16) float smem[];
+  float2* s_tap = reinterpret_cast<float2*>(smem);  // K x NE (hi, lo)
+  float* s_in = smem + 2 * K * NE;                  // CP planes of SH x LD, PLANE apart
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int cp = warp % CP, y0 = 16 * (warp / CP);
   const int n = blockIdx.y;
-  const int ty0 = (blockIdx.x / tiles_x) * TH;
-  const int tx0 = (blockIdx.x % tiles_x) * TW;
+  const int ty0 = (blockIdx.x / tiles_x) * TH, tx0 = (blockIdx.x % tiles_x) * TW;
+  const int gx0 = tx0 - PAD;  // image column of staged column 0
   const float* img = images + (size_t)n * h * w * c;
 
-  for (int i = tid; i < K * K; i += THREADS) s_k[i] = kernels[(size_t)n * K * K + i];
+  // the sample's taps split once: entry e of row dy holds k[dy, e - 8]
+  // (zero outside 0..K-1)
+  const float* kn = kernels + (size_t)n * K * K;
+  for (int i = tid; i < K * NE; i += THREADS) {
+    const int dy = i / NE, d = i % NE - 8;
+    uint32_t hi, lo;
+    split_tf32(d >= 0 && d < K ? kn[dy * K + d] : 0.f, hi, lo);
+    s_tap[i] = make_float2(__uint_as_float(hi), __uint_as_float(lo));
+  }
 
   for (int c0 = 0; c0 < c; c0 += CP) {
-    const int cc = c - c0 < CP ? c - c0 : CP;
-    __syncthreads();  // the previous pass has finished reading s_in
-    for (int i = tid; i < SH * (TW + K - 1); i += THREADS) {
-      const int r = i / (TW + K - 1), q = i % (TW + K - 1);
-      const int gy = reflect101(ty0 - PAD + r, h);
-      const int gx = reflect101(tx0 - PAD + q, w);
-      const float* src = img + ((size_t)gy * w + gx) * c + c0;
-      for (int cp = 0; cp < cc; ++cp) s_in[(cp * SH + r) * SW + q] = src[cp];
-    }
-    __syncthreads();
-
-    float acc[CP][PX];
+    const int cc = min(CP, c - c0);
+    __syncthreads();  // the taps are written; the previous pass is done with s_in
+    // stage pixel (row r, column q): one thread loads its cc channels,
+    // adjacent threads adjacent pixels; reflect-101 resolved here
+    for (int i0 = tid; i0 < SH * SW; i0 += THREADS * UNROLL) {
+      float v[UNROLL][CP];
 #pragma unroll
-    for (int cp = 0; cp < CP; ++cp)
+      for (int u = 0; u < UNROLL; ++u) {
+        const int i = i0 + u * THREADS, r = i / SW, q = i % SW;
+        const bool ok = i < SH * SW && q < TWK;
+        const float* src =
+            img + ((size_t)reflect101(ty0 - PAD + r, h) * w + reflect101(gx0 + q, w)) * c + c0;
 #pragma unroll
-      for (int p = 0; p < PX; ++p) acc[cp][p] = 0.f;
-
-#pragma unroll 1
-    for (int dy = 0; dy < K; ++dy) {
-      const float* tap = s_k + dy * K;
+        for (int p = 0; p < CP; ++p) v[u][p] = ok && p < cc ? __ldg(src + p) : 0.f;
+      }
 #pragma unroll
-      for (int cp = 0; cp < CP; ++cp) {
-        if (cp >= cc) break;
-        const float* line = s_in + (cp * SH + row + dy) * SW + col0;
-        float in[PX + K - 1];
+      for (int u = 0; u < UNROLL; ++u) {
+        const int i = i0 + u * THREADS, r = i / SW, q = i % SW;
+        if (i >= SH * SW) break;
 #pragma unroll
-        for (int i = 0; i < PX + K - 1; ++i) in[i] = line[i];
-#pragma unroll
-        for (int dx = 0; dx < K; ++dx) {
-          const float kv = tap[dx];
-#pragma unroll
-          for (int p = 0; p < PX; ++p) acc[cp][p] = fmaf(in[p + dx], kv, acc[cp][p]);
-        }
+        for (int p = 0; p < CP; ++p)
+          if (p < cc) s_in[p * PLANE + r * LD + q] = v[u][p];
       }
     }
+    __syncthreads();
+    if (cp >= cc || ty0 + y0 >= h) continue;
 
-    const int gy = ty0 + row;
-    if (gy < h) {
+    float acc[G][4];
 #pragma unroll
-      for (int p = 0; p < PX; ++p) {
-        const int gx = tx0 + col0 + p;
-        if (gx >= w) break;
-        float* dst = out + (((size_t)n * h + gy) * w + gx) * c + c0;
+    for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-        for (int cp = 0; cp < CP; ++cp)
-          if (cp < cc) dst[cp] = acc[cp][p];
+      for (int i = 0; i < 4; ++i) acc[gi][i] = 0.f;
+    const float* plane = s_in + cp * PLANE + (y0 + g) * LD + 2 * t;
+#pragma unroll 1
+    for (int dy = 0; dy < K; ++dy) {
+      // a kernel row of zero taps adds nothing (on finite input): the
+      // chain's kernels of 7..25 zero-padded to 25 have 57% of rows nonzero
+      const float2 tap = s_tap[dy * NE + 8 + (lane < K ? lane : 0)];
+      if (!__any_sync(0xffffffffu, lane < K && (tap.x != 0.f || tap.y != 0.f))) continue;
+      // B fragments of kernel row dy, k-step s: b0 = k[dy, 8s + 2t - g],
+      // b1 = k[dy, 8s + 2t + 1 - g], hi and lo
+      uint32_t bh[S][2], bl[S][2];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float2 b = s_tap[dy * NE + 8 * s + 2 * t + j - g + 8];
+          bh[s][j] = __float_as_uint(b.x), bl[s][j] = __float_as_uint(b.y);
+        }
+      }
+      const float* rows = plane + dy * LD;
+      float part[G][4];
+#pragma unroll
+      for (int f = 0; f < G + S - 1; ++f) {
+        // A fragment f: columns 8f + 2t, 8f + 2t + 1 of rows g, g + 8,
+        // split into TF32 halves
+        const float2 a = *reinterpret_cast<const float2*>(rows + 8 * f);
+        const float2 d = *reinterpret_cast<const float2*>(rows + 8 * LD + 8 * f);
+        uint32_t ah[4], al[4];
+        split_tf32(a.x, ah[0], al[0]);
+        split_tf32(d.x, ah[1], al[1]);
+        split_tf32(a.y, ah[2], al[2]);
+        split_tf32(d.y, ah[3], al[3]);
+        // group gi = f - s at k-step s; a warp issues in order, so one
+        // product goes to each of the (up to S) groups before the next
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const int gi = f - s;
+          if (gi < 0 || gi >= G) continue;
+          if (s == 0) {
+            mma_tf32_first(part[gi], al, bh[s][0], bh[s][1]);
+          } else {
+            mma_tf32(part[gi], al, bh[s][0], bh[s][1]);
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const int gi = f - s;
+          if (gi >= 0 && gi < G) mma_tf32(part[gi], ah, bl[s][0], bl[s][1]);
+        }
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const int gi = f - s;
+          if (gi >= 0 && gi < G) mma_tf32(part[gi], ah, bh[s][0], bh[s][1]);
+        }
+      }
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[gi][i] += part[gi][i];
+    }
+
+    // c0, c1: row g, columns 2t, 2t + 1; c2, c3: row g + 8
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int gy = ty0 + y0 + g + 8 * half;
+      if (gy >= h) continue;
+      float* dst = out + ((size_t)n * h + gy) * w * c + c0 + cp;
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        const int gx = tx0 + 8 * gi + 2 * t;
+        if (gx < w) dst[(size_t)gx * c] = acc[gi][2 * half];
+        if (gx + 1 < w) dst[(size_t)(gx + 1) * c] = acc[gi][2 * half + 1];
       }
     }
   }
@@ -142,13 +280,11 @@ int launch(const float* images, const float* kernels, float* out, int n, int h, 
   const int tiles_x = (w + TW - 1) / TW;
   const int tiles_y = (h + TH - 1) / TH;
   const dim3 grid(tiles_x * tiles_y, n);
-  const size_t smem = sizeof(float) * (K * K + CP * (TH + K - 1) * staged_width(K));
-  if (smem > 48 * 1024) {  // K >= 29: above the default dynamic limit
-    const cudaError_t err = cudaFuncSetAttribute(
-        filter2d_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  filter2d_kernel<K><<<grid, THREADS, smem, stream>>>(images, kernels, out, h, w, c, tiles_x);
+  const cudaError_t err = cudaFuncSetAttribute(
+      filter2d_tf32_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Geom<K>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  filter2d_tf32_kernel<K><<<grid, THREADS, Geom<K>::SMEM, stream>>>(images, kernels, out, h, w, c,
+                                                                     tiles_x);
   return (int)cudaGetLastError();
 }
 

@@ -8,7 +8,13 @@ flipped).
 
 - :func:`filter2d` launches ``csrc/filter2d.cu`` for a CUDA tensor and takes
   the plain version for a CPU tensor; any other device raises. There is no
-  fallback from a CUDA tensor to the plain version.
+  fallback from a CUDA tensor to the plain version. The kernel runs on the
+  tensor cores: per kernel row a banded GEMM (the staged input rows times
+  the Toeplitz band of that row's taps) in split-precision 3xTF32, each f32
+  operand split into two TF32 halves and three products taken per pair.
+  It skips kernel rows whose taps are all zero: the same sums on finite
+  input (on Inf or NaN input the plain version can give NaN where the
+  kernel does not).
 - :func:`filter2d_ref` is the plain version: ``F.pad(mode="reflect")`` and
   one grouped conv with the batch folded into channels, the literal form of
   the JAX ``filter2d_depthwise``.

@@ -310,6 +310,21 @@ def test_filter2d_kernel_matches_plain_version(cuda, shape, k):
     torch.testing.assert_close(got, f2d_mod.filter2d_ref(x, ks), atol=1e-5, rtol=0)
 
 
+def test_filter2d_kernel_on_the_chains_kernels(cuda):
+    """The chain's own kernels (every BSRGAN blur of 7..25 zero-padded to
+    25): the kernel skips their rows of zero taps and matches the plain
+    version all the same."""
+    import numpy as np
+
+    from srganfd_tpu_torch.ops.degrade import plan_bsrgan_batch
+
+    ks = torch.from_numpy(plan_bsrgan_batch(np.random.default_rng(9), 4, 2).kernels_b).to(cuda)
+    x = torch.rand((4, 50, 90, 3), generator=torch.Generator().manual_seed(9)).to(cuda)
+    got = f2d_mod.filter2d(x, ks)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, f2d_mod.filter2d_ref(x, ks), atol=1e-5, rtol=0)
+
+
 def test_filter2d_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
     def refuse(*args):
         raise AssertionError("a CUDA tensor reached filter2d_ref")
