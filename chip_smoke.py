@@ -10,8 +10,11 @@ shapes and times it, then drives two serving paths end to end at full
 width, with seeded weights: ``bsrgan_x2`` (64 channels, growth 32, 23
 RRDBs) and ``bsrgantrans_x2`` (the same trunk, then 2 transformer layers
 of 4 heads and FFN 2048 over the H/2 x W/2 tokens, ``--attn-chunk 1024
---attn-backend flash``), and trains ``bsrgan_x2`` at full width, the L1
-pretrain (``bsrnet``) and then the GAN stage (``bsrgan``):
+--attn-backend flash``), and the Real-ESRGAN generators ``realesrgan_x4``
+and ``realesrgan_x2`` (a pixel-unshuffle front, the same trunk, two x2
+upsamples), and trains both recipes at full width: ``bsrgan_x2``, the L1
+pretrain (``bsrnet``) and then the GAN stage (``bsrgan``); and
+``realesrgan_x4``, ``realesrnet`` and then ``realesrgan``:
 
 1. kernel phases: ``rdb_forward`` vs ``rdb_forward_ref`` and
    ``flash_attention`` vs ``flash_attention_ref``, in f32 (the 3xTF32
@@ -78,7 +81,40 @@ pretrain (``bsrnet``) and then the GAN stage (``bsrgan``):
    (loss parts to 1e-5, D to 1e-3, ``u`` to 1e-3 as a sanity check, G by
    ``step_check.LIMITS``; see ``gan_train_phase``); the same step from the
    seeded init, also with the adversarial term and then the content loss
-   off, is printed.
+   off, is printed;
+10. the Real-ESRGAN kernel shapes: the RDB kernel at x (48, 64, 64, 64)
+    (held in f32 and bf16, timed in bf16 beside its bound, the plain
+    version and the cuDNN chain) and filter2d with K = 21 on one batch's
+    k1 (mixed Gaussians) and on sinc kernels (negative taps) at (48, 256,
+    256, 3), and on the final sincs at (48, 64, 64, 3), each held to
+    ``filter2d_ref`` and timed beside its bounds and the cuDNN grouped conv;
+11. ``realesrgan_x4`` serving over stdio (4 requests of 128x128, f32 then
+    bf16), ``realesrgan_x2`` (one 250x190 request), each on weights whose
+    output is spread over [0, 1] and held to itself with the plain RDB
+    (69 RDB kernel calls a forward), and ``cli.infer`` of 2 frames;
+12. Real-ESRGAN training: ``cli.train.run_train`` on ``realesrnet`` and
+    then ``realesrgan``, the configs unchanged (``realesrgan_x4``
+    64/32/23, batch 48, GT 256, x4, bf16; for the GAN
+    ``discriminator_unet`` c = 64, VGG19 content over five nodes against
+    the USM-sharpened GT, BCE x 0.1, the G step first, LPIPS selection)
+    on 48 synthetic 288x288 frames: one epoch of 3 steps, then ``--resume
+    auto`` for a second; 69 RDB kernel calls per forward and 2-3 filter2d
+    calls per chain (the count the plans' second-blur draws give), the
+    resumed run at step 3 with its Adams (and D's ``u``) as the
+    checkpoint held them, ``ckpt_best`` at the best validation PSNR or
+    LPIPS; CUDA-event times of a step and its parts (the chain with USM's
+    and filter2d's shares, G forward+backward, the D update, the content
+    and adversarial terms), peak memory;
+13. one f32 ``realesrgan`` step with the kernels held to the same step
+    with their plain versions on one batch of 48 (the kernel chain's, its
+    LR held to the plain chain's with one noise generator state: max 0.05,
+    the DiffJPEG envelope, mean 1e-4, under 1% of its elements off a
+    level; the same chain without noise and JPEG to one 8-bit level),
+    from the realesrnet-trained G and the realesrgan-trained D
+    (``step_check``'s LIMITS, loss parts 1e-5, D and ``u`` 1e-3; the
+    updated G held on the same step with the content loss off, whose
+    VGG gradient amplifies the forward's rounding; the step with the
+    adversarial weight 0 printed).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after.
@@ -120,6 +156,15 @@ RDB_PER_FORWARD = 3 * NUM_RRDB
 FLASH_SHAPE = (1, 16384, 4, 16)
 ATTN_CHUNK = 1024
 ATTN_PER_FORWARD = 2
+# the Real-ESRGAN configs' shapes: batches of 48 GT crops of 256 at x4; the
+# chain's blurs are K = 21 (k1 on the GT, k2 at the first resize's size,
+# the sinc on the final 64x64); the generator's RDBs run on 64x64 LR crops
+RE_BATCH, RE_GT, RE_K = 48, 256, 21
+RE_RDB_SHAPE = (RE_BATCH, 64, 64, CH)
+RE_FILTER_SHAPE, RE_FINAL_SHAPE = (RE_BATCH, RE_GT, RE_GT, 3), (RE_BATCH, 64, 64, 3)
+RE_SERVE = 128  # realesrgan_x4 request edge: 512x512 out
+RE_STEPS_PER_EPOCH, RE_EPOCHS = 3, 1  # then --resume auto for one more epoch
+RE_FRAME = 288  # edge of the synthetic GT frames, above the 256 crop
 
 
 def fail(msg: str) -> None:
@@ -193,7 +238,7 @@ def kernel_phase(rdb) -> dict:
     # 24, 40, 56, ...: a half-filled last 16-channel step) and gc 8 (couts
     # of 8 in a tile of 16)
     cases = [((2, 64, 64, CH), GC), ((1, 37, 53, CH), GC), (SERVE_SHAPE, GC), ((2, 256, 256, CH), GC),
-             ((1, 250, 190, CH), GC), (TRAIN_RDB_SHAPE, GC), ((3, 17, 23, CH), GC),
+             ((1, 250, 190, CH), GC), (TRAIN_RDB_SHAPE, GC), (RE_RDB_SHAPE, GC), ((3, 17, 23, CH), GC),
              ((2, 37, 53, 24), 16), ((1, 20, 33, 40), 8), ((2, 19, 13, 24), 8)]
     for i, (shape, gc) in enumerate(cases):
         x, ks, bs = rdb_inputs(shape, seed=i, gc=gc)
@@ -249,6 +294,23 @@ def kernel_phase(rdb) -> dict:
             train[shape] = (cuda_ms(lambda: rdb.rdb_forward(xt, kt, bt, pt)), cuda_ms(cudnn_chain(xt, kt, bt)))
     train_ms, train_library_ms = train[TRAIN_RDB_SHAPE]
     ragged_ms = train_ms - train[(16, 64, 72, CH)][0] * 72 / 64
+    # the Real-ESRGAN training shape: bf16 kernel, plain version, cuDNN chain
+    xr, kr, br = rdb_inputs(RE_RDB_SHAPE, seed=102)
+    xr = xr.to(torch.bfloat16)
+    pr = rdb.pack_rdb_weights(kr, br, torch.bfloat16)
+    with torch.inference_mode():
+        re_ms = cuda_ms(lambda: rdb.rdb_forward(xr, kr, br, pr))
+        re_plain_ms = cuda_ms(lambda: rdb.rdb_forward_ref(xr, kr, br))
+        re_library_ms = cuda_ms(cudnn_chain(xr, kr, br))
+    re_flops = rdb_flops(RE_RDB_SHAPE)
+    re_bytes = 2 * 2 * xr.numel() + 2 * pr[0].numel() + 4 * pr[1].numel()
+    re_bound = max(re_flops / PEAK_BF16_FLOPS, re_bytes / PEAK_HBM_BYTES) * 1e3
+    print(
+        f"rdb timing at x {RE_RDB_SHAPE} bf16 (realesrgan training): kernel {re_ms:.4f} ms, plain "
+        f"{re_plain_ms:.4f} ms, cuDNN bf16 chain {re_library_ms:.4f} ms; bound {re_bound:.4f} ms "
+        f"({re_flops:.3e} FLOP, operations), {100 * re_bound / re_ms:.1f}% of it",
+        flush=True,
+    )
     n, h, w, ch = SERVE_SHAPE
     flops = rdb_flops(SERVE_SHAPE)
     # x read once, output written once, weights (bf16) and biases (f32) read once
@@ -317,6 +379,11 @@ def kernel_phase(rdb) -> dict:
         "train_kernel_ms": train_ms,
         "train_library_ms": train_library_ms,
         "train_ragged_tile_ms": ragged_ms,
+        "realesrgan_train_shape": list(RE_RDB_SHAPE),
+        "realesrgan_train_kernel_ms": re_ms,
+        "realesrgan_train_plain_ms": re_plain_ms,
+        "realesrgan_train_library_ms": re_library_ms,
+        "realesrgan_train_bound_ms": re_bound,
         "shape": list(SERVE_SHAPE),
         "dtype": "bfloat16",
     }
@@ -514,23 +581,7 @@ def serve_phase(work: str, rdb, blocks) -> tuple[int, dict, int]:
 
         # whole model, kernel RDB vs plain RDB, same weights, same frame
         x = torch.from_numpy(load_image_rgb(frames[0])[None]).cuda()
-        with torch.inference_mode():
-            y_kernel = engine.model(x)
-            orig = blocks.rdb_apply
-            blocks.rdb_apply = lambda xh, k, b, packed=None: rdb.rdb_forward_ref(xh, k, b)
-            try:
-                y_plain = engine.model(x)
-            finally:
-                blocks.rdb_apply = orig
-        err = (y_kernel - y_plain).abs().max().item()
-        mse = ((y_kernel - y_plain) ** 2).mean().item()
-        psnr = 10 * math.log10(1.0 / mse) if mse > 0 else float("inf")
-        print(f"model {tag}: kernel vs plain RDB max abs {err:.3g}, PSNR {psnr:.2f} dB", flush=True)
-        check(torch.isfinite(y_kernel).all().item(), f"{tag}: non-finite output")
-        if half:
-            check(err <= 8 / 255 and psnr >= 45, f"bf16 model: max abs {err}, PSNR {psnr}")
-        else:
-            check(err <= 1e-3, f"f32 model: max abs {err}")
+        hold_model_to_plain(engine.model, x, tag, "bsrgan_x2", rdb, blocks)
         with torch.inference_mode():
             forward_ms[tag] = cuda_ms(lambda: engine.model(x), iters=5, warmup=1)
         print(f"model {tag}: one 256x256 forward on the card {forward_ms[tag]:.2f} ms", flush=True)
@@ -587,22 +638,24 @@ def infer_phase(work: str, rdb) -> int:
     return calls
 
 
-def spread_weights(work: str) -> str:
-    """A bsrgantrans_x2 weights file from the seeded init with the seven
-    convs outside the trunk scaled x6 and 0.5 on conv4's bias, so that
+def spread_weights(work: str, arch: str = "bsrgantrans_x2", gain: float = 6.0) -> str:
+    """A weights file of ``arch`` from the seeded init with the convs
+    outside the trunk scaled by ``gain`` and 0.5 on conv4's bias, so that
     frames come out spread over [0, 1] (the x0.1 init alone clamps every
-    output to 0; x10 clamps a third of them) and a comparison of two runs
-    means something. The trunk keeps its x0.1 init: at full gain 23 RRDBs
-    would grow the signal ~1.35x each."""
+    output to 0; x10 clamps a third of bsrgantrans_x2's; the realesrgan
+    archs take x4: on a 32x32 CPU frame output std 0.19, 8-16% clamped,
+    where x6 clamps 64-70%) and a comparison of two runs means something.
+    The trunk keeps its x0.1 init: at full gain 23 RRDBs would grow the
+    signal ~1.35x each."""
     from srganfd_tpu_torch.models import create_model
 
-    model = create_model("bsrgantrans_x2", generator=torch.Generator().manual_seed(0))
+    model = create_model(arch, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         for name, p in model.named_parameters():
             if p.dim() == 4 and not name.startswith("trunk."):
-                p.mul_(6)
+                p.mul_(gain)
         model.conv4.bias.add_(0.5)
-    path = os.path.join(work, "bsrgantrans_x2_spread.pth")
+    path = os.path.join(work, f"{arch}_spread.pth")
     torch.save({"state_dict": model.state_dict()}, path)
     return path
 
@@ -715,6 +768,101 @@ def trans_infer_phase(work: str, weights: str, rdb, attn) -> dict:
     check(calls == {"rdb": 2 * RDB_PER_FORWARD, "flash": 2 * ATTN_PER_FORWARD},
           f"trans infer: {calls} kernel calls for 2 forwards")
     return calls
+
+
+def hold_model_to_plain(model, x, tag: str, label: str, rdb, blocks) -> torch.Tensor:
+    """The whole model with the RDB kernel against itself with
+    rdb_forward_ref swapped in, same weights, same frame: f32 max abs 1e-3;
+    bf16 max abs 8/255 and PSNR 45 dB. Returns the kernel run's output."""
+    with torch.inference_mode():
+        y_kernel = model(x)
+        orig = blocks.rdb_apply
+        blocks.rdb_apply = lambda xh, k, b, packed=None: rdb.rdb_forward_ref(xh, k, b)
+        try:
+            y_plain = model(x)
+        finally:
+            blocks.rdb_apply = orig
+    err = (y_kernel - y_plain).abs().max().item()
+    mse = ((y_kernel - y_plain) ** 2).mean().item()
+    psnr = 10 * math.log10(1.0 / mse) if mse > 0 else float("inf")
+    print(f"{label} {tag}: kernel vs plain RDB max abs {err:.3g}, PSNR {psnr:.2f} dB; output mean "
+          f"{y_kernel.mean().item():.4f}, std {y_kernel.std().item():.4f}", flush=True)
+    check(torch.isfinite(y_kernel).all().item(), f"{label} {tag}: non-finite output")
+    if tag == "bf16":
+        check(err <= 8 / 255 and psnr >= 45, f"bf16 {label}: max abs {err}, PSNR {psnr}")
+    else:
+        check(err <= 1e-3, f"f32 {label}: max abs {err}")
+    return y_kernel
+
+
+def re_serve_phase(work: str, rdb, blocks) -> tuple[int, dict, int]:
+    """Full-width realesrgan_x4 served over stdio (4 requests of 128x128,
+    f32 then bf16) and realesrgan_x2 (one 250x190 request: 125x95 after the
+    unshuffle; f32), on spread weights, each model held to itself with the
+    plain RDB; then cli.infer of realesrgan_x4 on 2 frames. Returns the RDB
+    kernel calls, the forward ms by arch and dtype, and the f32 calls."""
+    import cv2
+
+    from srganfd_tpu_torch.cli import infer
+    from srganfd_tpu_torch.cli.serve import ServingEngine, serve_stdio
+    from srganfd_tpu_torch.data.datasets import load_image_rgb
+
+    frames = write_frames(os.path.join(work, "re_lr"), 4, RE_SERVE, RE_SERVE, seed=7)
+    odd = write_frames(os.path.join(work, "re_odd"), 1, 250, 190, seed=8)
+    weights = {arch: spread_weights(work, arch, gain=4.0) for arch in ("realesrgan_x4", "realesrgan_x2")}
+    launches, f32_launches, forward_ms = 0, 0, {}
+    for arch, half, inputs, out_hw in (("realesrgan_x4", False, frames, [4 * RE_SERVE] * 2),
+                                       ("realesrgan_x4", True, frames, [4 * RE_SERVE] * 2),
+                                       ("realesrgan_x2", False, odd, [500, 380])):
+        tag = "bf16" if half else "f32"
+        engine = ServingEngine(arch, weights=weights[arch], half=half, device="cuda")
+        reqs = [{"id": i, "input": p, "output": os.path.join(work, f"re_sr_{arch}_{tag}", f"{i}.png")}
+                for i, p in enumerate(inputs)]
+        lines = [json.dumps(r) for r in reqs] + ['{"cmd": "stats"}', '{"cmd": "shutdown"}']
+        out = io.StringIO()
+        rdb.launches = 0
+        t0 = time.perf_counter()
+        serve_stdio(engine, inp=io.StringIO("\n".join(lines)), out=out)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        calls = rdb.launches
+        launches += calls
+        f32_launches += 0 if half else calls
+        replies = [json.loads(line) for line in out.getvalue().splitlines()]
+        check(len(replies) == len(inputs) + 1, f"{arch} {tag}: {len(replies)} replies")
+        for r in replies[:-1]:
+            check(r.get("ok") and r["out_hw"] == out_hw, f"{arch} {tag} reply {r}")
+        check(calls == len(inputs) * RDB_PER_FORWARD, f"{arch} {tag}: {calls} rdb_forward calls for "
+              f"{len(inputs)} forwards")
+        print(f"serve stdio {arch} {tag}: {len(inputs)} x {replies[0]['in_hw']} -> {out_hw} in {wall:.2f} s, "
+              f"per-frame ms {[r['ms'] for r in replies[:-1]]}, stats {replies[-1]}, "
+              f"{calls // len(inputs)} rdb_forward calls per forward", flush=True)
+        x = torch.from_numpy(load_image_rgb(inputs[0])[None]).cuda()
+        y = hold_model_to_plain(engine.model, x, tag, arch, rdb, blocks)
+        mean, std = y.mean().item(), y.std().item()
+        check(std > 0.05 and 0.05 < mean < 0.95, f"{arch} {tag}: output clamped flat (mean {mean}, std {std})")
+        with torch.inference_mode():
+            forward_ms[f"{arch} {tag}"] = cuda_ms(lambda: engine.model(x), iters=5, warmup=1)
+        print(f"{arch} {tag}: one {tuple(x.shape[1:3])} forward on the card {forward_ms[f'{arch} {tag}']:.2f} ms",
+              flush=True)
+        del engine
+
+    frames_dir, out_dir = os.path.join(work, "re_seq"), os.path.join(work, "re_seq_sr")
+    write_frames(frames_dir, 2, RE_SERVE, RE_SERVE, seed=9)
+    rdb.launches = 0
+    infer.main(["--model-arch", "realesrgan_x4", "--half", "--batch", "2", "--weights", weights["realesrgan_x4"],
+                "--inputs-path", frames_dir, "--output-path", out_dir])
+    torch.cuda.synchronize()
+    calls = rdb.launches
+    launches += calls
+    outs = sorted(os.listdir(out_dir))
+    check(len(outs) == 2, f"realesrgan_x4 infer wrote {outs}")
+    for name in outs:
+        img = cv2.imread(os.path.join(out_dir, name))
+        check(img is not None and img.shape == (4 * RE_SERVE, 4 * RE_SERVE, 3), f"realesrgan_x4 infer {name}")
+    check(calls == RDB_PER_FORWARD, f"realesrgan_x4 infer: {calls} rdb_forward calls for 1 forward")
+    print(f"cli.infer realesrgan_x4 --half --batch 2: 2 frames, {calls} rdb_forward calls", flush=True)
+    return launches, forward_ms, f32_launches
 
 
 # the bsrnet training step's shapes: a chain call per batch of 16 pre-crops
@@ -836,6 +984,63 @@ def filter2d_kernel_phase(f2d) -> dict:
     }
 
 
+def re_filter2d_phase(f2d) -> dict:
+    """filter2d vs filter2d_ref at the Real-ESRGAN chain's shapes, K = 21:
+    k1 on (48, 256, 256, 3) from one batch's kernel triples (mixed
+    Gaussians of sizes 7..21 zero-padded to 21, a sinc now and then), the
+    same images under sinc kernels alone (negative taps), and the final
+    sinc (or identity pulse) on (48, 64, 64, 3); each timed beside its
+    bounds, the plain version and the cuDNN grouped convolution."""
+    import torch.nn.functional as F
+
+    from srganfd_tpu_torch import configs
+    from srganfd_tpu_torch.ops import kernels
+    from srganfd_tpu_torch.ops.realesrgan_degrade import sample_kernel_triple
+
+    model = configs.get_config("realesrgan").degradation_params["model"]
+    rng = np.random.default_rng(230)
+    triples = [sample_kernel_triple(rng, model) for _ in range(RE_BATCH)]
+    sizes = model["gaussian_kernel_range"]
+    sincs = np.stack([kernels.sinc_kernel(rng.uniform(np.pi / 3, np.pi), int(rng.choice(sizes)), pad_to=RE_K)
+                      for _ in range(RE_BATCH)]).astype(np.float32)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    cases = {"k1": (RE_FILTER_SHAPE, dev(np.stack([t[0] for t in triples]))),
+             "sinc": (RE_FILTER_SHAPE, dev(sincs)),
+             "final_sinc": (RE_FINAL_SHAPE, dev(np.stack([t[2] for t in triples])))}
+    check(bool((cases["sinc"][1] < 0).any()), "the sinc kernels have no negative tap")
+    out = {}
+    for i, (name, (shape, ks)) in enumerate(cases.items()):
+        x = torch.rand(shape, generator=torch.Generator().manual_seed(240 + i)).cuda()
+        got = f2d.filter2d(x, ks)
+        torch.cuda.synchronize()
+        want = f2d.filter2d_ref(x, ks)
+        err = (got - want).abs().max().item()
+        check(err <= 1e-5, f"filter2d {shape} {name}: max abs {err}")
+        n, h, w, c = shape
+        pad = RE_K // 2
+        xpad = F.pad(x.permute(0, 3, 1, 2).reshape(1, n * c, h, w), (pad,) * 4, mode="reflect")
+        weight = ks.repeat_interleave(c, dim=0)[:, None].contiguous()
+        with torch.inference_mode():
+            kernel_ms = cuda_ms(lambda: f2d.filter2d(x, ks))
+            plain_ms = cuda_ms(lambda: f2d.filter2d_ref(x, ks))
+            library_ms = cuda_ms(lambda: F.conv2d(xpad, weight, groups=n * c))
+        flops = 2 * n * h * w * c * RE_K * RE_K
+        nonzero_flops = 2 * h * w * c * int((ks != 0).sum())
+        t_bytes = 4 * (2 * n * h * w * c + n * RE_K * RE_K) / PEAK_HBM_BYTES * 1e3
+        bound = max(TF32_PRODUCTS * flops / PEAK_TF32_FLOPS * 1e3, t_bytes)
+        nonzero_bound = max(TF32_PRODUCTS * nonzero_flops / PEAK_TF32_FLOPS * 1e3, t_bytes)
+        out[name] = {"shape": list(shape), "k": RE_K, "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound, "nonzero_bound_ms": nonzero_bound,
+                     "bound_by": "operations" if bound > t_bytes else "bytes",
+                     "nonzero_tap_share": nonzero_flops / flops}
+        print(f"filter2d {shape} K={RE_K} {name} (realesrgan chain): max abs {err:.3g} (|out| <= "
+              f"{want.abs().max().item():.3g}); kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN "
+              f"grouped conv {library_ms:.4f} ms; bound {bound:.4f} ms on dense taps as {TF32_PRODUCTS} TF32 "
+              f"products ({100 * bound / kernel_ms:.1f}% of it), {nonzero_bound:.4f} ms on the "
+              f"{100 * nonzero_flops / flops:.1f}% nonzero taps", flush=True)
+    return out
+
+
 def rdb_grad_phase(rdb) -> dict:
     """rdb_apply (kernel forward, backward through the recomputed plain
     version) against plain autograd through rdb_forward_ref at the training
@@ -894,14 +1099,17 @@ def write_gt_frames(d: str, n: int, size: int, seed: int) -> None:
         cv2.imwrite(os.path.join(d, f"gt_{i:03d}.png"), (img * 255).astype(np.uint8))
 
 
-def f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters, init=(), plain_runs=1, label="bsrnet"):
+def f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters, init=(), plain_runs=1, label="bsrnet",
+                      filters_per_chain=FILTERS_PER_CHAIN):
     """One full-width f32 step of ``cfg`` (bsrnet, or bsrgan with its D),
     with the RDB kernel and then ``plain_runs`` times with rdb_forward_ref
     swapped in (a switch of this script only), from one state (the seeded
     init, or ``init``: G's state dict and, for a GAN, D's with its ``u``)
     on one batch: the chain's, with the filter2d kernel, whose LR is held
-    to the plain chain's apart. Returns the readings of
-    ``train.step_check`` (the chain's LR; the loss parts, relative; the
+    to the plain chain's apart (the Real-ESRGAN chain draws its noise from
+    one generator state in both). Returns the readings of
+    ``train.step_check`` (the chain's LR, and the share of its elements
+    off by more than 1e-5; the loss parts, relative; the
     LeakyReLU slopes the kernel's and the first plain run's backwards take
     differently; the updated G outside and inside the flipped channels),
     the share of SR elements in (0, 1), which the output clamp passes (a
@@ -916,7 +1124,7 @@ def f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters, init=(), plain_runs=
     orig = blocks.rdb_apply, filters.filter2d
     before = f2d.launches
     batch = DegradationAdapter(cfg, seed=cfg.seed, train=True, device="cuda")(host, 0)
-    check(f2d.launches - before == FILTERS_PER_CHAIN, f"the f32 chain made {f2d.launches - before} filter2d calls")
+    check(f2d.launches - before == filters_per_chain, f"the f32 chain made {f2d.launches - before} filter2d calls")
     filters.filter2d = f2d.filter2d_ref
     try:
         plain_lr = DegradationAdapter(cfg, seed=cfg.seed, train=True, device="cuda")(host, 0)["lr"]
@@ -939,7 +1147,8 @@ def f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters, init=(), plain_runs=
             hook = state.g_model.register_forward_hook(
                 lambda m, i, o: inside.append(((o > 0) & (o < 1)).float().mean().item()))
             before = rdb.launches
-            metrics = {k: v.item() for k, v in trainer.train_step(state, batch["gt"], batch["lr"]).items()}
+            metrics = {k: v.item() for k, v in trainer.train_step(state, batch["gt"], batch["lr"],
+                                                                  batch.get("gt_pixel")).items()}
             hook.remove()
             made = rdb.launches - before
             check(made == (0 if plain else RDB_PER_FORWARD), f"f32 {label} step (plain={plain}) made {made} rdb calls")
@@ -955,7 +1164,10 @@ def f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters, init=(), plain_runs=
     (m_k, g_k, _), (m_p, g_p, _) = runs[:2]
     flips, channels = step_check.slope_flips(*rdbs)
     loss_rel = {k: abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-30) for k in m_p if k.endswith("_loss")}
-    out = {"lr_max_abs": (batch["lr"] - plain_lr).abs().max().item(), "loss_rel": max(loss_rel.values()),
+    lr_diff = (batch["lr"] - plain_lr).abs()
+    out = {"lr_max_abs": lr_diff.max().item(), "lr_mean_abs": lr_diff.mean().item(),
+           "lr_off_level_share": (lr_diff > 1e-5).float().mean().item(),
+           "loss_rel": max(loss_rel.values()),
            "loss_rel_parts": loss_rel, "sr_in_range": inside[0],
            "slope_flips": sum(flips), "rdbs_with_flips": sum(f > 0 for f in flips),
            "preactivations": RDB_PER_FORWARD * sum(z.numel() for z in step_check.rdb_preactivations(*rdbs[1][0])),
@@ -999,10 +1211,10 @@ def train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
     losses, steps = [], []  # steps: (step index, host clock at entry, at end)
     real_step = Trainer.train_step
 
-    def recorded_step(self, state, gt, lr_img):
+    def recorded_step(self, state, gt, lr_img, gt_pixel=None):
         entry = time.perf_counter()
         index = state.step
-        metrics = real_step(self, state, gt, lr_img)
+        metrics = real_step(self, state, gt, lr_img, gt_pixel)
         losses.append(metrics["g_loss"].item())  # waits for the step
         steps.append((index, entry, time.perf_counter()))
         return metrics
@@ -1208,10 +1420,10 @@ def gan_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
     restored = []  # what restore_state left in the state, held to the checkpoint it read right then
     real_step, real_restore = Trainer.train_step, ckpt.restore_state
 
-    def recorded_step(self, state, gt, lr_img):
+    def recorded_step(self, state, gt, lr_img, gt_pixel=None):
         entry = time.perf_counter()
         index = state.step
-        m = real_step(self, state, gt, lr_img)
+        m = real_step(self, state, gt, lr_img, gt_pixel)
         metrics_seen.append({k: v.item() for k, v in m.items()})  # waits for the step
         steps.append((index, entry, time.perf_counter()))
         return m
@@ -1405,6 +1617,327 @@ def gan_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
     return calls, numbers
 
 
+def re_expected_filters(cfg, seed: int, steps, n: int) -> int:
+    """filter2d launches of the Real-ESRGAN chain over these adapter steps
+    at batch ``n`` of RE_GT crops: k1 and the sinc always, k2 when the
+    step's plan draws the second blur (p = 0.8)."""
+    from srganfd_tpu_torch.cli.degrade_adapter import DegradationAdapter
+    from srganfd_tpu_torch.ops.realesrgan_degrade import plan_realesrgan_batch
+
+    adapter = DegradationAdapter(cfg, seed=seed, device="cpu")
+    process = cfg.degradation_params["process"]
+    return sum(2 + plan_realesrgan_batch(adapter.step_rng(s), n, (RE_GT, RE_GT), cfg.upscale_factor,
+                                         process).second_blur for s in steps)
+
+
+def re_train_phase(work: str, name: str, rdb, f2d, blocks, filters) -> tuple[dict, dict, dict]:
+    """Full-width ``realesrnet`` or ``realesrgan`` (the config unchanged:
+    realesrgan_x4 64/32/23, batch 48, GT 256, x4, bf16; for the GAN
+    discriminator_unet c = 64, VGG19 content over five nodes, BCE, LPIPS
+    selection on the seeded surrogates) through cli.train.run_train on 48
+    synthetic 288x288 frames: one epoch of RE_STEPS_PER_EPOCH steps, then
+    --resume auto for a second. Returns the kernel calls, the numbers, and
+    the host batch and final D state that the f32 check starts from."""
+    from srganfd_tpu_torch import configs
+    from srganfd_tpu_torch.cli import train as cli_train
+    from srganfd_tpu_torch.cli.degrade_adapter import DegradationAdapter
+    from srganfd_tpu_torch.data.datasets import BatchLoader
+    from srganfd_tpu_torch.losses.gan import bce_with_logits
+    from srganfd_tpu_torch.losses.lpips import Lpips
+    from srganfd_tpu_torch.ops.realesrgan_degrade import usm_sharp
+    from srganfd_tpu_torch.train import checkpoint as ckpt
+    from srganfd_tpu_torch.train.loop import Trainer
+
+    train_dir, valid_dir = os.path.join(work, "re_train_gt"), os.path.join(work, "re_valid_gt")
+    if not os.path.isdir(train_dir):
+        write_gt_frames(train_dir, RE_BATCH, RE_FRAME, seed=20)
+        write_gt_frames(valid_dir, 4, RE_FRAME, seed=21)
+    cfg = configs.get_config(name).replace(
+        train_gt_images_dir=train_dir, valid_gt_images_dir=valid_dir,
+        results_dir=os.path.join(work, "results"), samples_dir=os.path.join(work, "samples"),
+    )
+    gan = cfg.is_gan
+    print(f"{name}: {cfg.g_arch} {cfg.g_kwargs or 'full width (64/32/23)'}"
+          f"{f' against {cfg.d_arch} c = 64' if gan else ''}, batch {cfg.batch_size}, GT {cfg.gt_image_size}, "
+          f"x{cfg.upscale_factor}, {cfg.compute_dtype}; pixel {cfg.pixel_weight}"
+          f"{f' + content {cfg.content_weight} + adversarial {cfg.adversarial_weight}, G step first' if gan else ''}"
+          f"; Adam {cfg.model_lr} eps {cfg.model_eps}; selection by {cfg.optimizing_metric}", flush=True)
+
+    metrics_seen, steps, restored = [], [], []
+    real_step, real_restore = Trainer.train_step, ckpt.restore_state
+
+    def recorded_step(self, state, gt, lr_img, gt_pixel=None):
+        entry = time.perf_counter()
+        index = state.step
+        m = real_step(self, state, gt, lr_img, gt_pixel)
+        metrics_seen.append({k: v.item() for k, v in m.items()})  # waits for the step
+        steps.append((index, entry, time.perf_counter()))
+        return m
+
+    def recorded_restore(state, payload):
+        real_restore(state, payload)
+        same = lambda a, b: all(torch.equal(torch.as_tensor(a[k]).cpu(), torch.as_tensor(b[k]).cpu())  # noqa: E731
+                                for k in b)
+        adams = [(state.g_opt, "optimizer")] + ([(state.d_opt, "d_optimizer")] if gan else [])
+        restored.append({
+            "step": state.step,
+            "adams": all(same(o.state_dict()["state"][i], payload[key]["state"][i])
+                         for o, key in adams for i in payload[key]["state"]),
+            "u": (not gan) or same({k: v for k, v in state.d_model.state_dict().items() if k.endswith(".u")},
+                                   {k: v for k, v in payload["d_state_dict"].items() if k.endswith(".u")}),
+        })
+
+    Trainer.train_step, ckpt.restore_state = recorded_step, recorded_restore
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rdb.launches = f2d.launches = 0
+    try:
+        run_s = []
+        for epochs, resume in ((RE_EPOCHS, ""), (RE_EPOCHS + 1, "auto")):
+            t0 = time.perf_counter()
+            result = cli_train.run_train(cfg.replace(epochs=epochs), RE_STEPS_PER_EPOCH, resume=resume,
+                                         device="cuda")
+            torch.cuda.synchronize()
+            run_s.append(time.perf_counter() - t0)
+    finally:
+        Trainer.train_step, ckpt.restore_state = real_step, real_restore
+    calls = {"rdb": rdb.launches, "filter2d": f2d.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_steps = RE_STEPS_PER_EPOCH * (RE_EPOCHS + 1)
+    n_valid = RE_EPOCHS + 1  # one batch of the 4 valid frames per epoch, adapter step 0
+    want_filters = (re_expected_filters(cfg, cfg.seed, range(n_steps), RE_BATCH)
+                    + n_valid * re_expected_filters(cfg, cfg.seed + 1, [0], 4))
+    check(len(metrics_seen) == n_steps, f"{len(metrics_seen)} {name} steps, expected {n_steps}")
+    check(all(math.isfinite(v) for m in metrics_seen for v in m.values()), f"non-finite {name} metrics: {metrics_seen}")
+    if gan:
+        check(all(0 < m[k] < 1 for m in metrics_seen for k in ("d_gt_probability", "d_sr_probability")),
+              f"a D probability outside (0, 1): {metrics_seen}")
+    check(calls == {"rdb": RDB_PER_FORWARD * (n_steps + n_valid), "filter2d": want_filters},
+          f"{name} made {calls} kernel calls for {n_steps} steps and {n_valid} validation batches "
+          f"(expected {RDB_PER_FORWARD * (n_steps + n_valid)} rdb, {want_filters} filter2d)")
+    state = result["state"]
+    check(state.step == n_steps, f"resumed {name} run ended at step {state.step}")
+    check(len(restored) == 1 and restored[0]["step"] == RE_STEPS_PER_EPOCH, f"{name} restores: {restored}")
+    check(steps[RE_STEPS_PER_EPOCH][0] == RE_STEPS_PER_EPOCH, f"the resumed {name} run's first step was "
+          f"{steps[RE_STEPS_PER_EPOCH][0]}")
+    check(restored[0]["adams"] and restored[0]["u"], f"the resumed {name} state is not the checkpoint's: {restored}")
+
+    exp = cfg.experience_name or cfg.exp_name
+    with open(os.path.join(cfg.samples_dir, "logs", exp, "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    metric = "Valid/LPIPS" if cfg.optimizing_metric == "LPIPS" else "Valid/PSNR"
+    scores = [e["metrics"][metric] for e in events if e["type"] == "metrics" and metric in e["metrics"]]
+    check(len(scores) == n_valid and all(math.isfinite(v) for v in scores), f"{name} validation {metric} {scores}")
+    ckpt_dir = os.path.join(cfg.results_dir, cfg.exp_name)
+    best = ckpt.load_checkpoint(os.path.join(ckpt_dir, "ckpt_best.pth"))
+    pick = np.argmin if metric == "Valid/LPIPS" else np.argmax
+    check(best["epoch"] == int(pick(scores)), f"{name} ckpt_best.pth is epoch {best['epoch']}, {metric} {scores}")
+    if gan:
+        last = ckpt.load_checkpoint(os.path.join(ckpt_dir, "ckpt_last.pth"))
+        check(all(torch.equal(last["d_state_dict"][k], v.cpu()) for k, v in state.d_model.state_dict().items()),
+              f"{name} ckpt_last.pth is not the final D")
+
+    intervals = [(b[2] - a[2]) * 1e3 for a, b in zip(steps, steps[1:])
+                 if b[0] == a[0] + 1 and b[0] % RE_STEPS_PER_EPOCH]
+    inside = [(end - entry) * 1e3 for _, entry, end in steps]
+    step_p50 = float(np.median(intervals))
+    print(f"{name} training: metrics {[{k: round(v, 5) for k, v in m.items()} for m in metrics_seen]}", flush=True)
+    print(f"{name} training: {n_steps} steps + {n_valid} validation batches in {[round(t, 2) for t in run_s]} s; "
+          f"step p50 {step_p50:.2f} ms host clock over {len(intervals)} steps "
+          f"({cfg.batch_size * 1e3 / step_p50:.2f} frames/s), inside train_step p50 {np.median(inside[1:]):.2f} ms, "
+          f"the first step {inside[0]:.1f} ms; validation {metric} by epoch {scores}, ckpt_best.pth epoch "
+          f"{best['epoch']}; resumed at step {restored[0]['step']}; peak memory {peak_gb:.2f} GB; {calls} kernel "
+          f"calls (per forward {calls['rdb'] // (n_steps + n_valid)} rdb_forward, per chain "
+          f"{calls['filter2d'] / (n_steps + n_valid):.2f} filter2d)", flush=True)
+
+    # where a step's time goes, on the card (CUDA events), on the trained state
+    loader = BatchLoader(cli_train.build_datasets(cfg)[0], cfg.batch_size, seed=cfg.seed, num_workers=2)
+    it = iter(loader)
+    host = next(it)
+    it.close()
+    adapter = DegradationAdapter(cfg, seed=cfg.seed, train=True, device="cuda")
+    seen_filters, real_filter = [], filters.filter2d
+
+    def recorded_filter(x, k):
+        seen_filters.append((x, k))
+        return real_filter(x, k)
+
+    filters.filter2d = recorded_filter
+    try:
+        batch = adapter(host, 0)
+    finally:
+        filters.filter2d = real_filter
+    gt_dev = torch.from_numpy(host["gt"]).cuda()
+    gt_c, lr_c, pix_c = batch["gt"], batch["lr"], batch["gt_pixel"]
+    trainer = Trainer(cfg, RE_STEPS_PER_EPOCH, device="cuda")
+    g = state.g_model
+
+    def g_fwd_bwd():
+        (g(lr_c) - pix_c).abs().mean().backward()
+
+    with torch.inference_mode():
+        breakdown = {
+            "chain_ms": cuda_ms(lambda: adapter(host, 0), iters=3, warmup=1),
+            "usm_ms": cuda_ms(lambda: usm_sharp(gt_dev), iters=3, warmup=1),
+            "chain_filter2d_ms": sum(cuda_ms(lambda x=x, k=k: f2d.filter2d(x, k)) for x, k in seen_filters),
+            "forward_ms": cuda_ms(lambda: g(lr_c), iters=3, warmup=1),
+        }
+    breakdown["chain_filter2d_shapes"] = [list(x.shape) for x, _ in seen_filters]
+    breakdown["g_forward_backward_ms"] = cuda_ms(g_fwd_bwd, iters=2, warmup=1)
+    if gan:
+        d = state.d_model
+        sr = g(lr_c).detach()
+        sr_leaf = sr.clone().requires_grad_()
+
+        def content_fwd_bwd():
+            trainer.content_loss(sr_leaf, pix_c).backward(inputs=[sr_leaf])
+
+        def adversarial_fwd_bwd():
+            out = d(sr_leaf, update_stats=False)
+            bce_with_logits(out, torch.ones_like(out)).backward(inputs=[sr_leaf])
+
+        breakdown["d_update_ms"] = cuda_ms(lambda: trainer._d_update(state, gt_c, sr), iters=2, warmup=1)
+        breakdown["content_forward_backward_ms"] = cuda_ms(content_fwd_bwd, iters=2, warmup=1)
+        breakdown["adversarial_forward_backward_ms"] = cuda_ms(adversarial_fwd_bwd, iters=2, warmup=1)
+        del sr, sr_leaf
+    breakdown["train_step_ms"] = cuda_ms(lambda: real_step(trainer, state, gt_c, lr_c, pix_c), iters=2, warmup=1)
+    valid_adapter = DegradationAdapter(cfg, seed=cfg.seed + 1, train=True, device="cuda")
+    valid_loader = lambda: BatchLoader(cli_train.build_datasets(cfg)[1], 4, shuffle=False, loop=False,  # noqa: E731
+                                       seed=cfg.seed, drop_last=True, num_workers=1)
+    lpips_fn = Lpips().to("cuda") if gan else None
+    t0 = time.perf_counter()
+    vm = cli_train.validate(cfg, trainer, state, valid_loader(), valid_adapter, lpips_fn=lpips_fn)
+    torch.cuda.synchronize()
+    breakdown["validation_ms"] = (time.perf_counter() - t0) * 1e3
+    check(math.isfinite(vm["psnr"]), f"{name} validation PSNR {vm['psnr']}")
+    if gan:
+        vb = valid_adapter(next(iter(valid_loader())), 0)
+        vsr = trainer.eval_sr(state, vb["lr"])
+        with torch.inference_mode():
+            breakdown["lpips_ms"] = cuda_ms(lambda: lpips_fn(vsr, vb["gt"]), iters=5, warmup=1)
+        check(math.isfinite(vm["lpips"]), f"{name} validation LPIPS {vm['lpips']}")
+    print(f"{name} step breakdown on the card (CUDA events, {cfg.compute_dtype}, batch {cfg.batch_size}): "
+          f"chain {breakdown['chain_ms']:.2f} ms (USM {breakdown['usm_ms']:.2f}, {len(seen_filters)} filter2d "
+          f"kernels {breakdown['chain_filter2d_ms']:.2f} at {breakdown['chain_filter2d_shapes']}); generator "
+          f"forward {breakdown['forward_ms']:.2f} ms, forward+backward (L1) {breakdown['g_forward_backward_ms']:.2f} "
+          f"ms" + (f"; D update (2 forwards on GT and SR, backward, Adam) {breakdown['d_update_ms']:.2f} ms; content "
+                   f"(VGG19 on SR and the USM GT, backward to SR) {breakdown['content_forward_backward_ms']:.2f} ms; "
+                   f"adversarial (D on SR, backward to SR) {breakdown['adversarial_forward_backward_ms']:.2f} ms"
+                   if gan else "")
+          + f"; whole train step {breakdown['train_step_ms']:.2f} ms; validation of 4 frames "
+          f"{breakdown['validation_ms']:.2f} ms host clock"
+          + (f" (LPIPS alone {breakdown['lpips_ms']:.2f} ms)" if gan else ""), flush=True)
+    d_final = {k: v.detach().clone() for k, v in state.d_model.state_dict().items()} if gan else None
+    numbers = {
+        "steps": n_steps, "validation_batches": n_valid, "validation": scores, "best_epoch": best["epoch"],
+        "step_ms_p50": step_p50, "inside_step_ms_p50": float(np.median(inside[1:])), "first_step_ms": inside[0],
+        "frames_per_s": cfg.batch_size * 1e3 / step_p50, "peak_memory_gb": peak_gb, "run_s": run_s,
+        "filter2d_per_chain": calls["filter2d"] / (n_steps + n_valid), **breakdown,
+    }
+    del g, state, result, trainer, batch, seen_filters, lpips_fn
+    torch.cuda.empty_cache()
+    return calls, numbers, {"host": host, "d_final": d_final}
+
+
+def re_jpeg_free_chain(cfg, host, f2d, filters) -> dict:
+    """The Real-ESRGAN chain of adapter step 0 on the host batch, its
+    noise and both JPEGs switched off (sigma and Poisson scale 0, the
+    quality-0 skip), with the filter2d kernel against filter2d_ref: what
+    is left is the blurs, the resizes and the 8-bit quantisation, held as
+    the chain goldens are (one 8-bit level at most, under 1% of the
+    elements off). With JPEG on, a value that moves by the kernels'
+    ~1e-6 can round a DCT coefficient the other way and move its 8x8
+    block by a quantisation step."""
+    import dataclasses
+
+    from srganfd_tpu_torch.cli.degrade_adapter import DegradationAdapter
+    from srganfd_tpu_torch.ops.realesrgan_degrade import apply_realesrgan_batch, plan_realesrgan_batch, usm_sharp
+
+    rng = DegradationAdapter(cfg, seed=cfg.seed, device="cpu").step_rng(0)
+    plan = plan_realesrgan_batch(rng, RE_BATCH, (RE_GT, RE_GT), cfg.upscale_factor, cfg.degradation_params["process"])
+    z = np.zeros(RE_BATCH, np.float32)
+    plan = dataclasses.replace(plan, noise1_sigma=z, noise1_poisson_scale=z, noise2_sigma=z, noise2_poisson_scale=z,
+                               jpeg1_quality=z - 1, jpeg2_quality=z - 1)
+    dev = lambda k: torch.from_numpy(np.ascontiguousarray(host[k])).cuda()  # noqa: E731
+    gt = usm_sharp(dev("gt"))
+    ks = [dev(k) for k in ("kernel1", "kernel2", "sinc_kernel")]
+    run = lambda: apply_realesrgan_batch(gt, *ks, torch.Generator(device="cuda").manual_seed(0), plan)  # noqa: E731
+    before = f2d.launches
+    got = run()
+    made = f2d.launches - before
+    orig = filters.filter2d
+    filters.filter2d = f2d.filter2d_ref
+    try:
+        want = run()
+    finally:
+        filters.filter2d = orig
+    diff = (got - want).abs()
+    out = {"max_abs": diff.max().item(), "off_level_share": (diff > 1e-5).float().mean().item(),
+           "filter2d_launches": made}
+    print(f"realesrgan chain without noise and JPEG, filter2d kernel vs plain ({made} launches): max abs "
+          f"{out['max_abs']:.3g}, {100 * out['off_level_share']:.4f}% of the elements off a level", flush=True)
+    check(made == 2 + plan.second_blur, f"the JPEG-free chain made {made} filter2d calls")
+    check(out["max_abs"] <= 1 / 255 + 1e-5 and out["off_level_share"] < 0.01, f"JPEG-free chain: {out}")
+    return out
+
+
+def re_f32_check(work: str, host, d_final, rdb, f2d, blocks, filters) -> dict:
+    """One f32 ``realesrgan`` step with the kernels against the same step
+    with their plain versions, on one batch of 48 (the kernel chain's),
+    from the trained state: G from the realesrnet phase's last checkpoint,
+    D and its u from the realesrgan phase's end. The full step is held by
+    step_check's LIMITS apart from G: the loss parts to 1e-5, the slope
+    flips to 250, D and u to 1e-3. Its content term makes the updated G's
+    reading depend on the forward's rounding (3.7e-4 - 1.9e-3 inside and
+    outside the flipped channels on the H100, where the same step without
+    it reads 6e-7: PERF.md section 6), so G is held by LIMITS on
+    that step: the content loss off, the adversarial term on. The chain's
+    LR against the plain chain's (one generator state) goes through two
+    DiffJPEGs, whose coefficient rounding can turn the kernels' ~1e-6 into
+    a block's quantisation step: it is held to the DiffJPEG envelope of the
+    chain goldens (max 0.05), the mean to 1e-4 and the share of elements
+    off a level to 1%; the same chain without noise and JPEG is held to
+    one level (``re_jpeg_free_chain``)."""
+    from srganfd_tpu_torch import configs
+    from srganfd_tpu_torch.convert import load_generator_weights
+    from srganfd_tpu_torch.train import step_check
+
+    cfg = configs.get_config("realesrgan").replace(results_dir=os.path.join(work, "results"))
+    g_init = load_generator_weights(os.path.join(work, "results", configs.get_config("realesrnet").exp_name,
+                                                 "ckpt_last.pth"))
+    n_filters = re_expected_filters(cfg, cfg.seed, [0], RE_BATCH)
+    f32, runs = f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters, init=(g_init, d_final),
+                                  label="realesrgan (realesrnet-trained G, realesrgan-trained D)",
+                                  filters_per_chain=n_filters)
+    (_, _, d_k), (_, _, d_p) = runs
+    kept = lambda sd, u: {k: v for k, v in sd.items() if k.endswith(".u") == u}  # noqa: E731
+    f32["d_rel"], f32["d_worst"] = _rel_per_tensor(kept(d_k, False), kept(d_p, False))
+    f32["u_rel"], f32["u_worst"] = _rel_per_tensor(kept(d_k, True), kept(d_p, True))
+    print(f"f32 realesrgan step (trained state): chain LR mean abs {f32['lr_mean_abs']:.3g}, off by more than "
+          f"1e-5 on {100 * f32['lr_off_level_share']:.4f}% of its elements; updated D per tensor max relative "
+          f"{f32['d_rel']:.3g} ({f32['d_worst']}), u {f32['u_rel']:.3g}", flush=True)
+    limits = {**step_check.LIMITS, "lr_max_abs": 0.05, "lr_mean_abs": 1e-4, "lr_off_level_share": 0.01,
+              "d_rel": 1e-3, "u_rel": 1e-3}
+    g_limits = {k: limits.pop(k) for k in ("g_outside", "g_inside")}
+    failed = step_check.step_check_failures(f32, limits)
+    check(not failed, f"f32 realesrgan step vs plain: {failed}")
+    f32["jpeg_free_chain"] = re_jpeg_free_chain(cfg, host, f2d, filters)
+    # G, held on the step without the content term; the step with the
+    # adversarial weight 0 (content on) printed beside it
+    f32["variants"] = {}
+    for name, over in (("no content loss", {"content_weight": ()}),
+                       ("adversarial weight 0", {"adversarial_weight": (0.0,)})):
+        r, _ = f32_step_vs_plain(cfg.replace(**over), host, rdb, f2d, blocks, filters, init=(g_init, d_final),
+                                 label=f"realesrgan, {name}, trained state", filters_per_chain=n_filters)
+        f32["variants"][name] = {k: r[k] for k in ("sr_in_range", "loss_rel", "slope_flips", "g_outside",
+                                                   "g_outside_worst", "g_inside", "g_inside_worst")}
+    failed = step_check.step_check_failures(f32["variants"]["no content loss"],
+                                            {**g_limits, "loss_rel": limits["loss_rel"],
+                                             "slope_flips": limits["slope_flips"]})
+    check(not failed, f"f32 realesrgan step without the content loss vs plain: {failed}")
+    return f32
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -1433,6 +1966,7 @@ def main() -> None:
     entry = kernel_phase(rdb)
     flash_entry = flash_kernel_phase(attn)
     filter_entry = filter2d_kernel_phase(f2d)
+    filter_entry["realesrgan"] = re_filter2d_phase(f2d)
     entry.update(rdb_grad_phase(rdb))
     base = os.path.join(ROOT, "build")
     os.makedirs(base, exist_ok=True)
@@ -1443,17 +1977,26 @@ def main() -> None:
         trans_launches, trans_forward_ms, transformer_ms, trans_f32 = trans_serve_phase(
             work, weights, rdb, attn, blocks)
         trans_infer = trans_infer_phase(work, weights, rdb, attn)
+        re_launches, re_forward_ms, re_f32_launches = re_serve_phase(work, rdb, blocks)
         train_launches, train = train_phase(work, rdb, f2d, blocks, filters)
         gan_launches, gan = gan_train_phase(work, rdb, f2d, blocks, filters)
-    launches += trans_launches["rdb"] + trans_infer["rdb"] + train_launches["rdb"] + gan_launches["rdb"]
+        ren_launches, ren, _ = re_train_phase(work, "realesrnet", rdb, f2d, blocks, filters)
+        reg_launches, reg, reg_state = re_train_phase(work, "realesrgan", rdb, f2d, blocks, filters)
+        reg["f32_step_vs_plain"] = re_f32_check(work, reg_state["host"], reg_state["d_final"], rdb, f2d, blocks,
+                                                filters)
+        del reg_state
+    launches += (trans_launches["rdb"] + trans_infer["rdb"] + train_launches["rdb"] + gan_launches["rdb"]
+                 + re_launches + ren_launches["rdb"] + reg_launches["rdb"])
     flash_launches = trans_launches["flash"] + trans_infer["flash"]
     check(launches > 0, "the main paths launched no rdb_forward kernel")
     check(flash_launches > 0, "the bsrgantrans_x2 path launched no flash_attention kernel")
     entry["launches"] = launches
     # of which f32 (the 3xTF32 kernels): the f32 stdio requests
-    entry["launches_f32"] = f32_launches + trans_f32["rdb"]
+    entry["launches_f32"] = f32_launches + trans_f32["rdb"] + re_f32_launches
     entry["launches_per_forward"] = RDB_PER_FORWARD
     entry["forward_ms"] = forward_ms  # bsrgan_x2 at 256x256, whole generator
+    entry["realesrgan_forward_ms"] = re_forward_ms  # realesrgan_x4 at 128x128, realesrgan_x2 at 250x190
+    entry["realesrgan_serve_launches"] = re_launches
     flash_entry["launches"] = flash_launches
     flash_entry["launches_f32"] = trans_f32["flash"]
     flash_entry["launches_per_forward"] = ATTN_PER_FORWARD
@@ -1463,7 +2006,14 @@ def main() -> None:
     check(gan_launches["filter2d"] > 0, "the bsrgan training path launched no filter2d kernel")
     entry["train_launches"] = train_launches["rdb"]
     entry["gan_launches"] = gan_launches["rdb"]
-    filter_entry["launches"] = train_launches["filter2d"] + gan_launches["filter2d"]
+    entry["realesrnet_launches"] = ren_launches["rdb"]
+    entry["realesrgan_launches"] = reg_launches["rdb"]
+    check(ren_launches["filter2d"] > 0 and reg_launches["filter2d"] > 0,
+          "a Real-ESRGAN training path launched no filter2d kernel")
+    filter_entry["launches"] = (train_launches["filter2d"] + gan_launches["filter2d"] + ren_launches["filter2d"]
+                                + reg_launches["filter2d"])
+    filter_entry["realesrnet_launches"] = ren_launches["filter2d"]
+    filter_entry["realesrgan_launches"] = reg_launches["filter2d"]
     filter_entry["gan_launches"] = gan_launches["filter2d"]
     filter_entry["launches_per_chain"] = FILTERS_PER_CHAIN
     filter_entry["chain_ms"] = train["chain_ms"]  # the whole chain of one bsrnet step
@@ -1488,6 +2038,14 @@ def main() -> None:
           f"content {gan['content_forward_backward_ms']:.2f} ms, adversarial "
           f"{gan['adversarial_forward_backward_ms']:.2f} ms; the chain {gan['chain_ms']:.2f} ms; host-clock step "
           f"p50 {gan['step_ms_p50']:.2f} ms; validation {gan['validation_ms']:.2f} ms", flush=True)
+    for name, r in (("realesrnet", ren), ("realesrgan", reg)):
+        parts = (f", the D update {r['d_update_ms']:.2f} ms, content {r['content_forward_backward_ms']:.2f} ms, "
+                 f"adversarial {r['adversarial_forward_backward_ms']:.2f} ms" if name == "realesrgan" else "")
+        print(f"{name} step (bf16, batch {RE_BATCH}, GT {RE_GT}): {r['train_step_ms']:.2f} ms on the card, of which "
+              f"G forward+backward {r['g_forward_backward_ms']:.2f} ms (69 RDB kernels at {RE_RDB_SHAPE} alone "
+              f"{RDB_PER_FORWARD * entry['realesrgan_train_kernel_ms']:.2f} ms){parts}; the chain "
+              f"{r['chain_ms']:.2f} ms (USM {r['usm_ms']:.2f}, filter2d {r['chain_filter2d_ms']:.2f}); host-clock "
+              f"step p50 {r['step_ms_p50']:.2f} ms; peak memory {r['peak_memory_gb']:.2f} GB", flush=True)
     # last, so that no timed phase runs after a profiler session
     q, k, v = (t.transpose(1, 2) for t in flash_inputs(FLASH_SHAPE, seed=100))
     flash_entry["library_f32_kernels"] = sdpa_kernels(q, k, v)
@@ -1495,6 +2053,8 @@ def main() -> None:
           flush=True)
     print(json.dumps({"train": {k: v for k, v in train.items() if k != "losses"}}))
     print(json.dumps({"gan": {k: v for k, v in gan.items() if k != "metrics"}}))
+    print(json.dumps({"realesrnet": ren}))
+    print(json.dumps({"realesrgan": reg}))
     print(smi)
     print(json.dumps({"kernels": [entry, flash_entry, filter_entry]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,17 @@
-"""Batch adapter: host GT batches -> device (gt, lr) pairs (counterpart of
-``srganfd_tpu/cli/degrade_adapter.py``).
+"""Batch adapter: host GT batches -> device (gt, lr[, gt_pixel]) batches
+(counterpart of ``srganfd_tpu/cli/degrade_adapter.py``).
 
-Ported: the ``bsrgan`` branch, the fork's chain on the 320 pre-crop
-followed, in training, by the aligned random crop to ``gt_image_size``
-(``BSRGAN/train_bsrgan.py:399``). The other degradations raise with the
-ROADMAP.md item that ports them.
+Ported:
+
+- ``bsrgan``: the fork's chain on the 320 pre-crop followed, in training,
+  by the aligned random crop to ``gt_image_size``
+  (``BSRGAN/train_bsrgan.py:399``);
+- ``realesrgan``: USM, the second-order chain on the sharpened GT, then in
+  training aligned crops and paired flips/rotation
+  (``Real_ESRGAN/train_realesrgan.py:392-405``); ``gt_pixel`` is the
+  sharpened GT that the pixel and content losses target.
+
+``bicubic`` and ``paired`` raise with the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -19,12 +26,17 @@ from srganfd_tpu_torch.ops.degrade import (
     bsrgan_lr_size,
     plan_bsrgan_batch,
 )
+from srganfd_tpu_torch.ops.realesrgan_degrade import (
+    apply_realesrgan_batch,
+    apply_realesrgan_train_batch,
+    plan_realesrgan_batch,
+    usm_sharp,
+)
 
 __all__ = ["DegradationAdapter"]
 
 _NOT_PORTED = {
     "bicubic": "A8 (other families)",
-    "realesrgan": "A8 (other families)",
     "paired": "A8 (other families)",
 }
 
@@ -42,7 +54,7 @@ class DegradationAdapter:
                 f"degradation {cfg.degradation!r} is not ported to srganfd_tpu_torch yet: "
                 f"see ROADMAP.md {_NOT_PORTED[cfg.degradation]}"
             )
-        if cfg.degradation != "bsrgan":
+        if cfg.degradation not in ("bsrgan", "realesrgan"):
             raise ValueError(f"unknown degradation {cfg.degradation!r}")
         self.cfg = cfg
         self.seed = seed
@@ -58,6 +70,8 @@ class DegradationAdapter:
         return np.random.default_rng((self.seed, 0xDE64ADE, 0, step))
 
     def __call__(self, host_batch: dict[str, np.ndarray], step: int) -> dict[str, torch.Tensor]:
+        if self.cfg.degradation == "realesrgan":
+            return self._realesrgan(host_batch, step)
         cfg = self.cfg
         rng = self.step_rng(step)
         n = int(np.shape(host_batch["gt"])[0])
@@ -82,3 +96,31 @@ class DegradationAdapter:
         lefts = rng.integers(0, lr_limit + 1, n)
         gt_c, lr_c = apply_bsrgan_batch_cropped(gt, plan, tops, lefts, cfg.gt_image_size, sf)
         return {"gt": gt_c, "lr": lr_c}
+
+    def _realesrgan(self, host_batch: dict[str, np.ndarray], step: int) -> dict[str, torch.Tensor]:
+        """The host draws in the JAX adapter's order: the plan, one integer
+        that seeds the device generator of the noise (where JAX draws its
+        PRNG key), then tops, lefts and the three flip flags."""
+        cfg = self.cfg
+        rng = self.step_rng(step)
+        n, h, w = (int(v) for v in np.shape(host_batch["gt"])[:3])
+        plan = plan_realesrgan_batch(rng, n, (h, w), cfg.upscale_factor, cfg.degradation_params["process"])
+        generator = torch.Generator(device=self.device).manual_seed(int(rng.integers(0, 2**31)))
+        dev = lambda k: torch.from_numpy(np.ascontiguousarray(host_batch[k])).to(self.device)  # noqa: E731
+        k1, k2, sinc = dev("kernel1"), dev("kernel2"), dev("sinc_kernel")
+        if not self.train:
+            gt = dev("gt")
+            gt_usm = usm_sharp(gt)
+            return {"gt": gt, "gt_pixel": gt_usm,
+                    "lr": apply_realesrgan_batch(gt_usm, k1, k2, sinc, generator, plan)}
+        sf = cfg.upscale_factor
+        lr_limit_h = plan.final_size[0] - cfg.gt_image_size // sf
+        lr_limit_w = plan.final_size[1] - cfg.gt_image_size // sf
+        tops = rng.integers(0, max(lr_limit_h, 0) + 1, n)
+        lefts = rng.integers(0, max(lr_limit_w, 0) + 1, n)
+        hf = (rng.random(n) < 0.5).astype(np.float32)
+        vf = (rng.random(n) < 0.5).astype(np.float32)
+        rot = (rng.random(n) < 0.5).astype(np.float32)
+        gt_c, usm_c, lr_c = apply_realesrgan_train_batch(
+            dev("gt"), k1, k2, sinc, generator, plan, tops, lefts, hf, vf, rot, cfg.gt_image_size, sf)
+        return {"gt": gt_c, "gt_pixel": usm_c, "lr": lr_c}

@@ -6,8 +6,11 @@ checkpoint-best/last}``, ``BSRGAN/train_bsrgan.py:38-232``), driven by a
 config name. Ported: the BSRGAN recipe's two stages, the generator-only
 ``bsrnet`` pretrain and the ``bsrgan`` GAN fine-tune (``discriminator_unet``,
 VGG19 content loss, BCE, LPIPS selection), with the BSRGAN degradation
-chain, whose blurs run the hand-written ``filter2d`` kernel, and the
-generator's RDBs on the RDB kernel on the card.
+chain; and the Real-ESRGAN recipe's two stages, ``realesrnet`` (L1) and
+``realesrgan`` (the G-first GAN step, the pixel and content losses against
+the USM-sharpened GT), with the second-order chain. Every blur of both
+chains runs the hand-written ``filter2d`` kernel and the generator's RDBs
+the RDB kernel on the card.
 
 Usage:
     python -m srganfd_tpu_torch.cli.train --config bsrgan \
@@ -25,6 +28,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from typing import Any
 
 import numpy as np
 import torch
@@ -33,7 +37,7 @@ from srganfd_tpu_torch import configs
 from srganfd_tpu_torch.cli.degrade_adapter import DegradationAdapter
 from srganfd_tpu_torch.cli.infer import choice_device
 from srganfd_tpu_torch.configs.base import ExperimentConfig
-from srganfd_tpu_torch.data.datasets import BatchLoader, TrainValidImageDataset
+from srganfd_tpu_torch.data.datasets import BatchLoader, DegeneratedImageDataset, TrainValidImageDataset
 from srganfd_tpu_torch.losses.lpips import Lpips
 from srganfd_tpu_torch.metrics.psnr_ssim import psnr_tensor, ssim_tensor
 from srganfd_tpu_torch.models import check_ported
@@ -75,8 +79,13 @@ def _reject_unported_env() -> None:
                                   "srganfd_tpu_torch yet: see ROADMAP.md A4")
 
 
-def build_datasets(cfg: ExperimentConfig) -> tuple[TrainValidImageDataset, TrainValidImageDataset]:
-    """GT-only train and valid datasets at the pre-crop (or GT) size."""
+def build_datasets(cfg: ExperimentConfig) -> tuple[Any, Any]:
+    """GT-only train and valid datasets at the pre-crop (or GT) size; for
+    the Real-ESRGAN chain each record also carries its kernel triple."""
+    if cfg.degradation == "realesrgan":
+        model = cfg.degradation_params["model"]
+        return (DegeneratedImageDataset(cfg.train_gt_images_dir, cfg.gt_image_size, model, "Train"),
+                DegeneratedImageDataset(cfg.valid_gt_images_dir, cfg.gt_image_size, model, "Valid"))
     if cfg.degradation != "bsrgan":
         raise NotImplementedError(
             f"degradation {cfg.degradation!r} is not ported to srganfd_tpu_torch yet: "
@@ -216,7 +225,7 @@ def run_train(
             for i in range(max(first_slot, 0), spe):
                 batch = train_adapter(next(it), global_step)
                 data_time.update(time.time() - end)
-                last_metrics = trainer.train_step(state, batch["gt"], batch["lr"])
+                last_metrics = trainer.train_step(state, batch["gt"], batch["lr"], batch.get("gt_pixel"))
                 # reading a loss waits for the card: only at print frequency
                 if i % cfg.train_print_frequency == 0:
                     values = {k: float(v) for k, v in last_metrics.items()}
@@ -260,7 +269,7 @@ def run_train(
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description="srganfd_tpu_torch trainer")
     ap.add_argument("--config", required=True,
-                    help="bsrnet or bsrgan (the other configs are not ported yet)")
+                    help="bsrnet, bsrgan, realesrnet or realesrgan (the other configs are not ported yet)")
     ap.add_argument("--train-dir", default=None)
     ap.add_argument("--valid-dir", default=None)
     ap.add_argument("--epochs", type=int, default=None)
@@ -319,7 +328,7 @@ def main(argv: list[str] | None = None) -> None:
             raise SystemExit(f"--d-arch: {e.args[0]}") from None
         overrides["d_arch"] = args.d_arch
     cfg = configs.get_config(args.config, **overrides)
-    if args.tiny:  # the bsrgan_x2 of both ported configs
+    if args.tiny:  # bsrgan_x2 and realesrgan_x4 take the same widths
         cfg = cfg.replace(g_kwargs={**cfg.g_kwargs, "channels": 8, "growth_channels": 4, "num_rrdb": 1})
     device = choice_device(args.device)
     run_train(cfg, steps_per_epoch=args.steps_per_epoch, resume=args.resume, device=device)

@@ -1,18 +1,16 @@
 """Experiment configs of the port, by the JAX package's names
-(``srganfd_tpu/configs/__init__.py``). ``bsrnet`` and ``bsrgan`` are
-ported; the other names of the JAX package raise with the ROADMAP.md item
-that ports them."""
+(``srganfd_tpu/configs/__init__.py``). ``bsrnet``, ``bsrgan``,
+``realesrnet`` and ``realesrgan`` are ported; the other names of the JAX
+package raise with the ROADMAP.md item that ports them."""
 
 import importlib
 
 from srganfd_tpu_torch.configs.base import ExperimentConfig  # noqa: F401
 
-_PORTED = ("bsrnet", "bsrgan")
+_PORTED = ("bsrnet", "bsrgan", "realesrnet", "realesrgan")
 _NOT_PORTED = {
     "rrdbnet": "A8 (other families)",
     "esrgan": "A8 (other families)",
-    "realesrnet": "A8 (other families)",
-    "realesrgan": "A8 (other families)",
     "aesrgan": "A8 (other families)",
 }
 

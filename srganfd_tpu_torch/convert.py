@@ -12,6 +12,15 @@ state dict uses the reference names ``conv1``, ``trunk.{i}.rdb{j}.conv{k}``,
 as ``tools/export_to_torch.py`` writes them (the mapping is this module's
 own copy).
 
+A ``RealESRGANNet`` tree (``realesrgan_x4``/``x2``) holds the same
+leaves as an x4 RRDB tree: ``Conv_0`` (conv1, whose input channels are
+the unshuffled ones: 3 at x4, 12 at x2, 48 at x1), the trunk, ``Conv_1``
+(conv2), ``Conv_2``/``Conv_3`` (the two upsampling convs), ``Conv_4``
+(the HR conv, ``conv3.0``) and ``Conv_5`` (``conv4``), and takes the same
+names (``tools/export_torch_weights.py`` exports the family through the
+RRDB map). ``flax_to_state_dict`` sends a tree whose conv1 takes 12 or 48
+channels to the Real-ESRGAN mapping, which refuses any other layout.
+
 A ``BSRGANtrans`` tree has the same conv1 and trunk, then ``Conv_1`` (the
 stride-2 downsample), ``TransformerEncoderLayer_{0,1}``, ``Conv_2`` (the
 conv after the bottleneck's x2 upsample), ``Conv_3`` (conv2), ``Conv_4``
@@ -53,7 +62,8 @@ import numpy as np
 import torch
 
 __all__ = [
-    "flax_to_state_dict", "rrdb_flax_to_state_dict", "bsrgantrans_flax_to_state_dict",
+    "flax_to_state_dict", "rrdb_flax_to_state_dict", "realesrgan_flax_to_state_dict",
+    "bsrgantrans_flax_to_state_dict",
     "encoder_layer_to_state_dict", "state_dict_to_flax",
     "discriminator_flax_to_state_dict", "vgg19_flax_to_state_dict", "alexnet_flax_to_state_dict",
     "load_generator_weights",
@@ -194,6 +204,30 @@ def rrdb_flax_to_state_dict(params: dict) -> dict[str, np.ndarray]:
     return sd
 
 
+_UNSHUFFLED_CHANNELS = (3, 12, 48)  # conv1's input at x4, x2 and x1
+
+
+def realesrgan_flax_to_state_dict(params: dict) -> dict[str, np.ndarray]:
+    """A ``RealESRGANNet`` tree (unrolled or scanned trunk) -> the port's
+    state dict. Raises on a tree of another layout: convs other than
+    ``Conv_0..Conv_5`` (an x2 or x8 RRDBNet, a BSRGANtrans), conv1 input
+    channels other than 3, 12 or 48, or leaves it does not place."""
+    params = _unstack_trunk(params)
+    convs = _conv_names(params)
+    if convs != [f"Conv_{i}" for i in range(6)]:
+        raise ValueError(f"a RealESRGANNet tree has Conv_0..Conv_5, found {convs}")
+    cin = int(_np(params["Conv_0"]["Conv_0"]["kernel"]).shape[2])
+    if cin not in _UNSHUFFLED_CHANNELS:
+        raise ValueError(f"a RealESRGANNet conv1 takes {_UNSHUFFLED_CHANNELS} channels, this one {cin}")
+    sd: dict[str, np.ndarray] = {}
+    used: set[str] = set()
+    _put_trunk(params, sd, used)
+    for name, prefix in zip(convs, ["conv1", "conv2", "upsampling1.0", "upsampling2.0", "conv3.0", "conv4"]):
+        _put_conv(params, sd, used, name, prefix)
+    _refuse_unmapped(params, used, "RealESRGANNet")
+    return sd
+
+
 def bsrgantrans_flax_to_state_dict(params: dict) -> dict[str, np.ndarray]:
     """A ``BSRGANtrans`` tree (unrolled or scanned trunk) -> the port's
     state dict (names in the module docstring)."""
@@ -225,6 +259,9 @@ def flax_to_state_dict(params: dict) -> dict[str, np.ndarray]:
     keys call for."""
     if any(k.startswith("TransformerEncoderLayer_") for k in params):
         return bsrgantrans_flax_to_state_dict(params)
+    conv1 = params.get("Conv_0", {}).get("Conv_0", {}).get("kernel")
+    if conv1 is not None and _np(conv1).shape[2] in _UNSHUFFLED_CHANNELS[1:]:
+        return realesrgan_flax_to_state_dict(params)
     return rrdb_flax_to_state_dict(params)
 
 

@@ -1,6 +1,7 @@
 """Image datasets and the threaded batch loader of the port (its own copies
 of ``srganfd_tpu/data/datasets.py`` ``IMAGE_EXTS``, ``list_image_files``,
-``load_image_rgb``, ``TrainValidImageDataset`` and ``BatchLoader``).
+``load_image_rgb``, ``TrainValidImageDataset``, ``DegeneratedImageDataset``
+and ``BatchLoader``).
 
 Datasets only decode, crop and augment on the host; LR generation (the
 degradation chain) runs on the device downstream. ``BatchLoader`` yields
@@ -22,9 +23,11 @@ import cv2
 import numpy as np
 
 from srganfd_tpu_torch.ops.augment import center_crop_np, random_crop_np, random_rotate_flip_np
+from srganfd_tpu_torch.ops.realesrgan_degrade import sample_kernel_triple
 
 __all__ = [
-    "IMAGE_EXTS", "list_image_files", "load_image_rgb", "TrainValidImageDataset", "BatchLoader",
+    "IMAGE_EXTS", "list_image_files", "load_image_rgb", "TrainValidImageDataset",
+    "DegeneratedImageDataset", "BatchLoader",
 ]
 
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff", ".webp")
@@ -78,6 +81,29 @@ class TrainValidImageDataset:
         else:
             img = center_crop_np(img, size)
         return {"gt": img}
+
+
+class DegeneratedImageDataset:
+    """Real-ESRGAN dataset (``Real_ESRGAN/dataset.py:34-150``): the GT crop
+    of ``TrainValidImageDataset``, then the per-sample kernel triple
+    ``kernel1``, ``kernel2`` and ``sinc_kernel`` ((K, K) f32 each, K =
+    ``sinc_kernel_size``), drawn after the crop from the record's rng."""
+
+    def __init__(
+        self, gt_images_dir: str, gt_image_size: int, degradation_model_params: dict, mode: str = "Train"
+    ) -> None:
+        self.inner = TrainValidImageDataset(gt_images_dir, gt_image_size, mode)
+        self.params = degradation_model_params
+
+    def __len__(self) -> int:
+        return len(self.inner)
+
+    def __getitem__(self, index: int, rng: np.random.Generator | None = None) -> dict[str, Any]:
+        rng = rng or np.random.default_rng()
+        rec = self.inner.__getitem__(index, rng)
+        k1, k2, sinc = sample_kernel_triple(rng, self.params)
+        rec.update({"kernel1": k1, "kernel2": k2, "sinc_kernel": sinc})
+        return rec
 
 
 class BatchLoader:

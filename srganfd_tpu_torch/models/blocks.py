@@ -1,7 +1,8 @@
 """Building blocks of the models (counterpart of
 ``srganfd_tpu/models/blocks.py``: ``lrelu``, ``Conv``, ``SNConv``,
-``ResidualDenseBlock``, ``RRDB`` and the trunk; the attention functions and
-``TransformerEncoderLayer`` of the transformer bottleneck).
+``ResidualDenseBlock``, ``RRDB`` and the trunk; ``pixel_unshuffle``; the
+attention functions and ``TransformerEncoderLayer`` of the transformer
+bottleneck).
 
 Layout: the modules take and return NCHW tensors, kept in
 ``torch.channels_last`` memory format, so that ``x.permute(0, 2, 3, 1)``
@@ -29,6 +30,7 @@ from srganfd_tpu_torch.ops.cuda.rdb import pack_rdb_weights, rdb_apply
 
 __all__ = [
     "lrelu", "out_dtype", "Conv", "init_lecun_normal", "SNConv", "ResidualDenseBlock", "RRDB", "make_trunk", "init_kaiming_x01",
+    "pixel_unshuffle",
     "ATTN_BACKENDS", "attention_backend", "chunked_attention", "large_attention",
     "dot_product_attention", "TransformerEncoderLayer",
 ]
@@ -193,6 +195,21 @@ class RRDB(nn.Module):
 def make_trunk(channels: int, growth_channels: int, num_blocks: int) -> nn.Sequential:
     """The RRDB trunk (``run_trunk`` in JAX, unrolled): ``trunk.{i}``."""
     return nn.Sequential(*[RRDB(channels, growth_channels) for _ in range(num_blocks)])
+
+
+def pixel_unshuffle(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """NHWC pixel-unshuffle: (N, H, W, C) -> (N, H/f, W/f, C*f*f) with the
+    output channels in (c, fh, fw) order, torch ``nn.PixelUnshuffle``'s
+    order, as the JAX ``pixel_unshuffle`` orders them. H and W must be
+    multiples of ``factor``."""
+    if factor == 1:
+        return x
+    if x.shape[1] % factor or x.shape[2] % factor:
+        raise ValueError(
+            f"pixel_unshuffle by {factor} needs H and W divisible by it, got {x.shape[1]}x{x.shape[2]} "
+            f"(serve with --bucket {factor} to pad odd frames)"
+        )
+    return F.pixel_unshuffle(x.permute(0, 3, 1, 2), factor).permute(0, 2, 3, 1)
 
 
 # -- attention ---------------------------------------------------------------

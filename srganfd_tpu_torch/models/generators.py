@@ -1,5 +1,6 @@
 """RRDB generator family (counterpart of ``srganfd_tpu/models/generators.py``
-``RRDBNet``, ``BSRGAN`` and ``BSRGANtrans`` with their registered names).
+``RRDBNet``, ``BSRGAN``, ``BSRGANtrans`` and ``RealESRGANNet`` with their
+registered names).
 
 - ``RRDBNet`` x1/x2/x4/x8: ``ESRGAN/model.py:144-243,301-322``; one
   nearest-upsample + conv stage per factor of 2.
@@ -8,13 +9,17 @@
   ``BSRGANsa`` never inserts its attention modules.
 - ``BSRGANtrans`` x2: ``A-ESRGAN/model.py:643-753``, BSRGAN with a
   transformer bottleneck between the trunk and ``conv2``.
+- ``RealESRGANNet`` x4/x2: ``Real_ESRGAN/model.py:179-263,331-334``; a
+  pixel-unshuffle front (by 2 at x2, by 4 at x1), then always two
+  nearest-upsample + conv stages.
 
 ``forward`` takes and returns NHWC float tensors, as ``model.apply`` does
 in JAX; inside, the network runs NCHW channels-last in the compute
 ``dtype`` (f32, or bf16 for ``--half``) and emits f32 clamped to [0, 1]
 (f64 under f64 compute, a CPU-only dtype of parity tests).
 State-dict names are the reference's: ``conv1``, ``trunk.{i}.rdb{j}.conv{k}``,
-``conv2``, ``upsampling{n}.0``, ``conv3.0``, ``conv4``; ``BSRGANtrans``
+``conv2``, ``upsampling{n}.0``, ``conv3.0``, ``conv4`` (``RealESRGANNet``
+too: its conv1 takes the unshuffled channels); ``BSRGANtrans``
 adds ``down_conv``, ``transformer.{0,1}`` and ``up_conv`` (see
 ``convert.py``).
 """
@@ -34,11 +39,12 @@ from srganfd_tpu_torch.models.blocks import (
     lrelu,
     make_trunk,
     out_dtype,
+    pixel_unshuffle,
 )
 from srganfd_tpu_torch.models.registry import register
 from srganfd_tpu_torch.ops.resize import upsample_nearest
 
-__all__ = ["RRDBNet", "BSRGAN", "BSRGANtrans"]
+__all__ = ["RRDBNet", "BSRGAN", "BSRGANtrans", "RealESRGANNet"]
 
 
 class RRDBNet(nn.Module):
@@ -155,6 +161,33 @@ class BSRGANtrans(BSRGAN):
         return lrelu(self.up_conv(upsample_nearest(y, 2)))
 
 
+class RealESRGANNet(RRDBNet):
+    """Real-ESRGAN generator: pixel-unshuffle by 4 / upscale_factor (x4:
+    none, x2: by 2, so conv1 takes 12 channels), the RRDB trunk, then
+    always two nearest-x2 upsample stages, the HR conv (``conv3``), the
+    last conv (``conv4``) and the clamp. At x2 H and W must be even (the
+    JAX module's reshape fails on an odd frame; serve with ``--bucket 2``)."""
+
+    _UNSHUFFLE = {4: 1, 2: 2, 1: 4}
+
+    def __init__(
+        self, *, in_channels: int = 3, num_rrdb: int = 23, upscale_factor: int = 4, **kwargs: Any
+    ) -> None:
+        if upscale_factor not in self._UNSHUFFLE:
+            raise ValueError(f"RealESRGANNet takes upscale_factor 1, 2 or 4, got {upscale_factor}")
+        self.unshuffle = self._UNSHUFFLE[upscale_factor]
+        super().__init__(in_channels=in_channels * self.unshuffle**2, num_blocks=num_rrdb,
+                         upscale_factor=upscale_factor, **kwargs)
+        self.upscale = upscale_factor
+
+    @staticmethod
+    def _num_upsample(upscale_factor: int) -> int:
+        return 2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(pixel_unshuffle(x, self.unshuffle))
+
+
 def _rrdbnet(upscale: int):
     def factory(**kw: Any) -> RRDBNet:
         return RRDBNet(upscale_factor=upscale, **kw)
@@ -188,3 +221,14 @@ def bsrgansa_x2(**kw: Any) -> BSRGAN:
 @register("bsrgantrans_x2")
 def bsrgantrans_x2(**kw: Any) -> BSRGANtrans:
     return BSRGANtrans(upscale_factor=2, **kw)
+
+
+@register("realesrgan_x4")
+@register("rrdbnet_realesrgan_x4")
+def realesrgan_x4(**kw: Any) -> RealESRGANNet:
+    return RealESRGANNet(upscale_factor=4, **kw)
+
+
+@register("realesrgan_x2")
+def realesrgan_x2(**kw: Any) -> RealESRGANNet:
+    return RealESRGANNet(upscale_factor=2, **kw)

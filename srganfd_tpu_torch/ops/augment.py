@@ -5,7 +5,9 @@
   (``ESRGAN/imgproc.py:465-575``, ``BSRGAN/dataset.py:64-80``); the draws
   are the JAX package's, call for call;
 - ``paired_random_crop``: the aligned (gt, lr) crop of the BSRGAN train loop
-  (``BSRGAN/imgproc.py:846-886``) on tensors.
+  (``BSRGAN/imgproc.py:846-886``) on tensors;
+- ``paired_flip_rotate``: the per-sample paired flips and rot90 of the
+  Real-ESRGAN train batch on tensors.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ __all__ = [
     "center_crop_np",
     "random_rotate_flip_np",
     "paired_random_crop",
+    "paired_flip_rotate",
 ]
 
 
@@ -87,3 +90,25 @@ def paired_random_crop(
         lrs.append(crop(lr[i], t, l, lr_patch))
         gts.append(crop(gt[i], t * upscale_factor, l * upscale_factor, gt_patch))
     return torch.stack(gts), torch.stack(lrs)
+
+
+def paired_flip_rotate(
+    gt: torch.Tensor, lr: torch.Tensor, hflip: torch.Tensor, vflip: torch.Tensor, rot90: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample paired flips, then a 90-degree rotation, of NHWC batches;
+    flags (N,) in {0, 1}, the same transform for both members of a pair.
+    The rotation (``jnp.rot90(axes=(1, 2))``, towards W) applies only to
+    square patches, as in JAX."""
+
+    def flip(img: torch.Tensor) -> torch.Tensor:
+        h = hflip.to(img.device)[:, None, None, None] > 0.5
+        v = vflip.to(img.device)[:, None, None, None] > 0.5
+        img = torch.where(h, img.flip(2), img)
+        return torch.where(v, img.flip(1), img)
+
+    gt, lr = flip(gt), flip(lr)
+    if gt.shape[1] == gt.shape[2]:
+        r = rot90.to(gt.device)[:, None, None, None] > 0.5
+        gt = torch.where(r, torch.rot90(gt, 1, dims=(1, 2)), gt)
+        lr = torch.where(r, torch.rot90(lr, 1, dims=(1, 2)), lr)
+    return gt, lr

@@ -1,10 +1,10 @@
 """Trainer of the port (counterpart of ``srganfd_tpu/train/loop.py``
 ``Trainer``).
 
-Generator-only configs (the L1 pretrain of ``ESRGAN/train_rrdbnet.py:213-286``
-and ``BSRGAN/train_bsrnet.py``): one generator forward, the weighted L1
-pixel loss, its backward, an Adam update at the lr that ``multistep_lr``
-gives for the step count, then the EMA.
+Generator-only configs (the L1 pretrains of ``ESRGAN/train_rrdbnet.py:213-286``,
+``BSRGAN/train_bsrnet.py`` and ``Real_ESRGAN/train_realesrnet.py``): one
+generator forward, the weighted L1 pixel loss, its backward, an Adam update
+at the lr that ``multistep_lr`` gives for the step count, then the EMA.
 
 GAN configs with the D step first (BSRGAN, ``BSRGAN/train_bsrgan.py:395-471``;
 JAX ``make_train_step`` with ``g_step_first=False``):
@@ -19,6 +19,15 @@ JAX ``make_train_step`` with ``g_step_first=False``):
    (BCE(D(sr), 1), D with ``update_stats=False``: ``u`` is not written and
    no gradient reaches D), each through ``_weighted``; Adam on G, then EMA.
 
+GAN configs with the G step first (Real-ESRGAN,
+``Real_ESRGAN/train_realesrgan.py:407-470``; ``g_step_first=True``): the
+G update against the old D, then the D update on the same, detached SR,
+then EMA.
+
+A step takes an optional ``gt_pixel``: the pixel and content terms target
+it (Real-ESRGAN's USM-sharpened GT) while D's real input stays ``gt``;
+without it both are ``gt``.
+
 Adam is ``torch.optim.Adam(lr, betas, eps=model_eps, weight_decay=0)``,
 which computes what the JAX package's ``optax.adamw(..., weight_decay=0)``
 computes. Parameters and Adam states are f32; ``compute_dtype="bfloat16"``
@@ -29,8 +38,8 @@ Each RDB of the generator is ``ops/cuda/rdb.py`` ``rdb_apply``: the
 hand-written kernel on a CUDA tensor, its backward through the plain
 version, recomputed, as the JAX ``rdb_apply`` does.
 
-Not ported yet, each rejected with its ROADMAP.md item: the G-first and
-relativistic steps (A8), discriminators other than ``discriminator_unet``,
+Not ported yet, each rejected with its ROADMAP.md item: the relativistic
+step (A8), discriminators other than ``discriminator_unet``,
 ``grad_accum_steps``, ``skip_nonfinite_updates``, ``grad_clip_norm``,
 weight decay (A4), the pipe mesh (A11), and the K-step and fused dispatch
 modes (A4).
@@ -68,7 +77,6 @@ def _weighted(weights: tuple[float, ...], losses: torch.Tensor) -> torch.Tensor:
 
 def _reject_unported(cfg: ExperimentConfig) -> None:
     unported = {
-        "the G-first GAN step (g_step_first)": (cfg.is_gan and cfg.g_step_first, "A8"),
         "relativistic_gan": (cfg.relativistic_gan, "A8"),
         "grad_accum_steps > 1": (cfg.grad_accum_steps > 1, "A4"),
         "skip_nonfinite_updates": (cfg.skip_nonfinite_updates, "A4"),
@@ -159,19 +167,31 @@ class Trainer:
         return state
 
     def train_step(
-        self, state: TrainState, gt: torch.Tensor, lr_img: torch.Tensor
+        self,
+        state: TrainState,
+        gt: torch.Tensor,
+        lr_img: torch.Tensor,
+        gt_pixel: torch.Tensor | None = None,
     ) -> dict[str, torch.Tensor]:
         """One update of ``state`` in place; returns the step's losses (and,
         for a GAN, the D's loss and mean probabilities) as 0-d tensors on
-        the device (reading one waits for the step)."""
+        the device (reading one waits for the step). The pixel and content
+        terms target ``gt_pixel`` when given, D's real input is ``gt``."""
+        target = gt if gt_pixel is None else gt_pixel
         _set_lr(state.g_opt, self.schedule(state.step))  # optax's count: updates before this one
         sr = state.g_model(lr_img)
-        metrics = self._d_update(state, gt, sr.detach()) if self.has_d else {}
-        parts = self._g_losses(state, sr, gt)
+        metrics = {}
+        if self.has_d and not self.cfg.g_step_first:
+            metrics = self._d_update(state, gt, sr.detach())
+        parts = self._g_losses(state, sr, target)
         state.g_opt.zero_grad(set_to_none=True)
         # D and the VGG are constants of the G update: no gradient reaches them
         parts["g_loss"].backward(inputs=list(state.g_model.parameters()))
         state.g_opt.step()
+        if self.has_d and self.cfg.g_step_first:
+            # the same SR, from G before its update, against the old D's
+            # update, as the JAX step's d_update(state, gt, sr) takes it
+            metrics = self._d_update(state, gt, sr.detach())
         ema_update(
             state.ema_g, dict(state.g_model.named_parameters()), self.cfg.model_ema_decay,
             reference_semantics=self.cfg.ema_reference_semantics, step=state.step,

@@ -98,7 +98,7 @@ def test_adapter_eval_keeps_full_gt():
     assert out["gt"].shape == (2, 32, 32, 3) and out["lr"].shape == (2, 16, 16, 3)
 
 
-@pytest.mark.parametrize("degradation", ["bicubic", "realesrgan", "paired"])
+@pytest.mark.parametrize("degradation", ["bicubic", "paired"])
 def test_adapter_names_the_roadmap_item_for_other_degradations(degradation):
     cfg = configs.get_config("bsrnet").replace(degradation=degradation)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
@@ -215,7 +215,7 @@ def test_trainer_names_the_roadmap_item_for_unported_options():
         with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
             Trainer(cfg.replace(**override))
     gan = configs.get_config("bsrgan", g_kwargs=TINY)
-    for override in ({"g_step_first": True}, {"relativistic_gan": True}, {"d_arch": "discriminator"}):
+    for override in ({"relativistic_gan": True}, {"d_arch": "discriminator"}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
             Trainer(gan.replace(**override))
 
@@ -229,7 +229,7 @@ def test_a_discriminator_without_an_adversarial_weight_is_refused():
         Trainer(cfg)
 
 
-@pytest.mark.parametrize("name", ["aesrgan", "rrdbnet", "esrgan", "realesrgan"])
+@pytest.mark.parametrize("name", ["aesrgan", "rrdbnet", "esrgan"])
 def test_unported_configs_name_the_roadmap_item(name):
     with pytest.raises(KeyError, match="ROADMAP.md"):
         configs.get_config(name)
