@@ -12,9 +12,10 @@ RRDBs) and ``bsrgantrans_x2`` (the same trunk, then 2 transformer layers
 of 4 heads and FFN 2048 over the H/2 x W/2 tokens, ``--attn-chunk 1024
 --attn-backend flash``), and the Real-ESRGAN generators ``realesrgan_x4``
 and ``realesrgan_x2`` (a pixel-unshuffle front, the same trunk, two x2
-upsamples), and trains both recipes at full width: ``bsrgan_x2``, the L1
-pretrain (``bsrnet``) and then the GAN stage (``bsrgan``); and
-``realesrgan_x4``, ``realesrnet`` and then ``realesrgan``:
+upsamples), and trains three recipes at full width: ``bsrgan_x2``, the L1
+pretrain (``bsrnet``) and then the GAN stage (``bsrgan``);
+``realesrgan_x4``, ``realesrnet`` and then ``realesrgan``; and
+``bsrgantrans_x2`` against the attention-gated U-Net (``aesrgan``):
 
 1. kernel phases: ``rdb_forward`` vs ``rdb_forward_ref`` and
    ``flash_attention`` vs ``flash_attention_ref``, in f32 (the 3xTF32
@@ -45,11 +46,15 @@ pretrain (``bsrnet``) and then the GAN stage (``bsrgan``); and
 6. the filter2d kernel (the BSRGAN chain's blur, 3xTF32 on the tensor
    cores) against ``filter2d_ref`` at the training shape (16, 320, 320, 3)
    with K = 25, on asymmetric kernels and on one plan's zero-padded
-   kernels, and at ragged shapes with K = 1, 7, 25 and 31; CUDA-event
+   kernels, at ragged shapes with K = 1, 7, 25 and 31, and at shapes
+   whose sides are at or below the reflect pad (K // 2 >= H or W, down to
+   one pixel), where the reflection folds again as ``jnp.pad`` folds it;
+   CUDA-event
    times of the kernel, the plain version and a cuDNN grouped convolution
    at the training shape, beside the card's bounds (f32 on the CUDA cores,
-   and as three TF32 products on the tensor cores), and on the plan's
-   kernels beside the bound of their nonzero taps;
+   and as three TF32 products on the tensor cores), on the plan's
+   kernels beside the bound of their nonzero taps, and at (48, 8, 8, 3)
+   with K = 21, below the pad;
 7. the RDB under autograd: ``rdb_apply``'s gradients against autograd
    through ``rdb_forward_ref`` at the training shape x (16, 72, 72, 64),
    f32 and bf16, and the time of one forward+backward;
@@ -114,7 +119,24 @@ pretrain (``bsrnet``) and then the GAN stage (``bsrgan``); and
     (``step_check``'s LIMITS, loss parts 1e-5, D and ``u`` 1e-3; the
     updated G held on the same step with the content loss off, whose
     VGG gradient amplifies the forward's rounding; the step with the
-    adversarial weight 0 printed).
+    adversarial weight 0 printed);
+14. A-ESRGAN training: ``cli.train.run_train`` on ``aesrgan``, the config
+    unchanged (``bsrgantrans_x2`` 64/32/23 with its transformer
+    bottleneck at full attention against ``uNetDiscriminatorAesrgan``
+    with 64 features, batch 8, pre-crop 150, GT 120, bf16, VGG19 content
+    over five nodes, BCE x 0.1, the D step first, LPIPS selection) on the
+    bsrnet phase's frames: one epoch of 4 steps, then ``--resume auto``
+    for a second; 69 RDB kernel calls per forward and 2 filter2d calls
+    per chain, the resumed D (its ``u`` and BatchNorm running statistics)
+    and both Adams as the checkpoint held them; CUDA-event times of a step
+    and its parts, peak memory; the RDB kernel timed at x (8, 60, 60, 64)
+    in the kernel phase; one step of ``--d-arch
+    discriminator_attention_unet_ms`` at GT 128 (its two scales need
+    sides of 16k); one f32 step held to its plain twin from the trained
+    state (``step_check``'s LIMITS, loss parts 1e-5, D and ``u`` 1e-3, the
+    gates' running statistics 1e-5; the biases before BatchNorm, which
+    have no gradient, printed);
+    ``cli.infer --use-ema`` on ``ckpt_best.pth``.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after.
@@ -165,6 +187,11 @@ RE_FILTER_SHAPE, RE_FINAL_SHAPE = (RE_BATCH, RE_GT, RE_GT, 3), (RE_BATCH, 64, 64
 RE_SERVE = 128  # realesrgan_x4 request edge: 512x512 out
 RE_STEPS_PER_EPOCH, RE_EPOCHS = 3, 1  # then --resume auto for one more epoch
 RE_FRAME = 288  # edge of the synthetic GT frames, above the 256 crop
+# the aesrgan config's shapes: batches of 8 pre-crops of 150, GT 120 at x2;
+# the generator's RDBs on 60x60 LR crops, its bottleneck on 30x30 tokens
+AE_RDB_SHAPE = (8, 60, 60, CH)
+AE_STEPS_PER_EPOCH, AE_EPOCHS = 4, 1  # then --resume auto for one more epoch
+AE_MS_GT = 128  # the ensemble's two scales need GT sides of 16k; the config's 120 is not one
 
 
 def fail(msg: str) -> None:
@@ -238,7 +265,8 @@ def kernel_phase(rdb) -> dict:
     # 24, 40, 56, ...: a half-filled last 16-channel step) and gc 8 (couts
     # of 8 in a tile of 16)
     cases = [((2, 64, 64, CH), GC), ((1, 37, 53, CH), GC), (SERVE_SHAPE, GC), ((2, 256, 256, CH), GC),
-             ((1, 250, 190, CH), GC), (TRAIN_RDB_SHAPE, GC), (RE_RDB_SHAPE, GC), ((3, 17, 23, CH), GC),
+             ((1, 250, 190, CH), GC), (TRAIN_RDB_SHAPE, GC), (RE_RDB_SHAPE, GC), (AE_RDB_SHAPE, GC),
+             ((3, 17, 23, CH), GC),
              ((2, 37, 53, 24), 16), ((1, 20, 33, 40), 8), ((2, 19, 13, 24), 8)]
     for i, (shape, gc) in enumerate(cases):
         x, ks, bs = rdb_inputs(shape, seed=i, gc=gc)
@@ -309,6 +337,24 @@ def kernel_phase(rdb) -> dict:
         f"rdb timing at x {RE_RDB_SHAPE} bf16 (realesrgan training): kernel {re_ms:.4f} ms, plain "
         f"{re_plain_ms:.4f} ms, cuDNN bf16 chain {re_library_ms:.4f} ms; bound {re_bound:.4f} ms "
         f"({re_flops:.3e} FLOP, operations), {100 * re_bound / re_ms:.1f}% of it",
+        flush=True,
+    )
+    # the aesrgan training shape, the same numbers
+    xa, ka, ba = rdb_inputs(AE_RDB_SHAPE, seed=103)
+    xa = xa.to(torch.bfloat16)
+    pa = rdb.pack_rdb_weights(ka, ba, torch.bfloat16)
+    with torch.inference_mode():
+        ae_ms = cuda_ms(lambda: rdb.rdb_forward(xa, ka, ba, pa))
+        ae_plain_ms = cuda_ms(lambda: rdb.rdb_forward_ref(xa, ka, ba))
+        ae_library_ms = cuda_ms(cudnn_chain(xa, ka, ba))
+    ae_flops = rdb_flops(AE_RDB_SHAPE)
+    ae_bytes = 2 * 2 * xa.numel() + 2 * pa[0].numel() + 4 * pa[1].numel()
+    ae_bound = max(ae_flops / PEAK_BF16_FLOPS, ae_bytes / PEAK_HBM_BYTES) * 1e3
+    print(
+        f"rdb timing at x {AE_RDB_SHAPE} bf16 (aesrgan training): kernel {ae_ms:.4f} ms, plain "
+        f"{ae_plain_ms:.4f} ms, cuDNN bf16 chain {ae_library_ms:.4f} ms; bound {ae_bound:.4f} ms "
+        f"({ae_flops:.3e} FLOP, {'operations' if ae_flops / PEAK_BF16_FLOPS >= ae_bytes / PEAK_HBM_BYTES else 'bytes'}), "
+        f"{100 * ae_bound / ae_ms:.1f}% of it",
         flush=True,
     )
     n, h, w, ch = SERVE_SHAPE
@@ -384,6 +430,11 @@ def kernel_phase(rdb) -> dict:
         "realesrgan_train_plain_ms": re_plain_ms,
         "realesrgan_train_library_ms": re_library_ms,
         "realesrgan_train_bound_ms": re_bound,
+        "aesrgan_train_shape": list(AE_RDB_SHAPE),
+        "aesrgan_train_kernel_ms": ae_ms,
+        "aesrgan_train_plain_ms": ae_plain_ms,
+        "aesrgan_train_library_ms": ae_library_ms,
+        "aesrgan_train_bound_ms": ae_bound,
         "shape": list(SERVE_SHAPE),
         "dtype": "bfloat16",
     }
@@ -868,6 +919,7 @@ def re_serve_phase(work: str, rdb, blocks) -> tuple[int, dict, int]:
 # the bsrnet training step's shapes: a chain call per batch of 16 pre-crops
 # of 320x320, two blurs of K = 25; the generator's RDBs on 72x72 LR crops
 FILTER_SHAPE, FILTER_K = (16, 320, 320, 3), 25
+SMALL_FILTER_SHAPE = (RE_BATCH, 8, 8, 3)  # the Real-ESRGAN chain's last stage at GT 32, x4
 TRAIN_RDB_SHAPE = (16, 72, 72, CH)
 FILTERS_PER_CHAIN = 2
 TRAIN_STEPS_PER_EPOCH, TRAIN_EPOCHS = 6, 2
@@ -893,8 +945,12 @@ def filter2d_kernel_phase(f2d) -> dict:
     # the chain's kernels: one plan's first blurs, every size 7..25 centred
     # in a zero 25 x 25 frame
     plan_ks = torch.from_numpy(plan_bsrgan_batch(np.random.default_rng(220), FILTER_SHAPE[0], 2).kernels_a).cuda()
+    # then shapes at and below the reflect pad (K // 2 >= H or W, down to
+    # one pixel): the reflection folds again and again, as jnp.pad pads
     cases = [(FILTER_SHAPE, FILTER_K, None), (FILTER_SHAPE, FILTER_K, plan_ks), ((3, 37, 53, 3), 1, None),
-             ((3, 37, 53, 3), 7, None), ((3, 37, 53, 3), 25, None), ((3, 37, 53, 3), 31, None)]
+             ((3, 37, 53, 3), 7, None), ((3, 37, 53, 3), 25, None), ((3, 37, 53, 3), 31, None),
+             ((2, 1, 1, 3), 3, None), ((2, 1, 9, 3), 7, None), ((2, 6, 1, 3), 5, None), ((2, 3, 5, 3), 25, None),
+             ((2, 12, 12, 3), 25, None), (SMALL_FILTER_SHAPE, RE_K, None), ((1, 13, 90, 5), 31, None)]
     err = 0.0
     for i, (shape, k, ks) in enumerate(cases):
         x = torch.rand(shape, generator=torch.Generator().manual_seed(200 + i)).cuda()
@@ -904,7 +960,8 @@ def filter2d_kernel_phase(f2d) -> dict:
         want = f2d.filter2d_ref(x, ks)
         e = (got - want).abs().max().item()
         err = max(err, e)
-        print(f"filter2d {shape} K={k}{' (plan)' if i == 1 else ''} f32: max abs {e:.3g} "
+        small = " (below the pad)" if k // 2 >= min(shape[1], shape[2]) else ""
+        print(f"filter2d {shape} K={k}{' (plan)' if i == 1 else ''}{small} f32: max abs {e:.3g} "
               f"(|out| <= {want.abs().max().item():.3g})", flush=True)
         # the kernel takes each product as three TF32 ones (~2^-22 relative
         # dropped) and sums in another order; TF32 is off for the plain version
@@ -953,6 +1010,21 @@ def filter2d_kernel_phase(f2d) -> dict:
         f"as {TF32_PRODUCTS} TF32 products, {100 * plan_bound_ms / plan_ms:.1f}% of it",
         flush=True,
     )
+    # the Real-ESRGAN chain's final stage at GT 32 (x4): 8x8 under the K = 21
+    # sinc, below its pad of 10
+    x8 = torch.rand(SMALL_FILTER_SHAPE, generator=torch.Generator().manual_seed(211)).cuda()
+    k8 = asymmetric_kernels(SMALL_FILTER_SHAPE[0], RE_K, seed=311)
+    with torch.inference_mode():
+        small_ms = cuda_ms(lambda: f2d.filter2d(x8, k8))
+        small_plain_ms = cuda_ms(lambda: f2d.filter2d_ref(x8, k8))
+    n8, h8, w8, c8 = SMALL_FILTER_SHAPE
+    small_flops = 2 * n8 * h8 * w8 * c8 * RE_K * RE_K
+    small_bytes_ms = 4 * (2 * n8 * h8 * w8 * c8 + n8 * RE_K * RE_K) / PEAK_HBM_BYTES * 1e3
+    small_bound_ms = max(TF32_PRODUCTS * small_flops / PEAK_TF32_FLOPS * 1e3, small_bytes_ms)
+    print(f"filter2d timing at {SMALL_FILTER_SHAPE} K={RE_K} (below the pad): kernel {small_ms:.4f} ms, plain "
+          f"{small_plain_ms:.4f} ms; bound {small_bound_ms:.4f} ms "
+          f"({'operations' if small_bound_ms > small_bytes_ms else 'bytes'}), "
+          f"{100 * small_bound_ms / small_ms:.1f}% of it", flush=True)
     return {
         "name": "filter2d",
         "route": "cuda",
@@ -978,6 +1050,10 @@ def filter2d_kernel_phase(f2d) -> dict:
         "plan_bound_ms": plan_bound_ms,
         "plan_nonzero_tap_share": plan_flops / flops,
         "plan_nonzero_row_share": rows_live,
+        "below_pad_shape": list(SMALL_FILTER_SHAPE),
+        "below_pad_ms": small_ms,
+        "below_pad_plain_ms": small_plain_ms,
+        "below_pad_bound_ms": small_bound_ms,
         "shape": list(FILTER_SHAPE),
         "k": FILTER_K,
         "dtype": "float32",
@@ -1938,6 +2014,289 @@ def re_f32_check(work: str, host, d_final, rdb, f2d, blocks, filters) -> dict:
     return f32
 
 
+def ae_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
+    """Full-width ``aesrgan`` (the config unchanged: bsrgantrans_x2 64/32/23
+    against uNetDiscriminatorAesrgan with 64 features, batch 8, pre-crop
+    150, GT 120, bf16, VGG19 content over five nodes on the seeded
+    surrogate unless $SRGANFD_VGG19_NPZ names a file, BCE x 0.1, LPIPS
+    selection) through cli.train.run_train on the bsrnet phase's frames:
+    one epoch of AE_STEPS_PER_EPOCH steps, then --resume auto for a
+    second; one step of the multi-scale ensemble; one f32 step held to its
+    plain twin from the trained state; cli.infer --use-ema on ckpt_best.
+    Returns the kernel calls of the training runs and the numbers."""
+    from srganfd_tpu_torch import configs
+    from srganfd_tpu_torch.cli import infer
+    from srganfd_tpu_torch.cli import train as cli_train
+    from srganfd_tpu_torch.cli.degrade_adapter import DegradationAdapter
+    from srganfd_tpu_torch.convert import load_generator_weights
+    from srganfd_tpu_torch.data.datasets import BatchLoader
+    from srganfd_tpu_torch.losses.lpips import Lpips
+    from srganfd_tpu_torch.ops.degrade import apply_bsrgan_batch_cropped, bsrgan_lr_size, plan_bsrgan_batch
+    from srganfd_tpu_torch.train import checkpoint as ckpt
+    from srganfd_tpu_torch.train import step_check
+    from srganfd_tpu_torch.train.loop import Trainer, _bce_scales, _first
+
+    cfg = configs.get_config("aesrgan").replace(
+        train_gt_images_dir=os.path.join(work, "train_gt"), valid_gt_images_dir=os.path.join(work, "valid_gt"),
+        results_dir=os.path.join(work, "results"), samples_dir=os.path.join(work, "samples"),
+    )
+    print(f"aesrgan: {cfg.g_arch} {cfg.g_kwargs or 'full width (64/32/23, 2 encoder layers of 4 heads, FFN 2048)'} "
+          f"against {cfg.d_arch} {cfg.d_kwargs or '64 features'}, batch {cfg.batch_size}, pre-crop "
+          f"{cfg.crop_image_size}, GT {cfg.gt_image_size}, {cfg.compute_dtype}; pixel {cfg.pixel_weight} + content "
+          f"{cfg.content_weight} + adversarial {cfg.adversarial_weight}; Adam g {cfg.model_lr} / d "
+          f"{cfg.discriminator_lr} eps {cfg.model_eps}; selection by {cfg.optimizing_metric}", flush=True)
+
+    metrics_seen, steps, restored = [], [], []
+    real_step, real_restore = Trainer.train_step, ckpt.restore_state
+
+    def recorded_step(self, state, gt, lr_img, gt_pixel=None):
+        entry = time.perf_counter()
+        index = state.step
+        m = real_step(self, state, gt, lr_img, gt_pixel)
+        metrics_seen.append({k: v.item() for k, v in m.items()})  # waits for the step
+        steps.append((index, entry, time.perf_counter()))
+        return m
+
+    def recorded_restore(state, payload):
+        real_restore(state, payload)
+        same = lambda a, b: all(torch.equal(torch.as_tensor(a[k]).cpu(), torch.as_tensor(b[k]).cpu())  # noqa: E731
+                                for k in b)
+        restored.append({
+            "step": state.step,
+            "d": same(state.d_model.state_dict(), payload["d_state_dict"]),
+            "adams": all(same(o.state_dict()["state"][i], payload[key]["state"][i])
+                         for o, key in ((state.g_opt, "optimizer"), (state.d_opt, "d_optimizer"))
+                         for i in payload[key]["state"]),
+        })
+
+    Trainer.train_step, ckpt.restore_state = recorded_step, recorded_restore
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rdb.launches = f2d.launches = 0
+    try:
+        run_s = []
+        for epochs, resume in ((AE_EPOCHS, ""), (AE_EPOCHS + 1, "auto")):
+            t0 = time.perf_counter()
+            result = cli_train.run_train(cfg.replace(epochs=epochs), AE_STEPS_PER_EPOCH, resume=resume,
+                                         device="cuda")
+            torch.cuda.synchronize()
+            run_s.append(time.perf_counter() - t0)
+    finally:
+        Trainer.train_step, ckpt.restore_state = real_step, real_restore
+    calls = {"rdb": rdb.launches, "filter2d": f2d.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_steps = AE_STEPS_PER_EPOCH * (AE_EPOCHS + 1)
+    n_valid = AE_EPOCHS + 1  # one batch of the 4 valid frames per epoch
+    check(len(metrics_seen) == n_steps, f"{len(metrics_seen)} aesrgan steps, expected {n_steps}")
+    check(all(math.isfinite(v) for m in metrics_seen for v in m.values()), f"non-finite aesrgan metrics: {metrics_seen}")
+    check(all(0 < m[k] < 1 for m in metrics_seen for k in ("d_gt_probability", "d_sr_probability")),
+          f"a D probability outside (0, 1): {metrics_seen}")
+    check(calls == {"rdb": RDB_PER_FORWARD * (n_steps + n_valid),
+                    "filter2d": FILTERS_PER_CHAIN * (n_steps + n_valid)},
+          f"aesrgan training made {calls} kernel calls for {n_steps} steps and {n_valid} validation batches")
+    state = result["state"]
+    check(state.step == n_steps, f"resumed aesrgan run ended at step {state.step}")
+    check(len(restored) == 1 and restored[0]["step"] == AE_STEPS_PER_EPOCH, f"aesrgan restores: {restored}")
+    check(steps[AE_STEPS_PER_EPOCH][0] == AE_STEPS_PER_EPOCH, f"the resumed aesrgan run's first step was "
+          f"{steps[AE_STEPS_PER_EPOCH][0]}")
+    check(restored[0]["d"] and restored[0]["adams"],
+          f"the resumed aesrgan D (u, running statistics) or Adams are not the checkpoint's: {restored}")
+    with open(os.path.join(cfg.samples_dir, "logs", cfg.exp_name, "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    lpips = [e["metrics"]["Valid/LPIPS"] for e in events if e["type"] == "metrics" and "Valid/LPIPS" in e["metrics"]]
+    check(len(lpips) == n_valid and all(math.isfinite(v) for v in lpips), f"aesrgan validation LPIPS {lpips}")
+    ckpt_dir = os.path.join(cfg.results_dir, cfg.exp_name)
+    best = ckpt.load_checkpoint(os.path.join(ckpt_dir, "ckpt_best.pth"))
+    check(best["epoch"] == int(np.argmin(lpips)), f"aesrgan ckpt_best.pth is epoch {best['epoch']}, LPIPS {lpips}")
+    last = ckpt.load_checkpoint(os.path.join(ckpt_dir, "ckpt_last.pth"))
+    check(all(torch.equal(last["d_state_dict"][k], v.cpu()) for k, v in state.d_model.state_dict().items()),
+          "aesrgan ckpt_last.pth is not the final D")
+    stats = [k for k in last["d_state_dict"] if k.endswith(("running_mean", "running_var"))]
+    check(len(stats) == 6, f"the attention D's checkpoint holds {stats}")
+
+    intervals = [(b[2] - a[2]) * 1e3 for a, b in zip(steps, steps[1:])
+                 if b[0] == a[0] + 1 and b[0] % AE_STEPS_PER_EPOCH]
+    inside = [(end - entry) * 1e3 for _, entry, end in steps]
+    step_p50 = float(np.median(intervals))
+    print(f"aesrgan training: metrics {[{k: round(v, 5) for k, v in m.items()} for m in metrics_seen]}", flush=True)
+    print(f"aesrgan training: {n_steps} steps + {n_valid} validation batches in {[round(t, 2) for t in run_s]} s; "
+          f"step p50 {step_p50:.2f} ms host clock over {len(intervals)} steps "
+          f"({cfg.batch_size * 1e3 / step_p50:.2f} frames/s), inside train_step p50 {np.median(inside[1:]):.2f} ms, "
+          f"the first step {inside[0]:.1f} ms; validation LPIPS by epoch {lpips}, ckpt_best.pth epoch "
+          f"{best['epoch']}; resumed at step {restored[0]['step']}; peak memory {peak_gb:.2f} GB; {calls} kernel "
+          f"calls (per forward {calls['rdb'] // (n_steps + n_valid)} rdb_forward, per chain "
+          f"{calls['filter2d'] // (n_steps + n_valid)} filter2d)", flush=True)
+
+    # where one step's time goes, on the card (CUDA events), on the trained state
+    loader = BatchLoader(cli_train.build_datasets(cfg)[0], cfg.batch_size, seed=cfg.seed, num_workers=2)
+    it = iter(loader)
+    host = next(it)
+    it.close()
+    gt_dev = torch.from_numpy(host["gt"]).cuda()
+    plan = plan_bsrgan_batch(np.random.default_rng(0), cfg.batch_size, cfg.upscale_factor)
+    lim = bsrgan_lr_size(gt_dev.shape[1], plan) - cfg.gt_image_size // cfg.upscale_factor
+    tops = np.random.default_rng(1).integers(0, lim + 1, cfg.batch_size)
+    chain = lambda: apply_bsrgan_batch_cropped(gt_dev, plan, tops, tops, cfg.gt_image_size, cfg.upscale_factor)  # noqa: E731
+    gt_c, lr_c = chain()
+    check(tuple(lr_c.shape) == (cfg.batch_size, 60, 60, 3), f"aesrgan LR batch {tuple(lr_c.shape)}")
+    trainer = Trainer(cfg, AE_STEPS_PER_EPOCH, device="cuda")
+    g, d = state.g_model, state.d_model
+    before = rdb.launches
+    with torch.no_grad():
+        g(lr_c)
+    check(rdb.launches - before == RDB_PER_FORWARD, f"an aesrgan G forward made {rdb.launches - before} rdb calls")
+
+    def g_fwd_bwd():
+        (g(lr_c) - gt_c).abs().mean().backward()
+
+    sr = g(lr_c).detach()
+    sr_leaf = sr.clone().requires_grad_()
+
+    def content_fwd_bwd():
+        trainer.content_loss(sr_leaf, gt_c).backward(inputs=[sr_leaf])
+
+    def adversarial_fwd_bwd():
+        _bce_scales(_first(d(sr_leaf, update_stats=False)), 1.0).backward(inputs=[sr_leaf])
+
+    with torch.inference_mode():
+        breakdown = {"chain_ms": cuda_ms(chain, iters=5, warmup=1),
+                     "forward_ms": cuda_ms(lambda: g(lr_c), iters=5, warmup=1)}
+    breakdown.update({
+        "g_forward_backward_ms": cuda_ms(g_fwd_bwd, iters=3, warmup=1),
+        "d_update_ms": cuda_ms(lambda: trainer._d_update(state, gt_c, sr), iters=3, warmup=1),
+        "content_forward_backward_ms": cuda_ms(content_fwd_bwd, iters=3, warmup=1),
+        "adversarial_forward_backward_ms": cuda_ms(adversarial_fwd_bwd, iters=3, warmup=1),
+        "train_step_ms": cuda_ms(lambda: real_step(trainer, state, gt_c, lr_c), iters=3, warmup=1),
+    })
+    valid_adapter = DegradationAdapter(cfg, seed=cfg.seed + 1, train=True, device="cuda")
+    valid_loader = lambda: BatchLoader(cli_train.build_datasets(cfg)[1], 4, shuffle=False, loop=False,  # noqa: E731
+                                       seed=cfg.seed, drop_last=True, num_workers=1)
+    lpips_fn = Lpips().to("cuda")
+    vb = valid_adapter(next(iter(valid_loader())), 0)
+    vsr = trainer.eval_sr(state, vb["lr"])
+    with torch.inference_mode():
+        breakdown["lpips_ms"] = cuda_ms(lambda: lpips_fn(vsr, vb["gt"]), iters=5, warmup=1)
+    t0 = time.perf_counter()
+    vm = cli_train.validate(cfg, trainer, state, valid_loader(), valid_adapter, lpips_fn=lpips_fn)
+    torch.cuda.synchronize()
+    breakdown["validation_ms"] = (time.perf_counter() - t0) * 1e3
+    check(math.isfinite(vm["lpips"]), f"aesrgan validation LPIPS {vm['lpips']}")
+    print(f"aesrgan step breakdown on the card (CUDA events, {cfg.compute_dtype}, batch {cfg.batch_size}): "
+          f"chain {breakdown['chain_ms']:.2f} ms; G forward {breakdown['forward_ms']:.2f} ms, forward+backward (L1) "
+          f"{breakdown['g_forward_backward_ms']:.2f} ms; D update (2 forwards on GT and SR, backward, Adam) "
+          f"{breakdown['d_update_ms']:.2f} ms; content (VGG19 on SR and GT, backward to SR) "
+          f"{breakdown['content_forward_backward_ms']:.2f} ms; adversarial (D on SR, backward to SR) "
+          f"{breakdown['adversarial_forward_backward_ms']:.2f} ms; whole train step {breakdown['train_step_ms']:.2f} "
+          f"ms; validation of 4 frames with LPIPS {breakdown['validation_ms']:.2f} ms host clock (LPIPS alone "
+          f"{breakdown['lpips_ms']:.2f} ms)", flush=True)
+    d_final = {k: v.detach().clone() for k, v in d.state_dict().items()}
+    g_final = {k: v.detach().clone() for k, v in g.state_dict().items()}
+    del g, d, state, result, trainer, sr, sr_leaf, lpips_fn, vsr
+    torch.cuda.empty_cache()
+
+    # One step of the multi-scale ensemble through run_train, at GT AE_MS_GT
+    ms_cfg = cfg.replace(d_arch="discriminator_attention_unet_ms", gt_image_size=AE_MS_GT, epochs=1,
+                         results_dir=os.path.join(work, "results_ms"), samples_dir=os.path.join(work, "samples_ms"))
+    ms_metrics = []
+
+    def ms_step(self, *args):
+        m = real_step(self, *args)
+        ms_metrics.append({k: v.item() for k, v in m.items()})
+        return m
+
+    Trainer.train_step = ms_step
+    rdb.launches = f2d.launches = 0
+    try:
+        t0 = time.perf_counter()
+        ms_result = cli_train.run_train(ms_cfg, 1, device="cuda")
+        torch.cuda.synchronize()
+        ms_s = time.perf_counter() - t0
+    finally:
+        Trainer.train_step = real_step
+    ms_calls = {"rdb": rdb.launches, "filter2d": f2d.launches}
+    ms_d = ms_result["state"].d_model
+    check(len(ms_metrics) == 1 and all(math.isfinite(v) for v in ms_metrics[0].values())
+          and all(0 < ms_metrics[0][k] < 1 for k in ("d_gt_probability", "d_sr_probability")),
+          f"the ensemble step's metrics {ms_metrics}")
+    check(type(ms_d).__name__ == "MultiScaleAttentionDiscriminator" and hasattr(ms_d, "D1"),
+          f"the ensemble run trained {type(ms_d).__name__}")
+    check(ms_calls == {"rdb": 2 * RDB_PER_FORWARD, "filter2d": 2 * FILTERS_PER_CHAIN},
+          f"the ensemble run made {ms_calls} kernel calls for 1 step and 1 validation batch")
+    print(f"aesrgan with --d-arch discriminator_attention_unet_ms (GT {AE_MS_GT}): 1 step + 1 validation batch in "
+          f"{ms_s:.2f} s, metrics { {k: round(v, 5) for k, v in ms_metrics[0].items()} }, {ms_calls} kernel calls",
+          flush=True)
+    del ms_result, ms_d
+    torch.cuda.empty_cache()
+
+    # One f32 step held to its plain twin, from this phase's trained state
+    # (G, and D with its u and running statistics): the loss parts, the
+    # slope flips and G by step_check's LIMITS; D and u to 1e-3 as the
+    # bsrgan check holds them; the gates' running mean and variance, which
+    # the D update writes from the GT and SR batches, to 1e-5 of each
+    # tensor's largest entry. The bias of the 1x1 conv before each gate's
+    # BatchNorm has no gradient in exact arithmetic (the batch mean takes
+    # it out): both runs step it by Adam on roundoff, so what the two runs
+    # read there is noise against noise (1.1e-3 - 2.4e-3 of its largest
+    # entry, 2.6e-8 apart, with correct kernels on an H100 80GB HBM3 at
+    # 700 W: PERF.md section 6). Those three are printed, not held; the CPU tests hold
+    # their gradient against JAX's (test_torch_aesrgan_model.py).
+    f32, runs = f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters, init=(g_final, d_final),
+                                  label="aesrgan (aesrgan-trained G and D)")
+    (_, _, d_k), (_, _, d_p) = runs
+
+    def kind(k):
+        if k.endswith(".u"):
+            return "u"
+        if k.endswith(("running_mean", "running_var")):
+            return "bn"
+        return "pre_bn_bias" if k.endswith("W.0.bias") else "d"
+
+    kept = lambda sd, c: {k: v for k, v in sd.items() if kind(k) == c}  # noqa: E731
+    f32["d_rel"], f32["d_worst"] = _rel_per_tensor(kept(d_k, "d"), kept(d_p, "d"))
+    f32["u_rel"], f32["u_worst"] = _rel_per_tensor(kept(d_k, "u"), kept(d_p, "u"))
+    f32["bn_rel"], f32["bn_worst"] = _rel_per_tensor(kept(d_k, "bn"), kept(d_p, "bn"))
+    pre_bn = kept(d_p, "pre_bn_bias")
+    check(len(pre_bn) == 3, f"pre-BatchNorm biases {sorted(pre_bn)}")
+    f32["pre_bn_bias_abs"] = max((d_k[k] - v).abs().max().item() for k, v in pre_bn.items())
+    f32["pre_bn_bias_max"] = max(v.abs().max().item() for v in pre_bn.values())
+    f32["pre_bn_bias_rel"] = _rel_per_tensor(kept(d_k, "pre_bn_bias"), pre_bn)[0]
+    print(f"f32 aesrgan step (trained state): updated D per tensor max relative {f32['d_rel']:.3g} "
+          f"({f32['d_worst']}), u {f32['u_rel']:.3g}, the gates' running statistics {f32['bn_rel']:.3g} "
+          f"({f32['bn_worst']}); the pre-BatchNorm biases (no gradient; not held) {f32['pre_bn_bias_abs']:.3g} "
+          f"apart, {f32['pre_bn_bias_rel']:.3g} of their largest entry {f32['pre_bn_bias_max']:.3g}", flush=True)
+    failed = step_check.step_check_failures(f32, {**step_check.LIMITS, "d_rel": 1e-3, "u_rel": 1e-3, "bn_rel": 1e-5})
+    check(not failed, f"f32 aesrgan step vs plain: {failed}")
+
+    # cli.infer --use-ema on ckpt_best.pth: a GT-sized frame (120x120, 60x60
+    # tokens at full attention, as the config trains)
+    import cv2
+
+    frame = os.path.join(work, "ae_frame.png")
+    cv2.imwrite(frame, cv2.imread(os.path.join(cfg.valid_gt_images_dir, "gt_000.png"))[:cfg.gt_image_size,
+                                                                                       :cfg.gt_image_size])
+    out_png = os.path.join(work, "ae_sr.png")
+    rdb.launches = 0
+    infer.main(["--model-arch", cfg.g_arch, "--weights", os.path.join(ckpt_dir, "ckpt_best.pth"), "--use-ema",
+                "--inputs-path", frame, "--output-path", out_png])
+    img = cv2.imread(out_png)
+    want = (2 * cfg.gt_image_size, 2 * cfg.gt_image_size, 3)
+    check(img is not None and img.shape == want, f"infer of the aesrgan EMA-G: {img is None or img.shape}")
+    check(rdb.launches == RDB_PER_FORWARD, f"infer of the aesrgan EMA-G: {rdb.launches} rdb calls")
+    sd = load_generator_weights(os.path.join(ckpt_dir, "ckpt_best.pth"), use_ema=True)
+    check(any(k.startswith("transformer.") for k in sd), "the aesrgan checkpoint holds no transformer")
+    print(f"cli.infer --model-arch {cfg.g_arch} --use-ema on ckpt_best.pth: {cfg.gt_image_size}x{cfg.gt_image_size} "
+          f"-> {img.shape[1]}x{img.shape[0]}, {RDB_PER_FORWARD} rdb calls", flush=True)
+    numbers = {
+        "steps": n_steps, "validation_batches": n_valid, "metrics": metrics_seen, "validation_lpips": lpips,
+        "best_epoch": best["epoch"], "step_ms_p50": step_p50, "inside_step_ms_p50": float(np.median(inside[1:])),
+        "first_step_ms": inside[0], "frames_per_s": cfg.batch_size * 1e3 / step_p50, "peak_memory_gb": peak_gb,
+        "run_s": run_s, **breakdown, "ensemble_step": {"gt": AE_MS_GT, "metrics": ms_metrics[0], "s": ms_s,
+                                                       "calls": ms_calls},
+        "f32_step_vs_plain": f32,
+    }
+    return calls, numbers
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -1985,8 +2344,9 @@ def main() -> None:
         reg["f32_step_vs_plain"] = re_f32_check(work, reg_state["host"], reg_state["d_final"], rdb, f2d, blocks,
                                                 filters)
         del reg_state
+        ae_launches, ae = ae_train_phase(work, rdb, f2d, blocks, filters)
     launches += (trans_launches["rdb"] + trans_infer["rdb"] + train_launches["rdb"] + gan_launches["rdb"]
-                 + re_launches + ren_launches["rdb"] + reg_launches["rdb"])
+                 + re_launches + ren_launches["rdb"] + reg_launches["rdb"] + ae_launches["rdb"])
     flash_launches = trans_launches["flash"] + trans_infer["flash"]
     check(launches > 0, "the main paths launched no rdb_forward kernel")
     check(flash_launches > 0, "the bsrgantrans_x2 path launched no flash_attention kernel")
@@ -2008,10 +2368,13 @@ def main() -> None:
     entry["gan_launches"] = gan_launches["rdb"]
     entry["realesrnet_launches"] = ren_launches["rdb"]
     entry["realesrgan_launches"] = reg_launches["rdb"]
+    entry["aesrgan_launches"] = ae_launches["rdb"]
     check(ren_launches["filter2d"] > 0 and reg_launches["filter2d"] > 0,
           "a Real-ESRGAN training path launched no filter2d kernel")
+    check(ae_launches["rdb"] > 0 and ae_launches["filter2d"] > 0, "the aesrgan training path launched no kernel")
     filter_entry["launches"] = (train_launches["filter2d"] + gan_launches["filter2d"] + ren_launches["filter2d"]
-                                + reg_launches["filter2d"])
+                                + reg_launches["filter2d"] + ae_launches["filter2d"])
+    filter_entry["aesrgan_launches"] = ae_launches["filter2d"]
     filter_entry["realesrnet_launches"] = ren_launches["filter2d"]
     filter_entry["realesrgan_launches"] = reg_launches["filter2d"]
     filter_entry["gan_launches"] = gan_launches["filter2d"]
@@ -2046,6 +2409,12 @@ def main() -> None:
               f"{RDB_PER_FORWARD * entry['realesrgan_train_kernel_ms']:.2f} ms){parts}; the chain "
               f"{r['chain_ms']:.2f} ms (USM {r['usm_ms']:.2f}, filter2d {r['chain_filter2d_ms']:.2f}); host-clock "
               f"step p50 {r['step_ms_p50']:.2f} ms; peak memory {r['peak_memory_gb']:.2f} GB", flush=True)
+    print(f"aesrgan step (bf16, batch 8, GT 120): {ae['train_step_ms']:.2f} ms on the card, of which G "
+          f"forward+backward {ae['g_forward_backward_ms']:.2f} ms (69 RDB kernels at {AE_RDB_SHAPE} alone "
+          f"{RDB_PER_FORWARD * entry['aesrgan_train_kernel_ms']:.2f} ms), the D update {ae['d_update_ms']:.2f} ms, "
+          f"content {ae['content_forward_backward_ms']:.2f} ms, adversarial "
+          f"{ae['adversarial_forward_backward_ms']:.2f} ms; the chain {ae['chain_ms']:.2f} ms; host-clock step p50 "
+          f"{ae['step_ms_p50']:.2f} ms; peak memory {ae['peak_memory_gb']:.2f} GB", flush=True)
     # last, so that no timed phase runs after a profiler session
     q, k, v = (t.transpose(1, 2) for t in flash_inputs(FLASH_SHAPE, seed=100))
     flash_entry["library_f32_kernels"] = sdpa_kernels(q, k, v)
@@ -2055,6 +2424,7 @@ def main() -> None:
     print(json.dumps({"gan": {k: v for k, v in gan.items() if k != "metrics"}}))
     print(json.dumps({"realesrnet": ren}))
     print(json.dumps({"realesrgan": reg}))
+    print(json.dumps({"aesrgan": {k: v for k, v in ae.items() if k != "metrics"}}))
     print(smi)
     print(json.dumps({"kernels": [entry, flash_entry, filter_entry]}))
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,12 @@ config name. Ported: the BSRGAN recipe's two stages, the generator-only
 VGG19 content loss, BCE, LPIPS selection), with the BSRGAN degradation
 chain; and the Real-ESRGAN recipe's two stages, ``realesrnet`` (L1) and
 ``realesrgan`` (the G-first GAN step, the pixel and content losses against
-the USM-sharpened GT), with the second-order chain. Every blur of both
-chains runs the hand-written ``filter2d`` kernel and the generator's RDBs
-the RDB kernel on the card.
+the USM-sharpened GT), with the second-order chain; and A-ESRGAN's
+``aesrgan`` (``bsrgantrans_x2`` against the attention-gated U-Net
+discriminator, or with ``--d-arch discriminator_attention_unet_ms`` its
+multi-scale ensemble, the D-first step, the BSRGAN chain). Every blur of
+the chains runs the hand-written ``filter2d`` kernel and the generator's
+RDBs the RDB kernel on the card.
 
 Usage:
     python -m srganfd_tpu_torch.cli.train --config bsrgan \
@@ -18,7 +21,8 @@ Usage:
 
 A run is step-exact: the loader is seekable, the degradation plans are
 keyed by the global step, and a checkpoint holds G, EMA-G, D (with its
-spectral-norm ``u``), both Adams and the step, so ``--resume auto``
+spectral-norm ``u`` and BatchNorm running statistics), both Adams and the
+step, so ``--resume auto``
 continues as the uninterrupted run would have. Metrics go to stdout and to
 the tracker (``track/tracker.py``: JSONL under ``samples_dir``).
 """
@@ -269,7 +273,7 @@ def run_train(
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description="srganfd_tpu_torch trainer")
     ap.add_argument("--config", required=True,
-                    help="bsrnet, bsrgan, realesrnet or realesrgan (the other configs are not ported yet)")
+                    help="bsrnet, bsrgan, realesrnet, realesrgan or aesrgan (the other configs are not ported yet)")
     ap.add_argument("--train-dir", default=None)
     ap.add_argument("--valid-dir", default=None)
     ap.add_argument("--epochs", type=int, default=None)
@@ -285,16 +289,18 @@ def main(argv: list[str] | None = None) -> None:
                     help="override gt_image_size (and disable pre-crop)")
     ap.add_argument(
         "--tiny", action="store_true",
-        help="shrink the generator for smoke tests (8ch, growth 4, 1 block; the "
-        "discriminator keeps its width); CPU only: the RDB kernel takes channel "
-        "counts that are multiples of 8",
+        help="shrink the generator for smoke tests (8ch, growth 4, 1 block; bsrgantrans_x2's "
+        "4 heads of 2; the discriminator keeps its width); CPU only: the RDB kernel takes "
+        "channel counts that are multiples of 8",
     )
     ap.add_argument("--device-type", "--device_type", dest="device", default="cuda",
                     choices=["cuda", "cpu"])
     ap.add_argument("--pretrained-g", default=None, help="not ported yet")
     ap.add_argument("--pretrained-d", default=None, help="not ported yet")
     ap.add_argument("--d-arch", default=None,
-                    help="override the discriminator arch (ported: discriminator_unet)")
+                    help="override the discriminator arch (ported: discriminator_unet, "
+                    "uNetDiscriminatorAesrgan / discriminator_attention_unet, "
+                    "discriminator_attention_unet_ms, whose scales need GT sides of 16k)")
     ap.add_argument("--grad-accum", type=int, default=None, help="not ported yet")
     ap.add_argument("--skip-nonfinite", action="store_true", help="not ported yet")
     ap.add_argument("--async-ckpt", action="store_true", help="not ported yet")
@@ -328,7 +334,7 @@ def main(argv: list[str] | None = None) -> None:
             raise SystemExit(f"--d-arch: {e.args[0]}") from None
         overrides["d_arch"] = args.d_arch
     cfg = configs.get_config(args.config, **overrides)
-    if args.tiny:  # bsrgan_x2 and realesrgan_x4 take the same widths
+    if args.tiny:  # bsrgan_x2, bsrgantrans_x2 and realesrgan_x4 take the same widths
         cfg = cfg.replace(g_kwargs={**cfg.g_kwargs, "channels": 8, "growth_channels": 4, "num_rrdb": 1})
     device = choice_device(args.device)
     run_train(cfg, steps_per_epoch=args.steps_per_epoch, resume=args.resume, device=device)

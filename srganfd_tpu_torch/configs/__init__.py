@@ -1,17 +1,16 @@
 """Experiment configs of the port, by the JAX package's names
 (``srganfd_tpu/configs/__init__.py``). ``bsrnet``, ``bsrgan``,
-``realesrnet`` and ``realesrgan`` are ported; the other names of the JAX
-package raise with the ROADMAP.md item that ports them."""
+``realesrnet``, ``realesrgan`` and ``aesrgan`` are ported; the other names
+of the JAX package raise with the ROADMAP.md item that ports them."""
 
 import importlib
 
 from srganfd_tpu_torch.configs.base import ExperimentConfig  # noqa: F401
 
-_PORTED = ("bsrnet", "bsrgan", "realesrnet", "realesrgan")
+_PORTED = ("bsrnet", "bsrgan", "realesrnet", "realesrgan", "aesrgan")
 _NOT_PORTED = {
     "rrdbnet": "A8 (other families)",
     "esrgan": "A8 (other families)",
-    "aesrgan": "A8 (other families)",
 }
 
 

@@ -49,6 +49,20 @@ frozen networks of the losses map too, so that tests can load the JAX
 package's surrogates: VGG19's ``conv{i}`` onto ``features.{i}`` and
 AlexNet's ``conv{i}`` onto ``alex.{i}``.
 
+An ``AttentionUNetDiscriminator`` tree (``uNetDiscriminatorAesrgan``) holds
+``Conv_0``/``Conv_1`` (``conv0``/``conv9``), ``SNConv_0..8`` (``conv1``,
+``conv2``, ``conv3``, ``gating``, ``conv4..conv8``: the module's call
+order), ``_AddAttn_{i}`` (``attn_{i+1}``: ``Conv_0..3`` -> ``theta`` (no
+bias), ``phi``, ``psi``, ``W.0``; ``BatchNorm_0`` scale and bias -> ``W.1``
+weight and bias) and ``_UNetCat_{i}/SNConv_0`` (``cat_{i+1}.convU``). Its
+``spectral`` collection gives each SN conv's ``u`` (``SNConv_i/u`` at the
+top, ``_UNetCat_i/SNConv_0/u``), its ``batch_stats`` collection each
+gate's ``running_mean``/``running_var`` (``_AddAttn_i/BatchNorm_0/mean``,
+``var``): the inverse of ``tools/port_torch_weights.py``'s
+``convert_attention_unet_discriminator``. The ensemble
+(``discriminator_attention_unet_ms``) holds one such tree a scale, ``D0``,
+``D1``, ..., whose names take the prefix ``D{s}.``.
+
 Each mapping takes only the tree it knows: a leaf it would not map raises
 instead of being dropped or mis-assigned.
 """
@@ -65,7 +79,9 @@ __all__ = [
     "flax_to_state_dict", "rrdb_flax_to_state_dict", "realesrgan_flax_to_state_dict",
     "bsrgantrans_flax_to_state_dict",
     "encoder_layer_to_state_dict", "state_dict_to_flax",
-    "discriminator_flax_to_state_dict", "vgg19_flax_to_state_dict", "alexnet_flax_to_state_dict",
+    "discriminator_flax_to_state_dict", "attention_discriminator_flax_to_state_dict",
+    "multiscale_attention_discriminator_flax_to_state_dict",
+    "vgg19_flax_to_state_dict", "alexnet_flax_to_state_dict",
     "load_generator_weights",
 ]
 
@@ -130,11 +146,13 @@ def _put_trunk(params: dict, sd: dict, used: set[str]) -> None:
                 used |= {f"RRDB_{i}/ResidualDenseBlock_{j}/conv{k}_{leaf}" for leaf in ("kernel", "bias")}
 
 
-def _put_conv(params: dict, sd: dict, used: set[str], flax_name: str, prefix: str) -> None:
+def _put_conv(params: dict, sd: dict, used: set[str], flax_name: str, prefix: str, bias: bool = True) -> None:
     inner = params[flax_name]["Conv_0"]
     sd[f"{prefix}.weight"] = _hwio_to_oihw(inner["kernel"])
-    sd[f"{prefix}.bias"] = _np(inner["bias"])
-    used |= {f"{flax_name}/Conv_0/kernel", f"{flax_name}/Conv_0/bias"}
+    used.add(f"{flax_name}/Conv_0/kernel")
+    if bias:
+        sd[f"{prefix}.bias"] = _np(inner["bias"])
+        used.add(f"{flax_name}/Conv_0/bias")
 
 
 _ENCODER_LEAVES = frozenset(
@@ -282,6 +300,69 @@ def discriminator_flax_to_state_dict(params: dict, spectral: dict) -> dict[str, 
     _refuse_unmapped(params, used, "discriminator_unet")
     _refuse_unmapped(spectral, {f"{name}/u" for name in sn}, "discriminator_unet spectral")
     return sd
+
+
+# the attention U-Net's top-level SN convs in the JAX module's call order
+_ATTN_SN = ("conv1", "conv2", "conv3", "gating", "conv4", "conv5", "conv6", "conv7", "conv8")
+
+
+def attention_discriminator_flax_to_state_dict(params: dict, batch_stats: dict, spectral: dict) -> dict[str, np.ndarray]:
+    """An ``AttentionUNetDiscriminator`` tree (``params``) and its
+    ``batch_stats`` and ``spectral`` collections -> the port's numpy state
+    dict, the gates' running statistics and every ``u`` included."""
+    sd: dict[str, np.ndarray] = {}
+    used, used_stats, used_u = set(), set(), set()
+
+    def sn(flax_name: str, prefix: str) -> None:
+        sd[f"{prefix}.weight"] = _hwio_to_oihw(_get(params, flax_name)["kernel"])
+        sd[f"{prefix}.u"] = _np(_get(spectral, flax_name)["u"])
+        used.add(f"{flax_name}/kernel")
+        used_u.add(f"{flax_name}/u")
+
+    try:
+        _put_conv(params, sd, used, "Conv_0", "conv0")
+        _put_conv(params, sd, used, "Conv_1", "conv9")
+        for i, name in enumerate(_ATTN_SN):
+            sn(f"SNConv_{i}", name)
+        for i in range(3):
+            gate, prefix = f"_AddAttn_{i}", f"attn_{i + 1}"
+            used_gate: set[str] = set()
+            for j, conv in enumerate(("theta", "phi", "psi", "W.0")):  # theta has no bias
+                _put_conv(params[gate], sd, used_gate, f"Conv_{j}", f"{prefix}.{conv}", bias=j > 0)
+            used |= {f"{gate}/{leaf}" for leaf in used_gate}
+            bn = params[gate]["BatchNorm_0"]
+            stats = batch_stats[gate]["BatchNorm_0"]
+            sd[f"{prefix}.W.1.weight"], sd[f"{prefix}.W.1.bias"] = _np(bn["scale"]), _np(bn["bias"])
+            sd[f"{prefix}.W.1.running_mean"], sd[f"{prefix}.W.1.running_var"] = _np(stats["mean"]), _np(stats["var"])
+            used |= {f"{gate}/BatchNorm_0/scale", f"{gate}/BatchNorm_0/bias"}
+            used_stats |= {f"{gate}/BatchNorm_0/mean", f"{gate}/BatchNorm_0/var"}
+            sn(f"_UNetCat_{i}/SNConv_0", f"cat_{i + 1}.convU")
+    except KeyError as e:
+        raise ValueError(f"the attention U-Net discriminator mapping found no {e}: it is not a tree of that "
+                         f"family (found {sorted(params)})") from None
+    _refuse_unmapped(params, used, "attention U-Net discriminator")
+    _refuse_unmapped(batch_stats, used_stats, "attention U-Net discriminator batch_stats")
+    _refuse_unmapped(spectral, used_u, "attention U-Net discriminator spectral")
+    return sd
+
+
+def multiscale_attention_discriminator_flax_to_state_dict(
+    params: dict, batch_stats: dict, spectral: dict
+) -> dict[str, np.ndarray]:
+    """A ``MultiScaleAttentionDiscriminator`` tree: each scale's ``D{s}``
+    through :func:`attention_discriminator_flax_to_state_dict`, its names
+    prefixed ``D{s}.``."""
+    scales = [f"D{s}" for s in range(len(params))]
+    if sorted(params) != sorted(scales):
+        raise ValueError(f"the multi-scale attention discriminator mapping takes D0..D{{n-1}}, found {sorted(params)}")
+    return {f"{d}.{k}": v for d in scales for k, v in attention_discriminator_flax_to_state_dict(
+        params[d], batch_stats.get(d, {}), spectral.get(d, {})).items()}
+
+
+def _get(tree: dict, path: str) -> dict:
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
 
 
 def _named_convs_to_state_dict(params: dict, prefix: str, family: str) -> dict[str, np.ndarray]:

@@ -8,10 +8,11 @@
 //   out[n, h, w, c] = sum_{dy, dx} xpad[n, h + dy, w + dx, c] * k[n, dy, dx]
 //
 // images (N, H, W, C) f32 channels-last, kernels (N, K, K) f32 with K odd,
-// xpad the image reflect-101-padded by K/2 on both spatial axes (the edge
-// pixel is not repeated, as in jnp.pad / F.pad mode="reflect"; needs
-// K/2 < H and K/2 < W). A correlation: the kernel is not flipped. f32
-// operands and sums (the JAX chain asks for Precision.HIGHEST).
+// xpad the image reflect-101-padded by K/2 on both spatial axes as
+// jnp.pad(mode="reflect") pads: the edge pixel is not repeated, the fold
+// repeats where K/2 reaches past the axis, and an axis of one pixel
+// repeats it. A correlation: the kernel is not flipped. f32 operands and
+// sums (the JAX chain asks for Precision.HIGHEST).
 //
 // Bound at the chain's shape, (16, 320, 320, 3) with K = 25: 16 * 320 *
 // 320 * 3 * 625 MAC = 6.14e9 FLOP, 0.092 ms at the H100's 67 TFLOP/s f32
@@ -61,7 +62,12 @@
 // - Staging: the tile and its K - 1 halo, (32 + K - 1) rows of 80 + 8(S - 1)
 //   columns, one pixel (its channels) a thread, adjacent threads on
 //   adjacent pixels, each channel into its own f32 plane; reflect-101 is
-//   resolved during the load, so no padded copy is made. Plane rows are 8
+//   resolved during the load, so no padded copy is made. A block whose
+//   staged rows and columns all lie within one fold of the image (every
+//   block where K/2 < H and W, but for the halo of a ragged last tile on
+//   small images) reflects with two selects; any other block stages with
+//   the periodic fold, whose integer modulo per staged pixel would slow
+//   the common case. Plane rows are 8
 //   mod 32 floats, so a half-warp's 8-byte A reads (rows g .. g + 3) cover
 //   all 32 banks.
 // - Stores go straight from the accumulators, masked at ragged edges.
@@ -100,11 +106,52 @@ struct Geom {
   static_assert(SMEM <= 232448, "above a block's shared memory");
 };
 
+// index i of an axis of n, reflected as numpy's mode="reflect" pads: the
+// fold is periodic with period 2(n - 1), so any i lands in 0..n-1. FOLDED:
+// the caller knows that -(n - 1) <= i <= 2(n - 1), where one fold is exact.
+template <bool FOLDED>
 __device__ __forceinline__ int reflect101(int i, int n) {
   i = i < 0 ? -i : i;
-  i = i >= n ? 2 * (n - 1) - i : i;
-  // only halo cells that feed no output can still be out of range
-  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+  if (FOLDED) return i >= n ? 2 * (n - 1) - i : i;
+  if (n == 1) return 0;
+  const int p = 2 * (n - 1);
+  i %= p;
+  return i >= n ? p - i : i;
+}
+
+// true when every index lo..hi of an axis of n lies within one fold
+__device__ __forceinline__ bool within_one_fold(int lo, int hi, int n) {
+  return lo >= -(n - 1) && hi <= 2 * (n - 1);
+}
+
+// stage the tile's rows r and columns q (q < TWK; zero beyond) of channels
+// c0 .. c0 + cc - 1 into the CP planes: one thread loads a pixel's
+// channels, adjacent threads adjacent pixels
+template <int K, bool FOLDED>
+__device__ __forceinline__ void stage_tile(const float* __restrict__ img, float* s_in, int ty0, int gx0,
+                                           int h, int w, int c, int c0, int cc, int tid) {
+  using Gm = Geom<K>;
+  constexpr int PAD = Gm::PAD, SW = Gm::SW, TWK = Gm::TWK, SH = Gm::SH, LD = Gm::LD, PLANE = Gm::PLANE;
+  for (int i0 = tid; i0 < SH * SW; i0 += THREADS * UNROLL) {
+    float v[UNROLL][CP];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int i = i0 + u * THREADS, r = i / SW, q = i % SW;
+      const bool ok = i < SH * SW && q < TWK;
+      const float* src = img + ((size_t)reflect101<FOLDED>(ty0 - PAD + r, h) * w +
+                                reflect101<FOLDED>(gx0 + q, w)) * c + c0;
+#pragma unroll
+      for (int p = 0; p < CP; ++p) v[u][p] = ok && p < cc ? __ldg(src + p) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int i = i0 + u * THREADS, r = i / SW, q = i % SW;
+      if (i >= SH * SW) break;
+#pragma unroll
+      for (int p = 0; p < CP; ++p)
+        if (p < cc) s_in[p * PLANE + r * LD + q] = v[u][p];
+    }
+  }
 }
 
 // x rounded to TF32 (10 explicit mantissa bits) to nearest, ties away from
@@ -141,7 +188,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 filter2d_tf32_kernel(const float* __restrict__ images, const float* __restrict__ kernels,
                      float* __restrict__ out, int h, int w, int c, int tiles_x) {
   using Gm = Geom<K>;
-  constexpr int PAD = Gm::PAD, S = Gm::S, TWK = Gm::TWK, SW = Gm::SW, LD = Gm::LD;
+  constexpr int PAD = Gm::PAD, S = Gm::S, TWK = Gm::TWK, LD = Gm::LD;
   constexpr int SH = Gm::SH, PLANE = Gm::PLANE, NE = Gm::NE;
   extern __shared__ __align__(16) float smem[];
   float2* s_tap = reinterpret_cast<float2*>(smem);  // K x NE (hi, lo)
@@ -164,31 +211,16 @@ filter2d_tf32_kernel(const float* __restrict__ images, const float* __restrict__
     split_tf32(d >= 0 && d < K ? kn[dy * K + d] : 0.f, hi, lo);
     s_tap[i] = make_float2(__uint_as_float(hi), __uint_as_float(lo));
   }
+  const bool folded = within_one_fold(ty0 - PAD, ty0 - PAD + SH - 1, h) &&
+                      within_one_fold(gx0, gx0 + TWK - 1, w);
 
   for (int c0 = 0; c0 < c; c0 += CP) {
     const int cc = min(CP, c - c0);
     __syncthreads();  // the taps are written; the previous pass is done with s_in
-    // stage pixel (row r, column q): one thread loads its cc channels,
-    // adjacent threads adjacent pixels; reflect-101 resolved here
-    for (int i0 = tid; i0 < SH * SW; i0 += THREADS * UNROLL) {
-      float v[UNROLL][CP];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int i = i0 + u * THREADS, r = i / SW, q = i % SW;
-        const bool ok = i < SH * SW && q < TWK;
-        const float* src =
-            img + ((size_t)reflect101(ty0 - PAD + r, h) * w + reflect101(gx0 + q, w)) * c + c0;
-#pragma unroll
-        for (int p = 0; p < CP; ++p) v[u][p] = ok && p < cc ? __ldg(src + p) : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int i = i0 + u * THREADS, r = i / SW, q = i % SW;
-        if (i >= SH * SW) break;
-#pragma unroll
-        for (int p = 0; p < CP; ++p)
-          if (p < cc) s_in[p * PLANE + r * LD + q] = v[u][p];
-      }
+    if (folded) {
+      stage_tile<K, true>(img, s_in, ty0, gx0, h, w, c, c0, cc, tid);
+    } else {
+      stage_tile<K, false>(img, s_in, ty0, gx0, h, w, c, c0, cc, tid);
     }
     __syncthreads();
     if (cp >= cc || ty0 + y0 >= h) continue;
@@ -292,12 +324,12 @@ int launch(const float* images, const float* kernels, float* out, int n, int h, 
 
 // Plain C entry point. Returns 0, the cudaGetLastError() code of a failed
 // launch, or -1 for arguments the kernel does not take (K even or above
-// KMAX, K/2 >= H or W, empty or oversized grids). Launches on `stream`;
-// does not synchronise.
+// KMAX, empty or oversized grids). Launches on `stream`; does not
+// synchronise.
 extern "C" int filter2d_cuda(const float* images, const float* kernels, float* out, int n, int h,
                              int w, int c, int k, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || k <= 0 || k % 2 == 0 || k > KMAX) return -1;
-  if (k / 2 >= h || k / 2 >= w || n > 65535) return -1;
+  if (n > 65535) return -1;
   if ((long long)((w + TW - 1) / TW) * ((h + TH - 1) / TH) > 0x7fffffffLL) return -1;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {

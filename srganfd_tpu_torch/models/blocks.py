@@ -1,5 +1,6 @@
 """Building blocks of the models (counterpart of
 ``srganfd_tpu/models/blocks.py``: ``lrelu``, ``Conv``, ``SNConv``,
+Flax's ``BatchNorm`` in training mode,
 ``ResidualDenseBlock``, ``RRDB`` and the trunk; ``pixel_unshuffle``; the
 attention functions and ``TransformerEncoderLayer`` of the transformer
 bottleneck).
@@ -29,7 +30,7 @@ from srganfd_tpu_torch.ops.cuda.attention import flash_attention, flash_attentio
 from srganfd_tpu_torch.ops.cuda.rdb import pack_rdb_weights, rdb_apply
 
 __all__ = [
-    "lrelu", "out_dtype", "Conv", "init_lecun_normal", "SNConv", "ResidualDenseBlock", "RRDB", "make_trunk", "init_kaiming_x01",
+    "lrelu", "out_dtype", "Conv", "init_lecun_normal", "BatchNorm", "SNConv", "ResidualDenseBlock", "RRDB", "make_trunk", "init_kaiming_x01",
     "pixel_unshuffle",
     "ATTN_BACKENDS", "attention_backend", "chunked_attention", "large_attention",
     "dot_product_attention", "TransformerEncoderLayer",
@@ -48,16 +49,20 @@ def out_dtype(compute_dtype: torch.dtype) -> torch.dtype:
 
 
 class Conv(nn.Conv2d):
-    """3x3 conv, padding 1 ('same' at stride 1, as the JAX ``Conv`` pads
-    at any stride), with f32 parameters cast to the input's dtype."""
+    """The JAX ``Conv``: a ``kernel`` x ``kernel`` conv at ``stride`` with
+    torch-style explicit padding (``padding`` None: 1 for kernels of 3 and
+    4, ``kernel // 2`` otherwise), a bias unless ``use_bias`` is False, f32
+    parameters cast to the input's dtype."""
 
-    def __init__(self, in_channels: int, out_channels: int, stride: int = 1) -> None:
-        super().__init__(in_channels, out_channels, 3, stride, 1)
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3, stride: int = 1,
+                 padding: int | None = None, use_bias: bool = True) -> None:
+        if padding is None:
+            padding = 1 if kernel in (3, 4) else kernel // 2
+        super().__init__(in_channels, out_channels, kernel, stride, padding, bias=use_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(
-            x, self.weight.to(x.dtype), self.bias.to(x.dtype), stride=self.stride, padding=1
-        )
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, stride=self.stride, padding=self.padding)
 
 
 def init_kaiming_x01(module: nn.Module, generator: torch.Generator | None = None) -> None:
@@ -80,7 +85,52 @@ def init_lecun_normal(conv: nn.Conv2d, generator: torch.Generator | None = None)
         w = torch.empty(conv.weight.shape, dtype=torch.float32)
         nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
         conv.weight.copy_(w)
-        conv.bias.zero_()
+        if conv.bias is not None:
+            conv.bias.zero_()
+
+
+class BatchNorm(nn.Module):
+    """Flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, param_dtype=f32,
+    use_fast_variance=True)`` in training mode (``use_running_average=
+    False``), the only mode a training step runs, over NCHW's channels:
+
+    - it normalises with the batch's mean and biased "fast" variance
+      ``max(0, E[x^2] - E[x]^2)``, both taken in f32 (f64 under f64) for
+      any input dtype, as Flax's ``_compute_stats`` promotes, the gradient
+      flowing through them to the input;
+    - y = (x - mean) * (rsqrt(var + eps) * weight) + bias in that dtype,
+      rounded to the input's dtype, as Flax's ``_normalize``;
+    - with ``update_stats`` it writes ``running = 0.9 running + 0.1 batch``
+      for the mean and the biased variance (``SNConv``'s switch); without,
+      it writes nothing, as the JAX step discards the collection.
+
+    ``nn.BatchNorm2d`` and ``F.batch_norm(training=True)`` differ: both
+    write the unbiased running variance (n/(n-1) times the batch's), and on
+    every training call. Parameters and buffers take the reference's names:
+    ``weight``, ``bias``, ``running_mean``, ``running_var``."""
+
+    momentum = 0.9
+    eps = 1e-5
+
+    def __init__(self, features: int) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+        acc = torch.promote_types(x.dtype, torch.float32)
+        xs = x.to(acc)
+        mean = xs.mean((0, 2, 3))
+        var = ((xs * xs).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if update_stats:
+            with torch.no_grad():
+                for buf, batch in ((self.running_mean, mean), (self.running_var, var)):
+                    buf.copy_(self.momentum * buf.to(acc) + (1 - self.momentum) * batch.detach())
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(acc)
+        y = (xs - mean[:, None, None]) * mul[:, None, None] + self.bias.to(acc)[:, None, None]
+        return y.to(x.dtype)
 
 
 class SNConv(nn.Module):

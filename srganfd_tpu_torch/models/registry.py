@@ -15,9 +15,6 @@ _REGISTRY: dict[str, Callable[..., Any]] = {}
 _NOT_PORTED = {
     "discriminator_unet_sa": "A4 (with the flash-attention backward, B4)",
     "discriminator": "A8 (other families)",
-    "uNetDiscriminatorAesrgan": "A8 (other families)",
-    "discriminator_attention_unet": "A8 (other families)",
-    "discriminator_attention_unet_ms": "A8 (other families)",
 }
 
 

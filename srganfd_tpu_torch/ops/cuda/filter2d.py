@@ -15,9 +15,13 @@ flipped).
   It skips kernel rows whose taps are all zero: the same sums on finite
   input (on Inf or NaN input the plain version can give NaN where the
   kernel does not).
-- :func:`filter2d_ref` is the plain version: ``F.pad(mode="reflect")`` and
-  one grouped conv with the batch folded into channels, the literal form of
-  the JAX ``filter2d_depthwise``.
+- :func:`filter2d_ref` is the plain version: the reflect-101 padding as a
+  gather (:func:`reflect_pad`) and one grouped conv with the batch folded
+  into channels, the literal form of the JAX ``filter2d_depthwise``.
+
+Both pad as ``jnp.pad(mode="reflect")`` does, reflecting again and again
+where K // 2 reaches past the axis (a 1-pixel axis repeats its pixel), so a
+chain stage of any size takes any K.
 - ``launches`` counts kernel calls.
 
 No gradient: the degradation chain is not differentiated.
@@ -27,12 +31,13 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from srganfd_tpu_torch.ops.cuda.build import load_library
 
-__all__ = ["filter2d", "filter2d_ref", "launches", "KMAX"]
+__all__ = ["filter2d", "filter2d_ref", "reflect_pad", "launches", "KMAX"]
 
 launches = 0  # filter2d kernel calls in this process; reset by assigning 0
 
@@ -50,9 +55,18 @@ def _check_shapes(images: torch.Tensor, kernels: torch.Tensor) -> int:
     k = kernels.shape[-1]
     if kernels.shape != (n, k, k) or k % 2 == 0:
         raise ValueError(f"kernels must be (N, K, K) with K odd for N = {n}, got {tuple(kernels.shape)}")
-    if k // 2 >= h or k // 2 >= w:
-        raise ValueError(f"reflect padding by {k // 2} needs H and W above it, got {h}x{w}")
     return k
+
+
+def reflect_pad(x: torch.Tensor, pad: int, dims: tuple[int, int]) -> torch.Tensor:
+    """``x`` reflect-101-padded by ``pad`` on both sides of each of ``dims``,
+    by gather, as ``jnp.pad(mode="reflect")`` pads: numpy's rule, whose fold
+    repeats where ``pad`` reaches past the axis and which repeats the pixel
+    of a 1-pixel axis."""
+    for d in dims:
+        idx = np.pad(np.arange(x.shape[d]), pad, mode="reflect")
+        x = x.index_select(d, torch.from_numpy(idx).to(x.device))
+    return x
 
 
 def filter2d_ref(images: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
@@ -60,9 +74,7 @@ def filter2d_ref(images: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
     Returns (N, H, W, C) in images' dtype, computed in f32."""
     k = _check_shapes(images, kernels)
     n, h, w, c = images.shape
-    pad = k // 2
-    x = images.float().permute(0, 3, 1, 2).reshape(1, n * c, h, w)
-    x = F.pad(x, (pad, pad, pad, pad), mode="reflect")
+    x = reflect_pad(images.float().permute(0, 3, 1, 2).reshape(1, n * c, h, w), k // 2, (2, 3))
     weight = kernels.float().repeat_interleave(c, dim=0)[:, None]  # (N*C, 1, K, K)
     out = F.conv2d(x, weight, groups=n * c)
     return out.reshape(n, c, h, w).permute(0, 2, 3, 1).to(images.dtype)
@@ -70,8 +82,8 @@ def filter2d_ref(images: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
 
 def filter2d(images: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
     """``filter2d_pallas(images, kernels)`` without the interpret flag:
-    images (N, H, W, C) f32, kernels (N, K, K) f32 with K odd and
-    K // 2 < H, W. Returns (N, H, W, C) f32."""
+    images (N, H, W, C) f32, kernels (N, K, K) f32 with K odd, any H and
+    W. Returns (N, H, W, C) f32."""
     global launches
     if images.device.type == "cpu":
         return filter2d_ref(images, kernels)

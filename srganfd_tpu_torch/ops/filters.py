@@ -17,9 +17,8 @@ mask ``|residual| * 255 > 10`` would move on pixels near the threshold.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from srganfd_tpu_torch.ops.cuda.filter2d import filter2d, filter2d_ref
+from srganfd_tpu_torch.ops.cuda.filter2d import filter2d, filter2d_ref, reflect_pad
 
 __all__ = ["filter2d", "filter2d_ref", "blur_separable"]
 
@@ -35,7 +34,8 @@ def _shared_banded(k1d: torch.Tensor, out_len: int) -> torch.Tensor:
 
 
 def blur_separable(images: torch.Tensor, k1d: torch.Tensor) -> torch.Tensor:
-    """Blur (N, H, W, C) by ``outer(k1d, k1d)`` with reflect-101 borders:
+    """Blur (N, H, W, C) by ``outer(k1d, k1d)`` with reflect-101 borders
+    (any H and W, as ``filter2d`` pads):
     a contraction along H, then along W, each against one shared banded
     matrix, in f32. ``k1d`` (K,), K odd. Returns images' dtype."""
     if images.is_cuda and torch.get_float32_matmul_precision() != "highest":
@@ -46,7 +46,7 @@ def blur_separable(images: torch.Tensor, k1d: torch.Tensor) -> torch.Tensor:
     n, h, w, c = images.shape
     pad = k1d.shape[0] // 2
     k1d = k1d.to(images.device, torch.float32)
-    x = F.pad(images.float().permute(0, 3, 1, 2), (pad, pad, pad, pad), mode="reflect").permute(0, 2, 3, 1)
+    x = reflect_pad(images.float(), pad, (1, 2))
     y = torch.einsum("ph,npqc->nhqc", _shared_banded(k1d, h), x)
     y = torch.einsum("qw,nhqc->nhwc", _shared_banded(k1d, w), y)
     return y.to(images.dtype)

@@ -10,7 +10,8 @@ Parity target: the reference's checkpoint dicts (``ESRGAN/utils.py:30-101``):
 which makes ``--resume`` step-exact, as the JAX package's sidecar does, and
 a ``best_<metric>`` for every best metric tracked (``best_lpips`` among
 them). A GAN's files also hold ``d_state_dict`` (D, its spectral-norm
-``u`` buffers included) and ``d_optimizer``.
+``u`` buffers and BatchNorm running statistics included) and
+``d_optimizer``.
 ``convert.load_generator_weights`` reads G or, with ``use_ema``, EMA-G from
 either file, so ``cli.infer --weights`` serves what ``cli.train`` wrote.
 
@@ -78,7 +79,8 @@ def load_checkpoint(path: str) -> dict[str, Any]:
 
 def restore_state(state: TrainState, payload: dict[str, Any]) -> None:
     """Load a checkpoint's G, EMA-G, optimizer, step and, for a GAN, D
-    (``u`` included) and its optimizer into ``state``."""
+    (``u`` and running statistics included) and its optimizer into
+    ``state``."""
     state.g_model.load_state_dict(payload["state_dict"])
     with torch.no_grad():
         for k, v in payload["ema_state_dict"].items():

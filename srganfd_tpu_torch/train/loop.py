@@ -11,13 +11,21 @@ JAX ``make_train_step`` with ``g_step_first=False``):
 
 1. one generator forward, whose graph both updates share;
 2. the D update on the detached SR: BCE(D(gt), 1) + BCE(D(sr), 0), two
-   train-mode forwards that each advance the spectral-norm ``u`` (gt
-   first), or with ``fuse_d_forwards`` one forward on ``cat([gt, sr])``
-   and one power iteration; Adam on D at ``discriminator_lr`` under the
-   same schedule;
+   train-mode forwards that each advance the spectral-norm ``u`` and the
+   BatchNorm running statistics (gt first), or with ``fuse_d_forwards`` one
+   forward on ``cat([gt, sr])`` and one power iteration, unless D has
+   BatchNorm (fusing would pool the real and fake batch statistics); Adam
+   on D at ``discriminator_lr`` under the same schedule;
 3. the G update against the new D: pixel + content (VGG19) + adversarial
-   (BCE(D(sr), 1), D with ``update_stats=False``: ``u`` is not written and
+   (BCE(D(sr), 1), D with ``update_stats=False``: it normalises with the SR
+   batch's statistics but writes neither ``u`` nor running statistics, and
    no gradient reaches D), each through ``_weighted``; Adam on G, then EMA.
+
+A D may return a tuple, as the JAX modules do: the attention U-Net
+``(logit map, attention maps)``, the multi-scale ensemble ``(per-scale
+logit maps, attention maps)``. The losses take its first element; over
+per-scale maps the BCEs are summed and the reported probabilities are
+scale 0's (the JAX step's ``_first``, ``_bce_scales``, ``_mean_sigmoid``).
 
 GAN configs with the G step first (Real-ESRGAN,
 ``Real_ESRGAN/train_realesrgan.py:407-470``; ``g_step_first=True``): the
@@ -39,7 +47,7 @@ hand-written kernel on a CUDA tensor, its backward through the plain
 version, recomputed, as the JAX ``rdb_apply`` does.
 
 Not ported yet, each rejected with its ROADMAP.md item: the relativistic
-step (A8), discriminators other than ``discriminator_unet``,
+step (A8), the VGG-128 and self-attention discriminators (A8, A4),
 ``grad_accum_steps``, ``skip_nonfinite_updates``, ``grad_clip_norm``,
 weight decay (A4), the pipe mesh (A11), and the K-step and fused dispatch
 modes (A4).
@@ -53,6 +61,7 @@ from srganfd_tpu_torch.configs.base import ExperimentConfig
 from srganfd_tpu_torch.losses.content import ContentLoss
 from srganfd_tpu_torch.losses.gan import bce_with_logits
 from srganfd_tpu_torch.models import check_ported, create_model
+from srganfd_tpu_torch.models.blocks import BatchNorm
 from srganfd_tpu_torch.train.schedule import multistep_lr
 from srganfd_tpu_torch.train.state import TrainState, ema_update
 
@@ -73,6 +82,28 @@ def _weighted(weights: tuple[float, ...], losses: torch.Tensor) -> torch.Tensor:
     if w.shape[0] == 1 or losses.shape[0] == 1 or w.shape[0] == losses.shape[0]:
         return torch.sum(w * losses)
     raise ValueError(f"weight list {tuple(w.shape)} incompatible with losses {tuple(losses.shape)}")
+
+
+Logits = torch.Tensor | tuple[torch.Tensor, ...]
+
+
+def _first(out: Logits | tuple) -> Logits:
+    """The logit map(s) of a D's output: a D that exposes attention maps
+    returns a tuple whose first element they are (for the multi-scale
+    ensemble itself a tuple of per-scale maps)."""
+    return out[0] if isinstance(out, tuple) else out
+
+
+def _bce_scales(logits: Logits, target: float) -> torch.Tensor:
+    """BCE against a constant label over one logit map, or summed over a
+    tuple of per-scale maps (the A-ESRGAN paper's ensemble loss)."""
+    maps = logits if isinstance(logits, tuple) else (logits,)
+    return sum(bce_with_logits(o, torch.full_like(o, target)) for o in maps)
+
+
+def _mean_sigmoid(logits: Logits) -> torch.Tensor:
+    """D's mean probability, over scale 0's map for an ensemble."""
+    return torch.sigmoid(_first(logits).detach()).mean()
 
 
 def _reject_unported(cfg: ExperimentConfig) -> None:
@@ -201,25 +232,26 @@ class Trainer:
         return metrics
 
     def _d_update(self, state: TrainState, gt: torch.Tensor, sr: torch.Tensor) -> dict[str, torch.Tensor]:
-        """BCE(D(gt), 1) + BCE(D(sr), 0) with ``u`` advanced by each train
-        forward, then Adam on D."""
+        """BCE(D(gt), 1) + BCE(D(sr), 0) with ``u`` and the running
+        statistics advanced by each train forward, then Adam on D."""
         d = state.d_model
         _set_lr(state.d_opt, self.d_schedule(state.step))  # one D update per step
-        if self.cfg.fuse_d_forwards:
+        # a BatchNorm D keeps the two forwards: one would pool the batches'
+        # statistics (the Ds without BatchNorm return one logit map)
+        if self.cfg.fuse_d_forwards and not any(isinstance(m, BatchNorm) for m in d.modules()):
             both = d(torch.cat([gt, sr]), update_stats=True)
             gt_out, sr_out = both[: gt.shape[0]], both[gt.shape[0]:]
         else:
-            gt_out = d(gt, update_stats=True)
-            sr_out = d(sr, update_stats=True)
-        loss = bce_with_logits(gt_out, torch.ones_like(gt_out)) + bce_with_logits(
-            sr_out, torch.zeros_like(sr_out))
+            gt_out = _first(d(gt, update_stats=True))
+            sr_out = _first(d(sr, update_stats=True))
+        loss = _bce_scales(gt_out, 1.0) + _bce_scales(sr_out, 0.0)
         state.d_opt.zero_grad(set_to_none=True)
         loss.backward()
         state.d_opt.step()
         return {
             "d_loss": loss.detach(),
-            "d_gt_probability": torch.sigmoid(gt_out.detach()).mean(),
-            "d_sr_probability": torch.sigmoid(sr_out.detach()).mean(),
+            "d_gt_probability": _mean_sigmoid(gt_out),
+            "d_sr_probability": _mean_sigmoid(sr_out),
         }
 
     def _g_losses(self, state: TrainState, sr: torch.Tensor, gt: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -232,9 +264,8 @@ class Trainer:
             parts["content_loss"] = self.content_loss(sr, gt)
             total = total + parts["content_loss"]
         if self.has_d:
-            sr_out = state.d_model(sr, update_stats=False)
-            parts["adversarial_loss"] = _weighted(
-                cfg.adversarial_weight, bce_with_logits(sr_out, torch.ones_like(sr_out)))
+            sr_out = _first(state.d_model(sr, update_stats=False))
+            parts["adversarial_loss"] = _weighted(cfg.adversarial_weight, _bce_scales(sr_out, 1.0))
             total = total + parts["adversarial_loss"]
         parts["g_loss"] = total
         return parts

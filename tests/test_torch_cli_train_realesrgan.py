@@ -5,8 +5,7 @@ Real-ESRGAN chain's draws are keyed by the step, so the resumed run sees
 the same batches), the command line with ``--resume auto``, and the
 trainer's separate pixel target. Seeded synthetic frames of 72 x 72; G at
 ``--tiny`` widths (8 channels, growth 4, 1 RRDB), D at 8 channels through
-``run_train``; GT 64 at x4, so that every stage of the chain stays above
-the K = 21 kernels' reflect pad."""
+``run_train``; GT 64 at x4."""
 
 import json
 import os

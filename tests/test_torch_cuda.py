@@ -292,12 +292,14 @@ def test_rdb_apply_gradients_on_the_card(cuda, dtype):
 @pytest.mark.parametrize(
     "shape,k",
     [((2, 37, 53, 3), 25), ((3, 20, 24, 3), 7), ((2, 13, 30, 3), 25), ((1, 40, 70, 5), 31),
-     ((2, 9, 11, 3), 1), ((16, 64, 64, 3), 25)],
+     ((2, 9, 11, 3), 1), ((16, 64, 64, 3), 25), ((2, 3, 5, 3), 25), ((2, 1, 9, 3), 7), ((48, 8, 8, 3), 21)],
     ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else f"k{v}",
 )
 def test_filter2d_kernel_matches_plain_version(cuda, shape, k):
     """Asymmetric kernels (a flipped kernel fails), ragged tiles, C = 5
-    (two channel passes), pads reaching deep into narrow edges."""
+    (two channel passes), pads reaching deep into narrow edges, and pads
+    wider than the image (K // 2 >= H or W, down to one pixel), where the
+    reflection folds again as ``jnp.pad(mode="reflect")`` folds it."""
     g = torch.Generator().manual_seed(7)
     x = torch.rand(shape, generator=g).to(cuda)
     ks = torch.rand((shape[0], k, k), generator=g)

@@ -95,6 +95,49 @@ def test_reflect_101_at_every_border(hw):
     np.testing.assert_allclose(got, _numpy_correlation(x, ks), atol=ATOL, rtol=0)
 
 
+WIDE_PAD_CASES = {
+    "1x1_k3": ((1, 1, 1, 3), 3),
+    "h1_k7": ((2, 1, 9, 3), 7),
+    "w1_k5": ((2, 6, 1, 3), 5),
+    "3x5_k25": ((2, 3, 5, 3), 25),
+    "8x8_k21": ((1, 8, 8, 3), 21),
+    "4x13_k9": ((2, 4, 13, 3), 9),
+}
+
+
+@pytest.mark.parametrize("case", WIDE_PAD_CASES)
+def test_padding_wider_than_the_axis_matches_jax(case):
+    """K // 2 >= H or W, down to an axis of one pixel: the reflection folds
+    again and again (numpy's and ``jnp.pad``'s rule; a 1-pixel axis repeats
+    its pixel), as the JAX ``filter2d``, its depthwise form and the Pallas
+    kernel pad."""
+    shape, k = WIDE_PAD_CASES[case]
+    x = _images(shape, seed=40 + k)
+    ks = _asymmetric_kernels(shape[0], k, seed=41 + k)
+    got = f2d.filter2d_ref(torch.from_numpy(x), torch.from_numpy(ks)).numpy()
+    assert got.shape == shape
+    xla = np.asarray(jax_filters.filter2d(jnp.asarray(x), jnp.asarray(ks)))
+    depthwise = np.asarray(jax_filters.filter2d_depthwise(jnp.asarray(x), jnp.asarray(ks)))
+    pallas = np.asarray(filter2d_pallas(jnp.asarray(x), jnp.asarray(ks), interpret=True))
+    for name, want in (("filter2d", xla), ("filter2d_depthwise", depthwise),
+                       ("filter2d_pallas", pallas)):
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=0, err_msg=name)
+    np.testing.assert_allclose(got, _numpy_correlation(x, ks), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["1x1_k3", "h1_k7", "3x5_k25", "8x8_k21"])
+def test_blur_separable_pads_past_the_axis_as_jax(case):
+    """USM's separable blur under the same folds, against the JAX
+    ``blur_separable``."""
+    shape, k = WIDE_PAD_CASES[case]
+    x = _images(shape, seed=50 + k)
+    k1d = np.random.default_rng(51 + k).uniform(size=k)
+    k1d = (k1d / k1d.sum()).astype(np.float32)  # a Gaussian's sum: outputs in [0, 1]
+    got = filters.blur_separable(torch.from_numpy(x), torch.from_numpy(k1d)).numpy()
+    want = np.asarray(jax_filters.blur_separable(jnp.asarray(x), jnp.asarray(k1d)))
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
 def test_cpu_tensor_takes_the_plain_version():
     x = torch.from_numpy(_images((2, 16, 18, 3), seed=4))
     ks = torch.from_numpy(_asymmetric_kernels(2, 9, seed=5))
@@ -115,9 +158,8 @@ def test_filter2d_refuses_other_devices():
     "img_shape,k_shape,match",
     [((1, 8, 8, 3), (1, 4, 4), "K odd"),
      ((2, 8, 8, 3), (1, 3, 3), r"\(N, K, K\)"),
-     ((1, 8, 8), (1, 3, 3), r"\(N, H, W, C\)"),
-     ((1, 6, 20, 3), (1, 13, 13), "reflect padding")],
-    ids=["even_k", "n_mismatch", "not_nhwc", "pad_too_big"],
+     ((1, 8, 8), (1, 3, 3), r"\(N, H, W, C\)")],
+    ids=["even_k", "n_mismatch", "not_nhwc"],
 )
 def test_plain_version_rejects_bad_shapes(img_shape, k_shape, match):
     with pytest.raises(ValueError, match=match):

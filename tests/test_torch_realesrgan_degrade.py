@@ -14,8 +14,9 @@ chain ends in round(x*255)/255, so a value on a .5 boundary may move one
 The noise itself is held by its statistics: mean and variance per sample
 against their analytic values.
 
-Sizes: GT 64 at x4, so that every stage stays above the K = 21 kernels'
-reflect pad of 10 (at GT 32 the last stage is 8x8 and the port raises).
+Sizes: GT 64 at x4, and GT 32, whose last stage (8x8) is below the K = 21
+kernels' reflect pad of 10: the blurs then fold the reflection again, as
+``jnp.pad(mode="reflect")`` does.
 """
 
 import dataclasses
@@ -336,14 +337,21 @@ def test_chain_with_noise_is_seeded_and_in_range():
     assert a.min() >= 0 and a.max() <= 1 and torch.equal(torch.round(a * 255), a * 255)
 
 
-def test_chain_refuses_a_stage_below_the_reflect_pad():
-    """At GT 32 the final 8x8 stage is below the K = 21 sinc's pad of 10:
-    the port raises (ROADMAP.md C, limits), where the JAX chain pads."""
-    gt, (k1, k2, sinc) = _batch_inputs(1, 32, 0)
-    plan = _zero_noise_plan(re.plan_realesrgan_batch(np.random.default_rng(0), 1, (32, 32), 4, PROCESS), True)
-    with pytest.raises(ValueError, match="reflect padding"):
-        re.apply_realesrgan_batch(*(torch.from_numpy(a) for a in (gt, k1, k2, sinc)),
-                                  torch.Generator().manual_seed(0), plan)
+@pytest.mark.parametrize("seed", [0, 3])
+def test_chain_matches_jax_below_the_reflect_pad(seed):
+    """GT 32 at x4: the final 8x8 stage (and, where the plan draws a small
+    first resize, earlier ones) is below the K = 21 kernels' pad of 10, so
+    each blur folds its reflection more than once, as the JAX chain's
+    ``jnp.pad(mode="reflect")`` does. Noise zero and both JPEGs off: the
+    quantisation rule of ``test_chain_matches_jax_at_zero_noise``."""
+    gt, (k1, k2, sinc) = _batch_inputs(2, 32, seed)
+    plan = _zero_noise_plan(re.plan_realesrgan_batch(np.random.default_rng(seed), 2, (32, 32), 4, PROCESS), True)
+    want = np.asarray(jax_re.apply_realesrgan_batch(*(jnp.asarray(a) for a in (gt, k1, k2, sinc)),
+                                                    jax.random.PRNGKey(0), plan))
+    got = re.apply_realesrgan_batch(*(torch.from_numpy(a) for a in (gt, k1, k2, sinc)),
+                                    torch.Generator().manual_seed(0), plan).numpy()
+    assert got.shape == want.shape == (2, 8, 8, 3)
+    _assert_quantised_close(got, want, f"seed {seed}")
 
 
 @pytest.mark.parametrize("uint8", [False, True], ids=["float", "uint8"])

@@ -28,6 +28,7 @@ from srganfd_tpu_torch.cli.degrade_adapter import DegradationAdapter
 from srganfd_tpu_torch.convert import flax_to_state_dict
 from srganfd_tpu_torch.data import datasets
 from srganfd_tpu_torch.metrics import psnr_ssim
+from srganfd_tpu_torch.models import check_ported
 from srganfd_tpu_torch.train import schedule, state
 from srganfd_tpu_torch.train.loop import Trainer
 from torch_threads import few_torch_threads  # noqa: F401 (autouse)
@@ -229,7 +230,7 @@ def test_a_discriminator_without_an_adversarial_weight_is_refused():
         Trainer(cfg)
 
 
-@pytest.mark.parametrize("name", ["aesrgan", "rrdbnet", "esrgan"])
+@pytest.mark.parametrize("name", ["rrdbnet", "esrgan"])
 def test_unported_configs_name_the_roadmap_item(name):
     with pytest.raises(KeyError, match="ROADMAP.md"):
         configs.get_config(name)
@@ -242,3 +243,18 @@ def test_bsrnet_config_equals_the_jax_one():
     for f in dataclasses.fields(ours):
         assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
     assert ours.milestones_epochs == theirs.milestones_epochs
+
+
+def test_aesrgan_config_equals_the_jax_one():
+    """Field by field, the degradation dict and the milestones included;
+    its G and D archs are the port's."""
+    ours, theirs = configs.get_config("aesrgan"), jax_configs.get_config("aesrgan")
+    import dataclasses
+
+    for f in dataclasses.fields(ours):
+        assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+    assert ours.milestones_epochs == theirs.milestones_epochs
+    assert (ours.g_arch, ours.d_arch, ours.gt_image_size, ours.batch_size) == (
+        "bsrgantrans_x2", "uNetDiscriminatorAesrgan", 120, 8)
+    check_ported(ours.g_arch)
+    check_ported(ours.d_arch)
