@@ -12,10 +12,11 @@ RRDBs) and ``bsrgantrans_x2`` (the same trunk, then 2 transformer layers
 of 4 heads and FFN 2048 over the H/2 x W/2 tokens, ``--attn-chunk 1024
 --attn-backend flash``), and the Real-ESRGAN generators ``realesrgan_x4``
 and ``realesrgan_x2`` (a pixel-unshuffle front, the same trunk, two x2
-upsamples), and trains three recipes at full width: ``bsrgan_x2``, the L1
+upsamples), and trains four recipes at full width: ``bsrgan_x2``, the L1
 pretrain (``bsrnet``) and then the GAN stage (``bsrgan``);
-``realesrgan_x4``, ``realesrnet`` and then ``realesrgan``; and
-``bsrgantrans_x2`` against the attention-gated U-Net (``aesrgan``):
+``realesrgan_x4``, ``realesrnet`` and then ``realesrgan``;
+``bsrgantrans_x2`` against the attention-gated U-Net (``aesrgan``); and
+``rrdbnet_x4``, ``rrdbnet`` and then ``esrgan`` (ESRGAN's two stages):
 
 1. kernel phases: ``rdb_forward`` vs ``rdb_forward_ref`` and
    ``flash_attention`` vs ``flash_attention_ref``, in f32 (the 3xTF32
@@ -78,7 +79,9 @@ pretrain (``bsrnet``) and then the GAN stage (``bsrgan``);
    (0, 1), 69 RDB and 2 filter2d kernel calls per step and validation
    batch, the resumed run at step 4 with D's ``u`` and both Adams as the
    checkpoint held them, finite validation LPIPS and ``ckpt_best.pth`` at
-   the epoch of the lowest. CUDA-event times of one step and its parts (G
+   the epoch of the lowest; G and EMA-G start from the bsrnet run's
+   ``ckpt_last.pth`` (``--pretrained-g``), as the recipe's second stage
+   does, and equal it at step 0. CUDA-event times of one step and its parts (G
    forward+backward, the D update, the content and adversarial terms'
    forward+backward), the chain and a validation with LPIPS. One f32 GAN
    step with the RDB kernel is held to the same step with
@@ -107,7 +110,8 @@ pretrain (``bsrnet``) and then the GAN stage (``bsrgan``);
     calls per chain (the count the plans' second-blur draws give), the
     resumed run at step 3 with its Adams (and D's ``u``) as the
     checkpoint held them, ``ckpt_best`` at the best validation PSNR or
-    LPIPS; CUDA-event times of a step and its parts (the chain with USM's
+    LPIPS, ``realesrgan``'s G and EMA-G the realesrnet run's at step 0
+    (``--pretrained-g``); CUDA-event times of a step and its parts (the chain with USM's
     and filter2d's shares, G forward+backward, the D update, the content
     and adversarial terms), peak memory;
 13. one f32 ``realesrgan`` step with the kernels held to the same step
@@ -136,7 +140,26 @@ pretrain (``bsrnet``) and then the GAN stage (``bsrgan``);
     state (``step_check``'s LIMITS, loss parts 1e-5, D and ``u`` 1e-3, the
     gates' running statistics 1e-5; the biases before BatchNorm, which
     have no gradient, printed);
-    ``cli.infer --use-ema`` on ``ckpt_best.pth``.
+    ``cli.infer --use-ema`` on ``ckpt_best.pth``;
+15. ESRGAN training: ``cli.train.run_train`` on ``rrdbnet`` and then
+    ``esrgan``, the configs unchanged (``rrdbnet_x4`` 64/32/23, batch 16,
+    MATLAB-bicubic LR, bf16; ``rrdbnet`` at GT 192 on L1; ``esrgan`` at GT
+    128 against the VGG-128 D with c = 64 and BatchNorm, VGG19 content at
+    ``features.34``, the relativistic loss, the G step first, LPIPS
+    selection, started with ``--pretrained-g`` from rrdbnet's
+    ``ckpt_last.pth``, G and EMA-G equal to its G at step 0) on the bsrnet
+    phase's frames: one epoch of 4 steps each, then ``--resume auto`` for a
+    second (step, G, EMA-G, D with its running statistics and both Adams
+    as the checkpoint held them); 69 RDB kernel calls a forward; one step
+    with ``--pretrained-d`` on esrgan's checkpoint (D and its running
+    statistics the file's, its Adam fresh); CUDA-event times of each
+    stage's step and its parts; the RDB kernel timed at x (16, 48, 48, 64)
+    and (16, 32, 32, 64) in the kernel phase; one f32 esrgan step held to
+    its plain twin from esrgan's ``ckpt_last.pth`` restored whole
+    (``step_check``'s LIMITS, loss parts 1e-5, D 1e-3, running statistics
+    1e-5; the logit's bias, which the relativistic losses cancel, by its
+    gradient, 1e-6; the same step from fresh Adams printed); ``cli.infer
+    --use-ema`` on esrgan's ``ckpt_best.pth``.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after.
@@ -148,6 +171,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import io
 import json
 import math
@@ -192,6 +216,10 @@ RE_FRAME = 288  # edge of the synthetic GT frames, above the 256 crop
 AE_RDB_SHAPE = (8, 60, 60, CH)
 AE_STEPS_PER_EPOCH, AE_EPOCHS = 4, 1  # then --resume auto for one more epoch
 AE_MS_GT = 128  # the ensemble's two scales need GT sides of 16k; the config's 120 is not one
+# the ESRGAN configs' shapes: batches of 16, GT 192 (rrdbnet) and 128
+# (esrgan) at x4, so the generator's RDBs run on 48x48 and 32x32 LR crops
+ES_RDB_SHAPES = {"rrdbnet": (16, 48, 48, CH), "esrgan": (16, 32, 32, CH)}
+ES_STEPS_PER_EPOCH, ES_EPOCHS = 4, 1  # then --resume auto for one more epoch
 
 
 def fail(msg: str) -> None:
@@ -255,6 +283,30 @@ def rdb_flops(shape, gc: int = GC) -> int:
     return 2 * n * h * w * sum(9 * (ch + k * gc) * (gc if k < 4 else ch) for k in range(5))
 
 
+def rdb_shape_times(rdb, shape, seed: int, label: str) -> tuple[float, float, float, float]:
+    """The bf16 kernel, its plain version and the cuDNN chain at a training
+    config's RDB shape, and the card's bound there (ms each)."""
+    x, ks, bs = rdb_inputs(shape, seed=seed)
+    x = x.to(torch.bfloat16)
+    packed = rdb.pack_rdb_weights(ks, bs, torch.bfloat16)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: rdb.rdb_forward(x, ks, bs, packed))
+        plain_ms = cuda_ms(lambda: rdb.rdb_forward_ref(x, ks, bs))
+        library_ms = cuda_ms(cudnn_chain(x, ks, bs))
+    flops = rdb_flops(shape)
+    # x read once, output written once, weights (bf16) and biases (f32) read once
+    bytes_moved = 2 * 2 * x.numel() + 2 * packed[0].numel() + 4 * packed[1].numel()
+    bound = max(flops / PEAK_BF16_FLOPS, bytes_moved / PEAK_HBM_BYTES) * 1e3
+    print(
+        f"rdb timing at x {shape} bf16 ({label}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN bf16 chain "
+        f"{library_ms:.4f} ms; bound {bound:.4f} ms ({flops:.3e} FLOP, "
+        f"{'operations' if flops / PEAK_BF16_FLOPS >= bytes_moved / PEAK_HBM_BYTES else 'bytes'}), "
+        f"{100 * bound / ms:.1f}% of it",
+        flush=True,
+    )
+    return ms, plain_ms, library_ms, bound
+
+
 def kernel_phase(rdb) -> dict:
     """rdb_forward vs rdb_forward_ref at the main paths' shapes and at the
     edges of the kernels' tiles (16x8 pixels, 16-channel bf16 and 8-channel
@@ -266,7 +318,7 @@ def kernel_phase(rdb) -> dict:
     # of 8 in a tile of 16)
     cases = [((2, 64, 64, CH), GC), ((1, 37, 53, CH), GC), (SERVE_SHAPE, GC), ((2, 256, 256, CH), GC),
              ((1, 250, 190, CH), GC), (TRAIN_RDB_SHAPE, GC), (RE_RDB_SHAPE, GC), (AE_RDB_SHAPE, GC),
-             ((3, 17, 23, CH), GC),
+             *((shape, GC) for shape in ES_RDB_SHAPES.values()), ((3, 17, 23, CH), GC),
              ((2, 37, 53, 24), 16), ((1, 20, 33, 40), 8), ((2, 19, 13, 24), 8)]
     for i, (shape, gc) in enumerate(cases):
         x, ks, bs = rdb_inputs(shape, seed=i, gc=gc)
@@ -322,41 +374,11 @@ def kernel_phase(rdb) -> dict:
             train[shape] = (cuda_ms(lambda: rdb.rdb_forward(xt, kt, bt, pt)), cuda_ms(cudnn_chain(xt, kt, bt)))
     train_ms, train_library_ms = train[TRAIN_RDB_SHAPE]
     ragged_ms = train_ms - train[(16, 64, 72, CH)][0] * 72 / 64
-    # the Real-ESRGAN training shape: bf16 kernel, plain version, cuDNN chain
-    xr, kr, br = rdb_inputs(RE_RDB_SHAPE, seed=102)
-    xr = xr.to(torch.bfloat16)
-    pr = rdb.pack_rdb_weights(kr, br, torch.bfloat16)
-    with torch.inference_mode():
-        re_ms = cuda_ms(lambda: rdb.rdb_forward(xr, kr, br, pr))
-        re_plain_ms = cuda_ms(lambda: rdb.rdb_forward_ref(xr, kr, br))
-        re_library_ms = cuda_ms(cudnn_chain(xr, kr, br))
-    re_flops = rdb_flops(RE_RDB_SHAPE)
-    re_bytes = 2 * 2 * xr.numel() + 2 * pr[0].numel() + 4 * pr[1].numel()
-    re_bound = max(re_flops / PEAK_BF16_FLOPS, re_bytes / PEAK_HBM_BYTES) * 1e3
-    print(
-        f"rdb timing at x {RE_RDB_SHAPE} bf16 (realesrgan training): kernel {re_ms:.4f} ms, plain "
-        f"{re_plain_ms:.4f} ms, cuDNN bf16 chain {re_library_ms:.4f} ms; bound {re_bound:.4f} ms "
-        f"({re_flops:.3e} FLOP, operations), {100 * re_bound / re_ms:.1f}% of it",
-        flush=True,
-    )
-    # the aesrgan training shape, the same numbers
-    xa, ka, ba = rdb_inputs(AE_RDB_SHAPE, seed=103)
-    xa = xa.to(torch.bfloat16)
-    pa = rdb.pack_rdb_weights(ka, ba, torch.bfloat16)
-    with torch.inference_mode():
-        ae_ms = cuda_ms(lambda: rdb.rdb_forward(xa, ka, ba, pa))
-        ae_plain_ms = cuda_ms(lambda: rdb.rdb_forward_ref(xa, ka, ba))
-        ae_library_ms = cuda_ms(cudnn_chain(xa, ka, ba))
-    ae_flops = rdb_flops(AE_RDB_SHAPE)
-    ae_bytes = 2 * 2 * xa.numel() + 2 * pa[0].numel() + 4 * pa[1].numel()
-    ae_bound = max(ae_flops / PEAK_BF16_FLOPS, ae_bytes / PEAK_HBM_BYTES) * 1e3
-    print(
-        f"rdb timing at x {AE_RDB_SHAPE} bf16 (aesrgan training): kernel {ae_ms:.4f} ms, plain "
-        f"{ae_plain_ms:.4f} ms, cuDNN bf16 chain {ae_library_ms:.4f} ms; bound {ae_bound:.4f} ms "
-        f"({ae_flops:.3e} FLOP, {'operations' if ae_flops / PEAK_BF16_FLOPS >= ae_bytes / PEAK_HBM_BYTES else 'bytes'}), "
-        f"{100 * ae_bound / ae_ms:.1f}% of it",
-        flush=True,
-    )
+    # each training config's shape: bf16 kernel, plain version, cuDNN chain
+    re_ms, re_plain_ms, re_library_ms, re_bound = rdb_shape_times(rdb, RE_RDB_SHAPE, 102, "realesrgan training")
+    ae_ms, ae_plain_ms, ae_library_ms, ae_bound = rdb_shape_times(rdb, AE_RDB_SHAPE, 103, "aesrgan training")
+    es = {name: rdb_shape_times(rdb, shape, 104 + i, f"{name} training")
+          for i, (name, shape) in enumerate(ES_RDB_SHAPES.items())}
     n, h, w, ch = SERVE_SHAPE
     flops = rdb_flops(SERVE_SHAPE)
     # x read once, output written once, weights (bf16) and biases (f32) read once
@@ -435,6 +457,9 @@ def kernel_phase(rdb) -> dict:
         "aesrgan_train_plain_ms": ae_plain_ms,
         "aesrgan_train_library_ms": ae_library_ms,
         "aesrgan_train_bound_ms": ae_bound,
+        **{f"{name}_train_{key}": value for name, shape in ES_RDB_SHAPES.items()
+           for key, value in zip(("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms"),
+                                 (list(shape), *es[name]))},
         "shape": list(SERVE_SHAPE),
         "dtype": "bfloat16",
     }
@@ -1176,23 +1201,26 @@ def write_gt_frames(d: str, n: int, size: int, seed: int) -> None:
 
 
 def f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters, init=(), plain_runs=1, label="bsrnet",
-                      filters_per_chain=FILTERS_PER_CHAIN):
+                      filters_per_chain=FILTERS_PER_CHAIN, payload=None):
     """One full-width f32 step of ``cfg`` (bsrnet, or bsrgan with its D),
     with the RDB kernel and then ``plain_runs`` times with rdb_forward_ref
     swapped in (a switch of this script only), from one state (the seeded
-    init, or ``init``: G's state dict and, for a GAN, D's with its ``u``)
-    on one batch: the chain's, with the filter2d kernel, whose LR is held
+    init; or ``init``: G's state dict and, for a GAN, D's with its ``u``;
+    or a checkpoint's ``payload``, restored whole: G, EMA-G, D, both Adams
+    and the step) on one batch: the chain's, with the filter2d kernel, whose LR is held
     to the plain chain's apart (the Real-ESRGAN chain draws its noise from
     one generator state in both). Returns the readings of
     ``train.step_check`` (the chain's LR, and the share of its elements
     off by more than 1e-5; the loss parts, relative; the
     LeakyReLU slopes the kernel's and the first plain run's backwards take
-    differently; the updated G outside and inside the flipped channels),
-    the share of SR elements in (0, 1), which the output clamp passes (a
+    differently; the updated G outside and inside the flipped channels;
+    with a D, the largest |gradient| of each D parameter that the kernel
+    run's D update handed Adam), the share of SR elements in (0, 1), which the output clamp passes (a
     forward's rounding reaches the losses through these alone), and each
     run's (metrics, G state dict, D state dict or None), the kernel's
     first."""
     from srganfd_tpu_torch.cli.degrade_adapter import DegradationAdapter
+    from srganfd_tpu_torch.train import checkpoint as ckpt
     from srganfd_tpu_torch.train import step_check
     from srganfd_tpu_torch.train.loop import Trainer
 
@@ -1220,6 +1248,10 @@ def f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters, init=(), plain_runs=
             blocks.rdb_apply = recorded
             trainer = Trainer(cfg, steps_per_epoch=TRAIN_STEPS_PER_EPOCH, device="cuda")
             state = trainer.init_state(*init)
+            if payload is not None:
+                # a copy each run: a restored Adam keeps the payload's step
+                # tensor and counts on in it
+                ckpt.restore_state(state, copy.deepcopy(payload))
             hook = state.g_model.register_forward_hook(
                 lambda m, i, o: inside.append(((o > 0) & (o < 1)).float().mean().item()))
             before = rdb.launches
@@ -1231,6 +1263,8 @@ def f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters, init=(), plain_runs=
             names = [n for n, m in state.g_model.named_modules() if isinstance(m, blocks.ResidualDenseBlock)]
             d = None if state.d_model is None else {k: v.detach().clone()
                                                     for k, v in state.d_model.state_dict().items()}
+            if d is not None and not runs:  # what the D update handed the kernel run's Adam
+                d_grad_max_abs = {k: p.grad.abs().max().item() for k, p in state.d_model.named_parameters()}
             runs.append((metrics, {k: v.detach().clone() for k, v in state.g_model.state_dict().items()}, d))
             if len(rdbs) < 2:
                 rdbs.append(seen)
@@ -1248,6 +1282,8 @@ def f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters, init=(), plain_runs=
            "slope_flips": sum(flips), "rdbs_with_flips": sum(f > 0 for f in flips),
            "preactivations": RDB_PER_FORWARD * sum(z.numel() for z in step_check.rdb_preactivations(*rdbs[1][0])),
            **step_check.g_agreement(g_k, g_p, step_check.flipped_channels(names, channels))}
+    if runs[0][2] is not None:
+        out["d_grad_max_abs"] = d_grad_max_abs
     print(f"f32 {label} step, kernels vs plain versions on one batch: chain LR (filter2d kernel vs plain) max "
           f"abs {out['lr_max_abs']:.3g}; SR in (0, 1) {out['sr_in_range']:.4f}; loss parts relative "
           f"{ {k: float(f'{v:.3g}') for k, v in loss_rel.items()} } (kernel {m_k}, plain {m_p}); LeakyReLU "
@@ -1464,13 +1500,29 @@ def _rel_per_tensor(a: dict, b: dict) -> tuple[float, str]:
                for k, v in b.items())
 
 
+def graft_held(path: str):
+    """A test of a run's first step: whether its G and EMA-G are the raw G
+    that ``path`` holds (the --pretrained-g graft), compared on the card."""
+    from srganfd_tpu_torch.convert import load_generator_weights
+
+    want = {k: v.cuda() for k, v in load_generator_weights(path).items()}
+
+    def held(state) -> bool:
+        g = state.g_model.state_dict()
+        return (set(g) == set(want) and all(torch.equal(g[k], v) for k, v in want.items())
+                and set(state.ema_g) == set(want) and all(torch.equal(state.ema_g[k], want[k]) for k in want))
+
+    return held
+
+
 def gan_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
     """Full-width bsrgan (the config unchanged: bsrgan_x2 64/32/23,
     discriminator_unet c = 64, batch 16, pre-crop 320, GT 144, bf16, the
     VGG19 content loss and LPIPS selection on the seeded surrogates)
-    through cli.train.run_train on the bsrnet phase's frames: one epoch,
-    then --resume auto for a second; returns the kernel calls it made and
-    its numbers."""
+    through cli.train.run_train on the bsrnet phase's frames, its G and
+    EMA-G grafted from the bsrnet phase's ckpt_last.pth (--pretrained-g),
+    as the recipe's second stage starts: one epoch, then --resume auto for
+    a second; returns the kernel calls it made and its numbers."""
     from srganfd_tpu_torch import configs
     from srganfd_tpu_torch.cli import train as cli_train
     from srganfd_tpu_torch.cli.degrade_adapter import DegradationAdapter
@@ -1482,10 +1534,13 @@ def gan_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
     from srganfd_tpu_torch.train import step_check
     from srganfd_tpu_torch.train.loop import Trainer
 
+    bsrnet_ckpt = os.path.join(work, "results", configs.get_config("bsrnet").exp_name, "ckpt_last.pth")
     cfg = configs.get_config("bsrgan").replace(
         train_gt_images_dir=os.path.join(work, "train_gt"), valid_gt_images_dir=os.path.join(work, "valid_gt"),
         results_dir=os.path.join(work, "results"), samples_dir=os.path.join(work, "samples"),
+        pretrained_g_model_weights_path=bsrnet_ckpt,
     )
+    grafted = graft_held(bsrnet_ckpt)
     print(f"bsrgan: {cfg.g_arch} {cfg.g_kwargs or 'full width (64/32/23)'} against {cfg.d_arch} "
           f"{cfg.d_kwargs or 'c = 64'}, batch {cfg.batch_size}, pre-crop {cfg.crop_image_size}, GT "
           f"{cfg.gt_image_size}, {cfg.compute_dtype}; pixel {cfg.pixel_weight} + content {cfg.content_weight} "
@@ -1494,11 +1549,14 @@ def gan_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
 
     metrics_seen, steps = [], []  # steps: (step index, host clock at entry, at end)
     restored = []  # what restore_state left in the state, held to the checkpoint it read right then
+    graft = []  # the first run's first step: G and EMA-G the bsrnet checkpoint's
     real_step, real_restore = Trainer.train_step, ckpt.restore_state
 
     def recorded_step(self, state, gt, lr_img, gt_pixel=None):
         entry = time.perf_counter()
         index = state.step
+        if not steps:
+            graft.append(grafted(state))
         m = real_step(self, state, gt, lr_img, gt_pixel)
         metrics_seen.append({k: v.item() for k, v in m.items()})  # waits for the step
         steps.append((index, entry, time.perf_counter()))
@@ -1550,6 +1608,7 @@ def gan_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
           f"bsrgan training made {calls} kernel calls for {n_steps} steps and {n_valid} validation batches")
     state = result["state"]
     check(state.step == n_steps, f"resumed bsrgan run ended at step {state.step}")
+    check(graft == [True], f"the bsrgan run's G or EMA-G at step 0 is not the bsrnet checkpoint's G: {graft}")
 
     # the resumed run restored step, u and both Adams, and went on from there
     check(len(restored) == 1, f"{len(restored)} restores in the bsrgan runs")
@@ -1657,7 +1716,6 @@ def gan_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
     # per tensor to 1e-3; u to 1e-3, a sanity check only (u is written from
     # D's weights before Adam moves them, so both runs write the same u); G
     # by step_check's LIMITS (flips 250, G 1e-3).
-    bsrnet_ckpt = os.path.join(cfg.results_dir, configs.get_config("bsrnet").exp_name, "ckpt_last.pth")
     f32, runs = f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters,
                                   init=(load_generator_weights(bsrnet_ckpt), d_final), plain_runs=2,
                                   label="bsrgan (bsrnet-trained G, bsrgan-trained D)")
@@ -1712,8 +1770,10 @@ def re_train_phase(work: str, name: str, rdb, f2d, blocks, filters) -> tuple[dic
     discriminator_unet c = 64, VGG19 content over five nodes, BCE, LPIPS
     selection on the seeded surrogates) through cli.train.run_train on 48
     synthetic 288x288 frames: one epoch of RE_STEPS_PER_EPOCH steps, then
-    --resume auto for a second. Returns the kernel calls, the numbers, and
-    the host batch and final D state that the f32 check starts from."""
+    --resume auto for a second; ``realesrgan`` with its G and EMA-G grafted
+    from the realesrnet phase's ckpt_last.pth (--pretrained-g). Returns the
+    kernel calls, the numbers, and the host batch and final D state that
+    the f32 check starts from."""
     from srganfd_tpu_torch import configs
     from srganfd_tpu_torch.cli import train as cli_train
     from srganfd_tpu_torch.cli.degrade_adapter import DegradationAdapter
@@ -1733,18 +1793,25 @@ def re_train_phase(work: str, name: str, rdb, f2d, blocks, filters) -> tuple[dic
         results_dir=os.path.join(work, "results"), samples_dir=os.path.join(work, "samples"),
     )
     gan = cfg.is_gan
+    grafted = None
+    if gan:
+        l1_ckpt = os.path.join(work, "results", configs.get_config("realesrnet").exp_name, "ckpt_last.pth")
+        cfg = cfg.replace(pretrained_g_model_weights_path=l1_ckpt)
+        grafted = graft_held(l1_ckpt)
     print(f"{name}: {cfg.g_arch} {cfg.g_kwargs or 'full width (64/32/23)'}"
           f"{f' against {cfg.d_arch} c = 64' if gan else ''}, batch {cfg.batch_size}, GT {cfg.gt_image_size}, "
           f"x{cfg.upscale_factor}, {cfg.compute_dtype}; pixel {cfg.pixel_weight}"
           f"{f' + content {cfg.content_weight} + adversarial {cfg.adversarial_weight}, G step first' if gan else ''}"
           f"; Adam {cfg.model_lr} eps {cfg.model_eps}; selection by {cfg.optimizing_metric}", flush=True)
 
-    metrics_seen, steps, restored = [], [], []
+    metrics_seen, steps, restored, graft = [], [], [], []
     real_step, real_restore = Trainer.train_step, ckpt.restore_state
 
     def recorded_step(self, state, gt, lr_img, gt_pixel=None):
         entry = time.perf_counter()
         index = state.step
+        if grafted is not None and not steps:
+            graft.append(grafted(state))
         m = real_step(self, state, gt, lr_img, gt_pixel)
         metrics_seen.append({k: v.item() for k, v in m.items()})  # waits for the step
         steps.append((index, entry, time.perf_counter()))
@@ -1793,6 +1860,8 @@ def re_train_phase(work: str, name: str, rdb, f2d, blocks, filters) -> tuple[dic
           f"(expected {RDB_PER_FORWARD * (n_steps + n_valid)} rdb, {want_filters} filter2d)")
     state = result["state"]
     check(state.step == n_steps, f"resumed {name} run ended at step {state.step}")
+    check(graft == ([True] if gan else []), f"the {name} run's G or EMA-G at step 0 is not the realesrnet "
+          f"checkpoint's G: {graft}")
     check(len(restored) == 1 and restored[0]["step"] == RE_STEPS_PER_EPOCH, f"{name} restores: {restored}")
     check(steps[RE_STEPS_PER_EPOCH][0] == RE_STEPS_PER_EPOCH, f"the resumed {name} run's first step was "
           f"{steps[RE_STEPS_PER_EPOCH][0]}")
@@ -2297,6 +2366,326 @@ def ae_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
     return calls, numbers
 
 
+def es_run(cfg, rdb, f2d, steps_per_epoch: int, runs, check_first=None) -> dict:
+    """``cfg`` through cli.train.run_train once per (epochs, resume) of
+    ``runs``, with each step's metrics and host-clock times, what each
+    restore left in the state against the checkpoint it read (step, G,
+    EMA-G, D with its buffers, both Adams), ``check_first`` of the first
+    step's state, the kernel calls and the peak memory."""
+    from srganfd_tpu_torch.cli import train as cli_train
+    from srganfd_tpu_torch.train import checkpoint as ckpt
+    from srganfd_tpu_torch.train.loop import Trainer
+
+    out = {"metrics": [], "steps": [], "restored": [], "first": [], "run_s": []}
+    real_step, real_restore = Trainer.train_step, ckpt.restore_state
+
+    def recorded_step(self, state, gt, lr_img, gt_pixel=None):
+        entry = time.perf_counter()
+        index = state.step
+        if check_first is not None and not out["steps"]:
+            out["first"].append(check_first(state))
+        m = real_step(self, state, gt, lr_img, gt_pixel)
+        out["metrics"].append({k: v.item() for k, v in m.items()})  # waits for the step
+        out["steps"].append((index, entry, time.perf_counter()))
+        return m
+
+    def recorded_restore(state, payload):
+        real_restore(state, payload)
+        same = lambda a, b: set(a) == set(b) and all(  # noqa: E731
+            torch.equal(torch.as_tensor(a[k]).cpu(), torch.as_tensor(b[k]).cpu()) for k in b)
+        adams = [(state.g_opt, "optimizer")] + ([(state.d_opt, "d_optimizer")] if state.d_model is not None else [])
+        out["restored"].append({
+            "step": state.step,
+            "g": same(state.g_model.state_dict(), payload["state_dict"]),
+            "ema": same(state.ema_g, payload["ema_state_dict"]),
+            "d": state.d_model is None or same(state.d_model.state_dict(), payload["d_state_dict"]),
+            "adams": all(same(o.state_dict()["state"][i], payload[key]["state"][i])
+                         for o, key in adams for i in payload[key]["state"]),
+        })
+
+    Trainer.train_step, ckpt.restore_state = recorded_step, recorded_restore
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rdb.launches = f2d.launches = 0
+    try:
+        for epochs, resume in runs:
+            t0 = time.perf_counter()
+            out["result"] = cli_train.run_train(cfg.replace(epochs=epochs), steps_per_epoch, resume=resume,
+                                                device="cuda")
+            torch.cuda.synchronize()
+            out["run_s"].append(time.perf_counter() - t0)
+    finally:
+        Trainer.train_step, ckpt.restore_state = real_step, real_restore
+    out["calls"] = {"rdb": rdb.launches, "filter2d": f2d.launches}
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def es_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
+    """Full-width ESRGAN, its two stages through cli.train.run_train on the
+    bsrnet phase's frames, the configs unchanged: ``rrdbnet`` (rrdbnet_x4
+    64/32/23, batch 16, GT 192, MATLAB-bicubic LR, L1, bf16), one epoch of
+    ES_STEPS_PER_EPOCH steps and a resumed second; then ``esrgan`` (the
+    same G at GT 128 against the VGG-128 D with c = 64, VGG19 content at
+    features.34 on the seeded surrogate, relativistic, the G step first,
+    LPIPS selection) with --pretrained-g on rrdbnet's ckpt_last.pth, one
+    epoch and a resumed second; a one-step --pretrained-d run from
+    esrgan's checkpoint; the step's parts on the card for each stage; one
+    f32 esrgan step held to its plain twin from the trained G and D;
+    cli.infer --use-ema on esrgan's ckpt_best.pth. Returns the kernel calls
+    of the training runs and the numbers."""
+    import cv2
+
+    from srganfd_tpu_torch import configs
+    from srganfd_tpu_torch.cli import infer
+    from srganfd_tpu_torch.cli import train as cli_train
+    from srganfd_tpu_torch.cli.degrade_adapter import DegradationAdapter
+    from srganfd_tpu_torch.data.datasets import BatchLoader
+    from srganfd_tpu_torch.losses.gan import relativistic_g_loss
+    from srganfd_tpu_torch.train import checkpoint as ckpt
+    from srganfd_tpu_torch.train import step_check
+    from srganfd_tpu_torch.train.loop import Trainer, _d_train_mode
+
+    where = dict(train_gt_images_dir=os.path.join(work, "train_gt"), valid_gt_images_dir=os.path.join(work, "valid_gt"),
+                 results_dir=os.path.join(work, "results"), samples_dir=os.path.join(work, "samples"))
+    n_steps = ES_STEPS_PER_EPOCH * (ES_EPOCHS + 1)
+    n_valid = ES_EPOCHS + 1  # one batch of the 4 valid frames per epoch
+    runs = ((ES_EPOCHS, ""), (ES_EPOCHS + 1, "auto"))
+    calls, numbers, hosts = {"rdb": 0, "filter2d": 0}, {}, {}
+    for name in ("rrdbnet", "esrgan"):
+        cfg = configs.get_config(name).replace(**where)
+        graft = None
+        if name == "esrgan":
+            source = os.path.join(cfg.results_dir, configs.get_config("rrdbnet").exp_name, "ckpt_last.pth")
+            cfg = cfg.replace(pretrained_g_model_weights_path=source)
+            graft = graft_held(source)
+        print(f"{name}: {cfg.g_arch} {cfg.g_kwargs or 'full width (64/32/23)'}"
+              f"{f' against {cfg.d_arch} (VGG-128) c = 64' if cfg.is_gan else ''}, batch {cfg.batch_size}, GT "
+              f"{cfg.gt_image_size}, x{cfg.upscale_factor}, {cfg.degradation} LR, {cfg.compute_dtype}; pixel "
+              f"{cfg.pixel_weight} + content {cfg.content_weight} over {cfg.feature_nodes} + adversarial "
+              f"{cfg.adversarial_weight} (relativistic: {cfg.relativistic_gan}, G first: {cfg.g_step_first}); Adam "
+              f"{cfg.model_lr} eps {cfg.model_eps}; selection by {cfg.optimizing_metric}"
+              f"{f'; --pretrained-g {cfg.pretrained_g_model_weights_path}' if graft else ''}", flush=True)
+        r = es_run(cfg, rdb, f2d, ES_STEPS_PER_EPOCH, runs, check_first=graft)
+        metrics, steps, restored = r["metrics"], r["steps"], r["restored"]
+        check(len(metrics) == n_steps, f"{len(metrics)} {name} steps, expected {n_steps}")
+        check(all(math.isfinite(v) for m in metrics for v in m.values()), f"non-finite {name} metrics: {metrics}")
+        if cfg.is_gan:
+            check(all(0 < m[k] < 1 for m in metrics for k in ("d_gt_probability", "d_sr_probability")),
+                  f"a D probability outside (0, 1): {metrics}")
+            check(r["first"] == [True], f"the esrgan run's G or EMA-G at step 0 is not rrdbnet's G: {r['first']}")
+        check(r["calls"] == {"rdb": RDB_PER_FORWARD * (n_steps + n_valid), "filter2d": 0},
+              f"{name} made {r['calls']} kernel calls for {n_steps} steps and {n_valid} validation batches")
+        state = r["result"]["state"]
+        check(state.step == n_steps, f"resumed {name} run ended at step {state.step}")
+        check(len(restored) == 1 and restored[0]["step"] == ES_STEPS_PER_EPOCH, f"{name} restores: {restored}")
+        check(steps[ES_STEPS_PER_EPOCH][0] == ES_STEPS_PER_EPOCH, f"the resumed {name} run's first step was "
+              f"{steps[ES_STEPS_PER_EPOCH][0]}")
+        check(all(restored[0].values()), f"the resumed {name} state is not the checkpoint's: {restored}")
+        ckpt_dir = os.path.join(cfg.results_dir, cfg.exp_name)
+        with open(os.path.join(cfg.samples_dir, "logs", cfg.experience_name or cfg.exp_name, "events.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        metric = "Valid/LPIPS" if cfg.optimizing_metric == "LPIPS" else "Valid/PSNR"
+        scores = [e["metrics"][metric] for e in events if e["type"] == "metrics" and metric in e["metrics"]]
+        check(len(scores) == n_valid and all(math.isfinite(v) for v in scores), f"{name} validation {metric} {scores}")
+        best = ckpt.load_checkpoint(os.path.join(ckpt_dir, "ckpt_best.pth"))
+        pick = np.argmin if metric == "Valid/LPIPS" else np.argmax
+        check(best["epoch"] == int(pick(scores)), f"{name} ckpt_best.pth is epoch {best['epoch']}, {metric} {scores}")
+        if cfg.is_gan:
+            last = ckpt.load_checkpoint(os.path.join(ckpt_dir, "ckpt_last.pth"))
+            stats = [k for k in last["d_state_dict"] if k.endswith(("running_mean", "running_var"))]
+            check(len(stats) == 18, f"the VGG-128 D's checkpoint holds {stats}")
+            check(all(torch.equal(last["d_state_dict"][k], v.cpu()) for k, v in state.d_model.state_dict().items()),
+                  "esrgan ckpt_last.pth is not the final D")
+        intervals = [(b[2] - a[2]) * 1e3 for a, b in zip(steps, steps[1:])
+                     if b[0] == a[0] + 1 and b[0] % ES_STEPS_PER_EPOCH]
+        inside = [(end - entry) * 1e3 for _, entry, end in steps]
+        step_p50 = float(np.median(intervals))
+        print(f"{name} training: metrics {[{k: round(v, 5) for k, v in m.items()} for m in metrics]}", flush=True)
+        print(f"{name} training: {n_steps} steps + {n_valid} validation batches in "
+              f"{[round(t, 2) for t in r['run_s']]} s; step p50 {step_p50:.2f} ms host clock over {len(intervals)} "
+              f"steps ({cfg.batch_size * 1e3 / step_p50:.2f} frames/s), inside train_step p50 "
+              f"{np.median(inside[1:]):.2f} ms, the first step {inside[0]:.1f} ms; validation {metric} by epoch "
+              f"{scores}, ckpt_best.pth epoch {best['epoch']}; resumed at step {restored[0]['step']} with G, EMA-G"
+              f"{', D (running statistics)' if cfg.is_gan else ''} and the Adams the checkpoint's; peak memory "
+              f"{r['peak_memory_gb']:.2f} GB; {r['calls']} kernel calls (per forward "
+              f"{r['calls']['rdb'] // (n_steps + n_valid)} rdb_forward)", flush=True)
+
+        # where one step's time goes, on the card (CUDA events), on the trained state
+        loader = BatchLoader(cli_train.build_datasets(cfg)[0], cfg.batch_size, seed=cfg.seed, num_workers=2)
+        it = iter(loader)
+        host = next(it)
+        it.close()
+        adapter = DegradationAdapter(cfg, seed=cfg.seed, train=True, device="cuda")
+        batch = adapter(host, 0)
+        gt_c, lr_c = batch["gt"], batch["lr"]
+        check(tuple(lr_c.shape) == (cfg.batch_size, cfg.gt_image_size // 4, cfg.gt_image_size // 4, 3),
+              f"{name} LR batch {tuple(lr_c.shape)}")
+        trainer = Trainer(cfg, ES_STEPS_PER_EPOCH, device="cuda")
+        g, d = state.g_model, state.d_model
+        before = rdb.launches
+        with torch.no_grad():
+            g(lr_c)
+        check(rdb.launches - before == RDB_PER_FORWARD, f"a {name} G forward made {rdb.launches - before} rdb calls")
+
+        def g_fwd_bwd():
+            (g(lr_c) - gt_c).abs().mean().backward()
+
+        with torch.inference_mode():
+            breakdown = {"chain_ms": cuda_ms(lambda: adapter(host, 0), iters=5, warmup=1),
+                         "forward_ms": cuda_ms(lambda: g(lr_c), iters=5, warmup=1)}
+        breakdown["g_forward_backward_ms"] = cuda_ms(g_fwd_bwd, iters=3, warmup=1)
+        if cfg.is_gan:
+            sr = g(lr_c).detach()
+            sr_leaf = sr.clone().requires_grad_()
+
+            def content_fwd_bwd():
+                trainer.content_loss(sr_leaf, gt_c).backward(inputs=[sr_leaf])
+
+            def adversarial_fwd_bwd():
+                with torch.no_grad():
+                    gt_out = _d_train_mode(d, gt_c, update_stats=False)
+                relativistic_g_loss(gt_out, _d_train_mode(d, sr_leaf, update_stats=False)).backward(inputs=[sr_leaf])
+
+            breakdown.update({
+                "d_update_ms": cuda_ms(lambda: trainer._d_update(state, gt_c, sr), iters=3, warmup=1),
+                "content_forward_backward_ms": cuda_ms(content_fwd_bwd, iters=3, warmup=1),
+                "adversarial_forward_backward_ms": cuda_ms(adversarial_fwd_bwd, iters=3, warmup=1),
+            })
+            del sr, sr_leaf
+        breakdown["train_step_ms"] = cuda_ms(lambda: Trainer.train_step(trainer, state, gt_c, lr_c), iters=3, warmup=1)
+        print(f"{name} step breakdown on the card (CUDA events, {cfg.compute_dtype}, batch {cfg.batch_size}, GT "
+              f"{cfg.gt_image_size}): bicubic LR {breakdown['chain_ms']:.2f} ms; G forward {breakdown['forward_ms']:.2f} "
+              f"ms, forward+backward (L1) {breakdown['g_forward_backward_ms']:.2f} ms"
+              + (f"; D update (2 forwards on GT and SR, relativistic loss, backward, Adam) "
+                 f"{breakdown['d_update_ms']:.2f} ms; content (VGG19 to features.34 on SR and GT, backward to SR) "
+                 f"{breakdown['content_forward_backward_ms']:.2f} ms; adversarial (D on GT without a graph and on "
+                 f"SR, backward to SR) {breakdown['adversarial_forward_backward_ms']:.2f} ms" if cfg.is_gan else "")
+              + f"; whole train step {breakdown['train_step_ms']:.2f} ms", flush=True)
+        hosts[name] = host
+        numbers[name] = {
+            "steps": n_steps, "validation_batches": n_valid, "validation": scores, "best_epoch": best["epoch"],
+            "step_ms_p50": step_p50, "inside_step_ms_p50": float(np.median(inside[1:])), "first_step_ms": inside[0],
+            "frames_per_s": cfg.batch_size * 1e3 / step_p50, "peak_memory_gb": r["peak_memory_gb"],
+            "run_s": r["run_s"], "rdb_launches": r["calls"]["rdb"], **breakdown,
+        }
+        calls = {k: calls[k] + r["calls"][k] for k in calls}
+        del g, d, state, r, trainer
+        torch.cuda.empty_cache()
+
+    # One step with --pretrained-d on esrgan's checkpoint: D with its running
+    # statistics the file's, its Adam fresh, G rrdbnet's
+    es_cfg = configs.get_config("esrgan").replace(**where)
+    es_ckpt = os.path.join(es_cfg.results_dir, es_cfg.exp_name, "ckpt_last.pth")
+    saved_d = {k: v.cuda() for k, v in ckpt.load_checkpoint(es_ckpt)["d_state_dict"].items()}
+    g_held = graft_held(os.path.join(es_cfg.results_dir, configs.get_config("rrdbnet").exp_name, "ckpt_last.pth"))
+
+    def d_grafted(state) -> bool:
+        d = state.d_model.state_dict()
+        return (set(d) == set(saved_d) and all(torch.equal(d[k], v) for k, v in saved_d.items())
+                and len(state.d_opt.state) == 0 and len(state.g_opt.state) == 0 and g_held(state))
+
+    d_cfg = es_cfg.replace(results_dir=os.path.join(work, "results_d"), samples_dir=os.path.join(work, "samples_d"),
+                           pretrained_d_model_weights_path=es_ckpt,
+                           pretrained_g_model_weights_path=os.path.join(es_cfg.results_dir,
+                                                                        configs.get_config("rrdbnet").exp_name,
+                                                                        "ckpt_last.pth"))
+    r = es_run(d_cfg, rdb, f2d, 1, ((1, ""),), check_first=d_grafted)
+    check(r["first"] == [True], "the --pretrained-d run's D (running statistics), fresh Adams or G at step 0 are "
+          "not esrgan's D and rrdbnet's G")
+    check(len(r["metrics"]) == 1 and all(math.isfinite(v) for v in r["metrics"][0].values()),
+          f"the --pretrained-d step's metrics {r['metrics']}")
+    check(r["calls"] == {"rdb": 2 * RDB_PER_FORWARD, "filter2d": 0}, f"the --pretrained-d run made {r['calls']}")
+    calls = {k: calls[k] + r["calls"][k] for k in calls}
+    numbers["pretrained_d_step"] = {"metrics": r["metrics"][0], "s": r["run_s"][0], "calls": r["calls"]}
+    print(f"esrgan --pretrained-d {es_ckpt} --pretrained-g (rrdbnet's): D, its 18 running statistics and a fresh "
+          f"Adam at step 0; 1 step + 1 validation batch in {r['run_s'][0]:.2f} s, metrics "
+          f"{ {k: round(v, 5) for k, v in r['metrics'][0].items()} }, {r['calls']} kernel calls", flush=True)
+    del r
+    torch.cuda.empty_cache()
+
+    # One f32 esrgan step held to its plain twin from the trained state,
+    # esrgan's ckpt_last.pth restored whole (G, EMA-G, D with its running
+    # statistics, both Adams, the step): the loss parts, the slope flips and
+    # G outside the flipped channels by step_check's LIMITS, D per tensor to
+    # 1e-3, its BatchNorms' running statistics to 1e-5. Every BatchNorm of
+    # this D follows a bias-free conv, but the logit's bias
+    # (classifier.2.bias) cancels from every difference the relativistic
+    # losses take: its gradient is the roundoff of a sum that is 0, and Adam
+    # turns that roundoff into an update of up to lr, so its value in the
+    # two runs is printed, not held. In two of three correct trainings the
+    # kernel run's gradient was exactly 0 and left it at 0 while the plain
+    # run moved it, a relative reading of exactly 1 (es_check_study.py,
+    # PERF.md section 6). Its gradient in the kernel run is held to 1e-6
+    # instead (it read 0 - 3.7e-9): the terms of that sum are each at most
+    # 1/16, and a mean left out of the graph makes it ~0.2-0.5.
+    # G inside the flipped channels is printed, not held: rrdbnet's eight
+    # steps leave the trunk biases at ~3e-5 (their gradients sit below
+    # Adam's eps of 1e-8), so a flipped slope's share of a bias's gradient
+    # reads 5.0e-4 - 1.14e-3 of it with correct kernels on an H100 80GB
+    # HBM3 at 700 W (PERF.md section 6). With fresh Adams instead (the
+    # other phases' checks) the first update is lr * g / (|g| + eps), +-lr
+    # for all but the tiniest g: the few hundred G and ~10^4 D elements
+    # whose gradient the forward's rounding turns over (none when the plain
+    # step runs twice) then read 2 lr apart, up to 2e-2 of G's tensors and
+    # 0.23 of D's (PERF.md section 6). That step is printed beside it.
+    es_payload = ckpt.load_checkpoint(es_ckpt)
+    host, g_final, d_final = hosts["esrgan"], es_payload["state_dict"], es_payload["d_state_dict"]
+    lr = Trainer(es_cfg, ES_STEPS_PER_EPOCH).schedule(0)
+    cancelled = "classifier.2.bias"
+    kept = lambda sd, bn: {k: v for k, v in sd.items()  # noqa: E731
+                           if k.endswith(("running_mean", "running_var")) == bn and k != cancelled}
+    turned = lambda a, b: {k: int(n) for k in a if a[k].is_floating_point()  # noqa: E731
+                           for n in [((a[k].float() - b[k].float()).abs() > lr).sum()] if n}
+    f32 = {}
+    for name, start in (("trained state", {"payload": es_payload}), ("fresh Adams", {"init": (g_final, d_final)})):
+        r, runs = f32_step_vs_plain(es_cfg, host, rdb, f2d, blocks, filters, plain_runs=2 if not f32 else 1,
+                                    label=f"esrgan ({name})", filters_per_chain=0, **start)
+        (_, g_k, d_k), (m_p, g_p, d_p) = runs[:2]
+        r["d_rel"], r["d_worst"] = _rel_per_tensor(kept(d_k, False), kept(d_p, False))
+        r["bn_rel"], r["bn_worst"] = _rel_per_tensor(kept(d_k, True), kept(d_p, True))
+        r["cancelled_grad"] = r["d_grad_max_abs"][cancelled]
+        r["cancelled_apart"] = {"kernel": d_k[cancelled].item(), "plain": d_p[cancelled].item(),
+                                "in_lr": abs(d_k[cancelled].item() - d_p[cancelled].item()) / lr}
+        r["updates_turned"] = {"g": sum(turned(g_k, g_p).values()), "d": sum(turned(kept(d_k, False),
+                                                                                kept(d_p, False)).values())}
+        if len(runs) == 3:
+            m_p2, g_p2, d_p2 = runs[2]
+            r["plain_again"] = {"loss_rel": max(abs(m_p2[k] - m_p[k]) / max(abs(m_p[k]), 1e-30) for k in m_p),
+                                "g_rel": _rel_per_tensor(g_p2, g_p)[0],
+                                "d_rel": _rel_per_tensor(kept(d_p2, False), kept(d_p, False))[0],
+                                "updates_turned": {"g": sum(turned(g_p2, g_p).values()),
+                                                   "d": sum(turned(kept(d_p2, False), kept(d_p, False)).values())}}
+        print(f"f32 esrgan step ({name}): updated D per tensor max relative {r['d_rel']:.3g} ({r['d_worst']}), its "
+              f"running statistics {r['bn_rel']:.3g} ({r['bn_worst']}); {cancelled}: gradient "
+              f"{r['cancelled_grad']:.3g}, "
+              f"updated {r['cancelled_apart']['kernel']:.6g} and {r['cancelled_apart']['plain']:.6g} (not held: "
+              f"{r['cancelled_apart']['in_lr']:.3g} lr apart); elements the two runs moved more than the "
+              f"learning rate {lr:.3g} apart: {r['updates_turned']}"
+              + (f"; the plain step run twice: {r['plain_again']}" if "plain_again" in r else ""), flush=True)
+        f32[name] = r
+    limits = {k: v for k, v in step_check.LIMITS.items() if k != "g_inside"}
+    failed = step_check.step_check_failures(f32["trained state"], {**limits, "d_rel": 1e-3, "bn_rel": 1e-5,
+                                                                   "cancelled_grad": 1e-6})
+    check(not failed, f"f32 esrgan step vs plain: {failed}")
+    numbers["esrgan"]["f32_step_vs_plain"] = f32
+
+    # cli.infer --use-ema on esrgan's ckpt_best.pth: a 64x64 crop of a valid frame
+    frame = os.path.join(work, "es_frame.png")
+    cv2.imwrite(frame, cv2.imread(os.path.join(es_cfg.valid_gt_images_dir, "gt_000.png"))[:64, :64])
+    out_png = os.path.join(work, "es_sr.png")
+    rdb.launches = 0
+    infer.main(["--model-arch", es_cfg.g_arch, "--weights", os.path.join(es_cfg.results_dir, es_cfg.exp_name,
+                                                                         "ckpt_best.pth"),
+                "--use-ema", "--inputs-path", frame, "--output-path", out_png])
+    img = cv2.imread(out_png)
+    check(img is not None and img.shape == (256, 256, 3), f"infer of the esrgan EMA-G: {img is None or img.shape}")
+    check(rdb.launches == RDB_PER_FORWARD, f"infer of the esrgan EMA-G: {rdb.launches} rdb calls")
+    print(f"cli.infer --model-arch {es_cfg.g_arch} --use-ema on esrgan's ckpt_best.pth: 64x64 -> "
+          f"{img.shape[1]}x{img.shape[0]}, {RDB_PER_FORWARD} rdb calls", flush=True)
+    return calls, numbers
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -2345,8 +2734,9 @@ def main() -> None:
                                                 filters)
         del reg_state
         ae_launches, ae = ae_train_phase(work, rdb, f2d, blocks, filters)
+        es_launches, es = es_train_phase(work, rdb, f2d, blocks, filters)
     launches += (trans_launches["rdb"] + trans_infer["rdb"] + train_launches["rdb"] + gan_launches["rdb"]
-                 + re_launches + ren_launches["rdb"] + reg_launches["rdb"] + ae_launches["rdb"])
+                 + re_launches + ren_launches["rdb"] + reg_launches["rdb"] + ae_launches["rdb"] + es_launches["rdb"])
     flash_launches = trans_launches["flash"] + trans_infer["flash"]
     check(launches > 0, "the main paths launched no rdb_forward kernel")
     check(flash_launches > 0, "the bsrgantrans_x2 path launched no flash_attention kernel")
@@ -2369,6 +2759,8 @@ def main() -> None:
     entry["realesrnet_launches"] = ren_launches["rdb"]
     entry["realesrgan_launches"] = reg_launches["rdb"]
     entry["aesrgan_launches"] = ae_launches["rdb"]
+    entry["esrgan_recipe_launches"] = es_launches["rdb"]
+    check(es_launches["rdb"] > 0, "the ESRGAN training path launched no rdb_forward kernel")
     check(ren_launches["filter2d"] > 0 and reg_launches["filter2d"] > 0,
           "a Real-ESRGAN training path launched no filter2d kernel")
     check(ae_launches["rdb"] > 0 and ae_launches["filter2d"] > 0, "the aesrgan training path launched no kernel")
@@ -2415,6 +2807,15 @@ def main() -> None:
           f"content {ae['content_forward_backward_ms']:.2f} ms, adversarial "
           f"{ae['adversarial_forward_backward_ms']:.2f} ms; the chain {ae['chain_ms']:.2f} ms; host-clock step p50 "
           f"{ae['step_ms_p50']:.2f} ms; peak memory {ae['peak_memory_gb']:.2f} GB", flush=True)
+    for name in ("rrdbnet", "esrgan"):
+        r = es[name]
+        parts = (f", the D update {r['d_update_ms']:.2f} ms, content {r['content_forward_backward_ms']:.2f} ms, "
+                 f"adversarial {r['adversarial_forward_backward_ms']:.2f} ms" if name == "esrgan" else "")
+        print(f"{name} step (bf16, batch 16, GT {192 if name == 'rrdbnet' else 128}): {r['train_step_ms']:.2f} ms on "
+              f"the card, of which G forward+backward {r['g_forward_backward_ms']:.2f} ms (69 RDB kernels at "
+              f"{ES_RDB_SHAPES[name]} alone {RDB_PER_FORWARD * entry[f'{name}_train_kernel_ms']:.2f} ms){parts}; "
+              f"bicubic LR {r['chain_ms']:.2f} ms; host-clock step p50 {r['step_ms_p50']:.2f} ms; peak memory "
+              f"{r['peak_memory_gb']:.2f} GB; {r['rdb_launches']} rdb launches", flush=True)
     # last, so that no timed phase runs after a profiler session
     q, k, v = (t.transpose(1, 2) for t in flash_inputs(FLASH_SHAPE, seed=100))
     flash_entry["library_f32_kernels"] = sdpa_kernels(q, k, v)
@@ -2425,6 +2826,7 @@ def main() -> None:
     print(json.dumps({"realesrnet": ren}))
     print(json.dumps({"realesrgan": reg}))
     print(json.dumps({"aesrgan": {k: v for k, v in ae.items() if k != "metrics"}}))
+    print(json.dumps({"esrgan_recipe": es}))
     print(smi)
     print(json.dumps({"kernels": [entry, flash_entry, filter_entry]}))
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,14 @@ Ported:
 - ``realesrgan``: USM, the second-order chain on the sharpened GT, then in
   training aligned crops and paired flips/rotation
   (``Real_ESRGAN/train_realesrgan.py:392-405``); ``gt_pixel`` is the
-  sharpened GT that the pixel and content losses target.
+  sharpened GT that the pixel and content losses target;
+- ``bicubic`` (ESRGAN): the GT crop as it comes (uint8 scaled by 1/255)
+  and its MATLAB-bicubic downscale by ``1 / upscale_factor``, clipped to
+  [0, 1] (``ESRGAN/dataset.py``, ``imresize``), the same in training and
+  evaluation.
 
-``bicubic`` and ``paired`` raise with the ROADMAP.md item that ports them.
+``paired`` (LR read from disk) raises with the ROADMAP.md item that ports
+it.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from srganfd_tpu_torch.ops.degrade import (
     bsrgan_lr_size,
     plan_bsrgan_batch,
 )
+from srganfd_tpu_torch.ops.resize import imresize
 from srganfd_tpu_torch.ops.realesrgan_degrade import (
     apply_realesrgan_batch,
     apply_realesrgan_train_batch,
@@ -36,8 +42,7 @@ from srganfd_tpu_torch.ops.realesrgan_degrade import (
 __all__ = ["DegradationAdapter"]
 
 _NOT_PORTED = {
-    "bicubic": "A8 (other families)",
-    "paired": "A8 (other families)",
+    "paired": "A14 (paired degradation)",
 }
 
 
@@ -54,7 +59,7 @@ class DegradationAdapter:
                 f"degradation {cfg.degradation!r} is not ported to srganfd_tpu_torch yet: "
                 f"see ROADMAP.md {_NOT_PORTED[cfg.degradation]}"
             )
-        if cfg.degradation not in ("bsrgan", "realesrgan"):
+        if cfg.degradation not in ("bsrgan", "realesrgan", "bicubic"):
             raise ValueError(f"unknown degradation {cfg.degradation!r}")
         self.cfg = cfg
         self.seed = seed
@@ -72,6 +77,8 @@ class DegradationAdapter:
     def __call__(self, host_batch: dict[str, np.ndarray], step: int) -> dict[str, torch.Tensor]:
         if self.cfg.degradation == "realesrgan":
             return self._realesrgan(host_batch, step)
+        if self.cfg.degradation == "bicubic":
+            return self._bicubic(host_batch["gt"])
         cfg = self.cfg
         rng = self.step_rng(step)
         n = int(np.shape(host_batch["gt"])[0])
@@ -96,6 +103,13 @@ class DegradationAdapter:
         lefts = rng.integers(0, lr_limit + 1, n)
         gt_c, lr_c = apply_bsrgan_batch_cropped(gt, plan, tops, lefts, cfg.gt_image_size, sf)
         return {"gt": gt_c, "lr": lr_c}
+
+    def _bicubic(self, gt_host: np.ndarray) -> dict[str, torch.Tensor]:
+        """GT in f32 (uint8 scaled by 1/255) and its MATLAB-bicubic LR, as
+        the JAX adapter's ``_bicubic_pair``; no randomness."""
+        gt = torch.from_numpy(np.ascontiguousarray(gt_host)).to(self.device)
+        gt = gt.to(torch.float32) / 255.0 if not gt.is_floating_point() else gt.to(torch.float32)
+        return {"gt": gt, "lr": imresize(gt, 1.0 / self.cfg.upscale_factor).clamp(0.0, 1.0)}
 
     def _realesrgan(self, host_batch: dict[str, np.ndarray], step: int) -> dict[str, torch.Tensor]:
         """The host draws in the JAX adapter's order: the plan, one integer

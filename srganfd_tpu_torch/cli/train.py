@@ -3,7 +3,11 @@
 The reference train scripts' template (``load_dataset -> build_model ->
 define_loss/optimizer/scheduler -> epoch loop{train, validate,
 checkpoint-best/last}``, ``BSRGAN/train_bsrgan.py:38-232``), driven by a
-config name. Ported: the BSRGAN recipe's two stages, the generator-only
+config name. Ported: every config of the JAX package. ESRGAN's two stages,
+``rrdbnet`` (``rrdbnet_x4`` on L1 over MATLAB-bicubic LR, PSNR selection)
+and ``esrgan`` (its GAN fine-tune: the G step first, relativistic, against
+the VGG-128 discriminator with BatchNorm, VGG19 content loss, LPIPS
+selection); the BSRGAN recipe's two stages, the generator-only
 ``bsrnet`` pretrain and the ``bsrgan`` GAN fine-tune (``discriminator_unet``,
 VGG19 content loss, BCE, LPIPS selection), with the BSRGAN degradation
 chain; and the Real-ESRGAN recipe's two stages, ``realesrnet`` (L1) and
@@ -14,6 +18,14 @@ discriminator, or with ``--d-arch discriminator_attention_unet_ms`` its
 multi-scale ensemble, the D-first step, the BSRGAN chain). Every blur of
 the chains runs the hand-written ``filter2d`` kernel and the generator's
 RDBs the RDB kernel on the card.
+
+A recipe's second stage starts from its first stage's generator:
+``--pretrained-g <ckpt_last.pth>`` grafts G (and EMA-G, a copy of it)
+into the fresh state by name and shape, ``--pretrained-d`` a
+discriminator with its ``u`` and running statistics, before any
+``--resume``, which still restores the whole state. Optimizers start
+fresh. E.g. ``--config rrdbnet``, then ``--config esrgan --pretrained-g
+results/train_RRDBNet_x4/ckpt_last.pth``.
 
 Usage:
     python -m srganfd_tpu_torch.cli.train --config bsrgan \
@@ -51,17 +63,11 @@ from srganfd_tpu_torch.train.loop import Trainer
 from srganfd_tpu_torch.train.state import TrainState
 from srganfd_tpu_torch.utils.meters import AverageMeter, ProgressMeter
 
-__all__ = ["build_datasets", "validate", "run_train", "main"]
+__all__ = ["build_datasets", "validate", "graft_pretrained", "run_train", "main"]
 
 # options of the JAX trainer whose parts are not ported yet -> the
 # ROADMAP.md item that ports them; setting one is an error, never a no-op
-_UNPORTED_CFG = {
-    "pretrained_g_model_weights_path": ("--pretrained-g", "A4"),
-    "pretrained_d_model_weights_path": ("--pretrained-d", "A4"),
-}
 _UNPORTED_FLAGS = {
-    "pretrained_g": ("--pretrained-g", "A4"),
-    "pretrained_d": ("--pretrained-d", "A4"),
     "grad_accum": ("--grad-accum", "A4"),
     "skip_nonfinite": ("--skip-nonfinite", "A4"),
     "async_ckpt": ("--async-ckpt", "A4"),
@@ -84,16 +90,17 @@ def _reject_unported_env() -> None:
 
 
 def build_datasets(cfg: ExperimentConfig) -> tuple[Any, Any]:
-    """GT-only train and valid datasets at the pre-crop (or GT) size; for
-    the Real-ESRGAN chain each record also carries its kernel triple."""
+    """GT-only train and valid datasets at the pre-crop (or GT) size (the
+    BSRGAN chain and bicubic LR); for the Real-ESRGAN chain each record
+    also carries its kernel triple."""
     if cfg.degradation == "realesrgan":
         model = cfg.degradation_params["model"]
         return (DegeneratedImageDataset(cfg.train_gt_images_dir, cfg.gt_image_size, model, "Train"),
                 DegeneratedImageDataset(cfg.valid_gt_images_dir, cfg.gt_image_size, model, "Valid"))
-    if cfg.degradation != "bsrgan":
+    if cfg.degradation not in ("bsrgan", "bicubic"):
         raise NotImplementedError(
             f"degradation {cfg.degradation!r} is not ported to srganfd_tpu_torch yet: "
-            "see ROADMAP.md A8 (other families)"
+            "see ROADMAP.md A14 (paired degradation)"
         )
     crop = cfg.crop_image_size or cfg.gt_image_size
     train_ds = TrainValidImageDataset(cfg.train_gt_images_dir, cfg.gt_image_size, "Train", crop)
@@ -155,6 +162,28 @@ def _is_best(cfg: ExperimentConfig, vm: dict[str, float], best: dict[str, float]
     return is_best
 
 
+def graft_pretrained(cfg: ExperimentConfig, state: TrainState) -> None:
+    """The JAX trainer's pretrained initialisation, in its order
+    (``srganfd_tpu/cli/train.py:235-276``, the reference's
+    ``BSRGAN/train_bsrgan.py:60-92``): ``pretrained_g_model_weights_path``'s
+    raw G grafted by name and shape, EMA-G restarting as a copy of it;
+    ``pretrained_d_model_weights_path``'s D with its ``u`` and running
+    statistics, on a config with a D (ignored otherwise, as in JAX). The
+    Adams keep their fresh state; a ``--resume`` after this overrides all
+    of it."""
+    if cfg.pretrained_g_model_weights_path:
+        path = cfg.pretrained_g_model_weights_path
+        n_ok, n_all = ckpt.merge_by_path(state.g_model, ckpt.load_pretrained(path, "state_dict"))
+        with torch.no_grad():
+            for name, p in state.g_model.named_parameters():
+                state.ema_g[name].copy_(p)
+        print(f"loaded pretrained G ({n_ok}/{n_all} tensors) from {path}")
+    if cfg.pretrained_d_model_weights_path and state.d_model is not None:
+        path = cfg.pretrained_d_model_weights_path
+        n_ok, n_all = ckpt.merge_by_path(state.d_model, ckpt.load_pretrained(path, "d_state_dict"))
+        print(f"loaded pretrained D ({n_ok}/{n_all} tensors) from {path}")
+
+
 def run_train(
     cfg: ExperimentConfig,
     steps_per_epoch: int | None = None,
@@ -165,10 +194,6 @@ def run_train(
     and the final state. ``resume`` is a ``ckpt_*.pth`` path or ``"auto"``
     (this experiment's ``ckpt_last.pth``, or a fresh start). Every epoch
     ends with a checkpoint."""
-    for field, (flag, item) in _UNPORTED_CFG.items():
-        if getattr(cfg, field):
-            raise NotImplementedError(f"{flag} is not ported to srganfd_tpu_torch yet: "
-                                      f"see ROADMAP.md {item}")
     _reject_unported_env()
     device = torch.device(device)
     train_ds, valid_ds = build_datasets(cfg)
@@ -178,6 +203,7 @@ def run_train(
     train_adapter = DegradationAdapter(cfg, seed=cfg.seed, train=True, device=device)
     valid_adapter = DegradationAdapter(cfg, seed=cfg.seed + 1, train=True, device=device)
     state = trainer.init_state()
+    graft_pretrained(cfg, state)
 
     ckpt_dir = os.path.join(cfg.results_dir, cfg.exp_name or cfg.name)
     start_step = 0
@@ -273,7 +299,7 @@ def run_train(
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description="srganfd_tpu_torch trainer")
     ap.add_argument("--config", required=True,
-                    help="bsrnet, bsrgan, realesrnet, realesrgan or aesrgan (the other configs are not ported yet)")
+                    help="rrdbnet, esrgan, bsrnet, bsrgan, realesrnet, realesrgan or aesrgan")
     ap.add_argument("--train-dir", default=None)
     ap.add_argument("--valid-dir", default=None)
     ap.add_argument("--epochs", type=int, default=None)
@@ -289,14 +315,18 @@ def main(argv: list[str] | None = None) -> None:
                     help="override gt_image_size (and disable pre-crop)")
     ap.add_argument(
         "--tiny", action="store_true",
-        help="shrink the generator for smoke tests (8ch, growth 4, 1 block; bsrgantrans_x2's "
+        help="shrink the generator for smoke tests (8ch, growth 4, 1 RRDB; bsrgantrans_x2's "
         "4 heads of 2; the discriminator keeps its width); CPU only: the RDB kernel takes "
         "channel counts that are multiples of 8",
     )
     ap.add_argument("--device-type", "--device_type", dest="device", default="cuda",
                     choices=["cuda", "cpu"])
-    ap.add_argument("--pretrained-g", default=None, help="not ported yet")
-    ap.add_argument("--pretrained-d", default=None, help="not ported yet")
+    ap.add_argument("--pretrained-g", default=None,
+                    help="checkpoint (.pth, or a reference-layout .pth.tar) whose G initialises this run's G and "
+                    "EMA-G, by name and shape")
+    ap.add_argument("--pretrained-d", default=None,
+                    help="checkpoint whose D (u and running statistics included) initialises this run's D, by "
+                    "name and shape; ignored without a D")
     ap.add_argument("--d-arch", default=None,
                     help="override the discriminator arch (ported: discriminator_unet, "
                     "uNetDiscriminatorAesrgan / discriminator_attention_unet, "
@@ -324,6 +354,10 @@ def main(argv: list[str] | None = None) -> None:
         overrides["batch_size"] = args.batch_size
     if args.compute_dtype:
         overrides["compute_dtype"] = args.compute_dtype
+    if args.pretrained_g:
+        overrides["pretrained_g_model_weights_path"] = args.pretrained_g
+    if args.pretrained_d:
+        overrides["pretrained_d_model_weights_path"] = args.pretrained_d
     if args.gt_size:
         overrides["gt_image_size"] = args.gt_size
         overrides["crop_image_size"] = 0
@@ -334,8 +368,9 @@ def main(argv: list[str] | None = None) -> None:
             raise SystemExit(f"--d-arch: {e.args[0]}") from None
         overrides["d_arch"] = args.d_arch
     cfg = configs.get_config(args.config, **overrides)
-    if args.tiny:  # bsrgan_x2, bsrgantrans_x2 and realesrgan_x4 take the same widths
-        cfg = cfg.replace(g_kwargs={**cfg.g_kwargs, "channels": 8, "growth_channels": 4, "num_rrdb": 1})
+    if args.tiny:  # bsrgan_x2, bsrgantrans_x2 and realesrgan_x4 take num_rrdb, rrdbnet_x* num_blocks
+        count_key = "num_blocks" if cfg.g_arch.startswith("rrdbnet_x") else "num_rrdb"
+        cfg = cfg.replace(g_kwargs={**cfg.g_kwargs, "channels": 8, "growth_channels": 4, count_key: 1})
     device = choice_device(args.device)
     run_train(cfg, steps_per_epoch=args.steps_per_epoch, resume=args.resume, device=device)
 

@@ -3,8 +3,7 @@
 
 Field names and defaults are the JAX package's, so a reader finds each
 field's counterpart; the fields of parts not ported yet (meshes, gradient
-accumulation, guards, the relativistic and G-first GAN steps) are kept and
-rejected by the trainer when set.
+accumulation, guards) are kept and rejected by the trainer when set.
 """
 
 from __future__ import annotations

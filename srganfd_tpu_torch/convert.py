@@ -63,6 +63,17 @@ gate's ``running_mean``/``running_var`` (``_AddAttn_i/BatchNorm_0/mean``,
 (``discriminator_attention_unet_ms``) holds one such tree a scale, ``D0``,
 ``D1``, ..., whose names take the prefix ``D{s}.``.
 
+A ``DiscriminatorVGG128`` tree (``discriminator``) holds ``Conv_0..9``
+(``features.{0, 2, 5, ..., 26}``, the first with a bias, the others
+without), ``BatchNorm_0..8`` (scale, bias -> ``features.{3, 6, ..., 27}``
+weight, bias; its ``batch_stats`` collection's mean and var ->
+``running_mean``, ``running_var``) and ``Dense_0``/``Dense_1``
+(``classifier.0``/``classifier.2``, kernels transposed). The JAX module
+transposes its 4 x 4 map to NCHW before it flattens, so ``Dense_0``'s rows
+are already in the order of torch's ``flatten(1)``: the transpose is the
+whole of that mapping, the inverse of ``tools/port_torch_weights.py``'s
+``convert_vgg_discriminator``.
+
 Each mapping takes only the tree it knows: a leaf it would not map raises
 instead of being dropped or mis-assigned.
 """
@@ -80,7 +91,7 @@ __all__ = [
     "bsrgantrans_flax_to_state_dict",
     "encoder_layer_to_state_dict", "state_dict_to_flax",
     "discriminator_flax_to_state_dict", "attention_discriminator_flax_to_state_dict",
-    "multiscale_attention_discriminator_flax_to_state_dict",
+    "multiscale_attention_discriminator_flax_to_state_dict", "vgg_discriminator_flax_to_state_dict",
     "vgg19_flax_to_state_dict", "alexnet_flax_to_state_dict",
     "load_generator_weights",
 ]
@@ -357,6 +368,37 @@ def multiscale_attention_discriminator_flax_to_state_dict(
         raise ValueError(f"the multi-scale attention discriminator mapping takes D0..D{{n-1}}, found {sorted(params)}")
     return {f"{d}.{k}": v for d in scales for k, v in attention_discriminator_flax_to_state_dict(
         params[d], batch_stats.get(d, {}), spectral.get(d, {})).items()}
+
+
+_VGG_CONVS = (0, 2, 5, 8, 11, 14, 17, 20, 23, 26)  # features.N of Conv_0..9; BatchNorm_i is features.{3 + 3i}
+
+
+def vgg_discriminator_flax_to_state_dict(params: dict, batch_stats: dict) -> dict[str, np.ndarray]:
+    """A ``DiscriminatorVGG128`` tree (``params``) and its ``batch_stats``
+    collection -> the port's numpy state dict, running statistics
+    included."""
+    sd: dict[str, np.ndarray] = {}
+    used, used_stats = set(), set()
+    try:
+        for i, n in enumerate(_VGG_CONVS):
+            _put_conv(params, sd, used, f"Conv_{i}", f"features.{n}", bias=i == 0)
+        for i in range(len(_VGG_CONVS) - 1):
+            bn, stats, prefix = params[f"BatchNorm_{i}"], batch_stats[f"BatchNorm_{i}"], f"features.{3 + 3 * i}"
+            sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = _np(bn["scale"]), _np(bn["bias"])
+            sd[f"{prefix}.running_mean"], sd[f"{prefix}.running_var"] = _np(stats["mean"]), _np(stats["var"])
+            used |= {f"BatchNorm_{i}/scale", f"BatchNorm_{i}/bias"}
+            used_stats |= {f"BatchNorm_{i}/mean", f"BatchNorm_{i}/var"}
+        for i, n in enumerate((0, 2)):
+            dense = params[f"Dense_{i}"]
+            sd[f"classifier.{n}.weight"] = np.ascontiguousarray(_np(dense["kernel"]).T)
+            sd[f"classifier.{n}.bias"] = _np(dense["bias"])
+            used |= {f"Dense_{i}/kernel", f"Dense_{i}/bias"}
+    except KeyError as e:
+        raise ValueError(f"the VGG-128 discriminator mapping found no {e}: it is not a tree of that family "
+                         f"(found {sorted(params)})") from None
+    _refuse_unmapped(params, used, "VGG-128 discriminator")
+    _refuse_unmapped(batch_stats, used_stats, "VGG-128 discriminator batch_stats")
+    return sd
 
 
 def _get(tree: dict, path: str) -> dict:

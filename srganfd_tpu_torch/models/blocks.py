@@ -1,6 +1,6 @@
 """Building blocks of the models (counterpart of
 ``srganfd_tpu/models/blocks.py``: ``lrelu``, ``Conv``, ``SNConv``,
-Flax's ``BatchNorm`` in training mode,
+Flax's ``BatchNorm`` (training and eval modes),
 ``ResidualDenseBlock``, ``RRDB`` and the trunk; ``pixel_unshuffle``; the
 attention functions and ``TransformerEncoderLayer`` of the transformer
 bottleneck).
@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from srganfd_tpu_torch.ops.cuda.attention import flash_attention, flash_attention_ref
-from srganfd_tpu_torch.ops.cuda.rdb import pack_rdb_weights, rdb_apply
+from srganfd_tpu_torch.ops.cuda.rdb import lrelu, pack_rdb_weights, rdb_apply
 
 __all__ = [
     "lrelu", "out_dtype", "Conv", "init_lecun_normal", "BatchNorm", "SNConv", "ResidualDenseBlock", "RRDB", "make_trunk", "init_kaiming_x01",
@@ -35,10 +35,6 @@ __all__ = [
     "ATTN_BACKENDS", "attention_backend", "chunked_attention", "large_attention",
     "dot_product_attention", "TransformerEncoderLayer",
 ]
-
-
-def lrelu(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, 0.2)
 
 
 def out_dtype(compute_dtype: torch.dtype) -> torch.dtype:
@@ -77,9 +73,10 @@ def init_kaiming_x01(module: nn.Module, generator: torch.Generator | None = None
                 m.bias.zero_()
 
 
-def init_lecun_normal(conv: nn.Conv2d, generator: torch.Generator | None = None) -> None:
-    """Flax ``nn.Conv``'s default init: lecun-normal weights (variance
-    1/fan_in, normal truncated at 2 standard deviations) and zero biases."""
+def init_lecun_normal(conv: nn.Conv2d | nn.Linear, generator: torch.Generator | None = None) -> None:
+    """Flax ``nn.Conv``'s and ``nn.Dense``'s default init: lecun-normal
+    weights (variance 1/fan_in, normal truncated at 2 standard deviations)
+    and zero biases."""
     with torch.no_grad():
         std = (1.0 / conv.weight[0].numel()) ** 0.5 / 0.87962566103423978
         w = torch.empty(conv.weight.shape, dtype=torch.float32)
@@ -91,8 +88,9 @@ def init_lecun_normal(conv: nn.Conv2d, generator: torch.Generator | None = None)
 
 class BatchNorm(nn.Module):
     """Flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, param_dtype=f32,
-    use_fast_variance=True)`` in training mode (``use_running_average=
-    False``), the only mode a training step runs, over NCHW's channels:
+    use_fast_variance=True)`` over NCHW's channels. With ``train`` (the
+    default: the mode every training step runs, ``use_running_average=
+    False``):
 
     - it normalises with the batch's mean and biased "fast" variance
       ``max(0, E[x^2] - E[x]^2)``, both taken in f32 (f64 under f64) for
@@ -103,6 +101,11 @@ class BatchNorm(nn.Module):
     - with ``update_stats`` it writes ``running = 0.9 running + 0.1 batch``
       for the mean and the biased variance (``SNConv``'s switch); without,
       it writes nothing, as the JAX step discards the collection.
+
+    With ``train=False`` (Flax's ``use_running_average=True``, what a JAX
+    module called with ``train=False`` runs) it normalises with the
+    running mean and variance and writes nothing; ``update_stats`` then
+    raises, since there are no batch statistics to write.
 
     ``nn.BatchNorm2d`` and ``F.batch_norm(training=True)`` differ: both
     write the unbiased running variance (n/(n-1) times the batch's), and on
@@ -119,11 +122,17 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, update_stats: bool = False, train: bool = True) -> torch.Tensor:
         acc = torch.promote_types(x.dtype, torch.float32)
         xs = x.to(acc)
-        mean = xs.mean((0, 2, 3))
-        var = ((xs * xs).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if not train:
+            if update_stats:
+                raise ValueError("BatchNorm: update_stats needs train=True (eval mode has no batch statistics)")
+            mean, var = self.running_mean.to(acc), self.running_var.to(acc)
+        else:
+            mean = xs.mean((0, 2, 3))
+                # max(0, .) as jnp.maximum: half the gradient at a tie (a constant channel)
+            var = torch.maximum((xs * xs).mean((0, 2, 3)) - mean * mean, torch.zeros((), dtype=acc))
         if update_stats:
             with torch.no_grad():
                 for buf, batch in ((self.running_mean, mean), (self.running_var, var)):

@@ -3,6 +3,9 @@
 
 Ported:
 
+- ``DiscriminatorVGG128``, registered as ``discriminator``, ESRGAN's
+  VGG-style 128 x 128 discriminator (``ESRGAN/model.py:89-141``) that the
+  ``esrgan`` config trains against, its nine stages with BatchNorm;
 - ``DiscriminatorUNet``, registered as ``discriminator_unet``, the U-Net
   with spectral norm of ``Real_ESRGAN/model.py:29-105`` (clone
   ``BSRGAN/model.py:91-167``) that the ``bsrgan`` and ``realesrgan``
@@ -18,8 +21,9 @@ The other discriminators of the JAX package raise in ``create_model`` with
 the ROADMAP.md item that ports them.
 
 ``forward`` takes NHWC float tensors, as ``model.apply`` does in JAX, and
-returns what the JAX module returns, NHWC: the per-pixel logit map (N, H,
-W, 1) in f32 (f64 under f64 compute, a CPU-only dtype of parity tests);
+returns what the JAX module returns: for the VGG-128 D one logit per
+image, (N, 1); for the U-Nets NHWC, the per-pixel logit map (N, H,
+W, 1); in f32 (f64 under f64 compute, a CPU-only dtype of parity tests);
 for the attention U-Net ``(logit map, (ly1, ly2, ly3))``, its three
 attention maps in the compute dtype; for the ensemble ``(per-scale logit
 maps, scale 0's attention maps)``. Inside, the network runs NCHW
@@ -27,7 +31,11 @@ channels-last in the compute ``dtype``. ``update_stats`` is the JAX
 module's ``train`` with the mutable collections kept: each spectral-norm
 conv runs its power iteration on every call and each BatchNorm normalises
 with the batch's statistics, and they write ``u`` and the running
-statistics only when it is set. State-dict names are the reference's
+statistics only when it is set. The VGG-128 D also takes ``train``, the
+JAX module's own switch between its BatchNorms' batch statistics
+(``train=True``, what every training step runs) and their running
+statistics (``train=False``, eval mode, the JAX module's default and so
+the port's). State-dict names are the reference's
 (``tools/port_torch_weights.py``); ``convert.py`` maps the Flax trees onto
 them.
 """
@@ -45,7 +53,8 @@ from srganfd_tpu_torch.models.blocks import BatchNorm, Conv, SNConv, init_lecun_
 from srganfd_tpu_torch.models.registry import register
 from srganfd_tpu_torch.ops.resize import resize_bilinear
 
-__all__ = ["DiscriminatorUNet", "AttentionUNetDiscriminator", "MultiScaleAttentionDiscriminator"]
+__all__ = ["DiscriminatorVGG128", "DiscriminatorUNet", "AttentionUNetDiscriminator",
+           "MultiScaleAttentionDiscriminator"]
 
 
 def _resize(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
@@ -61,6 +70,68 @@ def _upsample2(x: torch.Tensor) -> torch.Tensor:
 
 def _nchw(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+
+class DiscriminatorVGG128(nn.Module):
+    """ESRGAN's VGG-style discriminator (``ESRGAN/model.py:89-141``): a
+    3 x 3 conv with bias, then nine bias-free convs, alternately 4 x 4
+    stride 2 and 3 x 3 stride 1 (torch padding 1 for both), each followed
+    by BatchNorm, with LeakyReLU 0.2 after each stage, from 128 x 128 down
+    to 4 x 4; flattened channel-major as torch's ``flatten(1)`` of NCHW
+    (the JAX module transposes to NCHW before its reshape); Linear(8c * 16
+    -> 100), LeakyReLU, Linear(100 -> 1): one logit per image.
+
+    Names are the reference's: ``features.{0, 2, 5, ..., 26}`` the convs,
+    ``features.{3, 6, ..., 27}`` the BatchNorms (the other indices are
+    LeakyReLUs), ``classifier.0`` and ``classifier.2`` the Linears.
+    ``channels`` scales the 64-base ladder (c, 2c, 4c, 8c) as the JAX
+    module's does; widths other than 64 are for tests. Init as Flax's:
+    lecun-normal convs and Linears, zero biases, BatchNorm scale 1 and
+    bias 0, in the JAX module's call order, from ``generator``.
+
+    ``update_stats`` writes the BatchNorms' running statistics (with
+    ``train``); ``train`` is the JAX module's argument, False by default
+    as there: eval mode normalises with the running statistics."""
+
+    size = 128
+    stages = ((1, 4, 2), (2, 3, 1), (2, 4, 2), (4, 3, 1), (4, 4, 2), (8, 3, 1), (8, 4, 2), (8, 3, 1), (8, 4, 2))
+
+    def __init__(
+        self,
+        channels: int = 64,
+        dtype: torch.dtype = torch.float32,
+        device: Any = None,
+        generator: torch.Generator | None = None,
+    ) -> None:
+        super().__init__()
+        self.dtype = dtype
+        c = channels
+        layers: list[nn.Module] = [Conv(3, c), nn.LeakyReLU(0.2)]
+        cin = c
+        for mult, k, s in self.stages:
+            layers += [Conv(cin, c * mult, kernel=k, stride=s, use_bias=False), BatchNorm(c * mult),
+                       nn.LeakyReLU(0.2)]
+            cin = c * mult
+        self.features = nn.ModuleList(layers)
+        self.classifier = nn.ModuleList([nn.Linear(cin * 4 * 4, 100), nn.LeakyReLU(0.2), nn.Linear(100, 1)])
+        for m in (*self.features, *self.classifier):  # the JAX module's call order
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                init_lecun_normal(m, generator)
+        if device is not None:
+            self.to(device)
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False, train: bool = False) -> torch.Tensor:
+        if tuple(x.shape[1:3]) != (self.size, self.size):
+            raise ValueError(f"DiscriminatorVGG128 takes {self.size} x {self.size} inputs (its classifier reads a "
+                             f"4 x 4 map), got {tuple(x.shape[1:3])}")
+        h = lrelu(self.features[0](_nchw(x, self.dtype)))
+        for i in range(len(self.stages)):
+            conv, bn = self.features[2 + 3 * i], self.features[3 + 3 * i]
+            h = lrelu(bn(conv(h), update_stats, train))
+        h = h.flatten(1)  # NCHW order: channel-major
+        fc0, _, fc1 = self.classifier
+        h = lrelu(F.linear(h, fc0.weight.to(h.dtype), fc0.bias.to(h.dtype)))
+        return F.linear(h, fc1.weight.to(h.dtype), fc1.bias.to(h.dtype)).to(out_dtype(self.dtype))
 
 
 class DiscriminatorUNet(nn.Module):
@@ -273,6 +344,11 @@ class MultiScaleAttentionDiscriminator(nn.Module):
             if s + 1 < self.num_scales:
                 cur = F.avg_pool2d(cur.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
         return tuple(outs), attns0
+
+
+@register("discriminator")
+def discriminator(**kw: Any) -> DiscriminatorVGG128:
+    return DiscriminatorVGG128(**kw)
 
 
 @register("discriminator_unet")

@@ -14,7 +14,6 @@ _REGISTRY: dict[str, Callable[..., Any]] = {}
 # item that ports them
 _NOT_PORTED = {
     "discriminator_unet_sa": "A4 (with the flash-attention backward, B4)",
-    "discriminator": "A8 (other families)",
 }
 
 

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from srganfd_tpu_torch.ops.cuda.build import load_library
 
 __all__ = [
-    "rdb_forward", "rdb_forward_ref", "rdb_apply", "pack_rdb_weights", "tf32_round", "split_tf32",
+    "lrelu", "rdb_forward", "rdb_forward_ref", "rdb_apply", "pack_rdb_weights", "tf32_round", "split_tf32",
     "launches",
 ]
 
@@ -113,6 +113,16 @@ def pack_rdb_weights(
     return w.contiguous(), b.float().contiguous()
 
 
+def lrelu(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU 0.2 as the JAX package's (``jax.nn.leaky_relu``:
+    ``where(x >= 0, x, 0.2 * x)``), whose derivative at an exactly-zero
+    input is 1, where ``F.leaky_relu``'s is 0.2. The values are the same;
+    the gradients differ where a layer sees an exactly-zero input, as a
+    discriminator's first layers do on an all-zero (clamped) SR batch while
+    their biases are still zero."""
+    return torch.where(x >= 0, x, x * 0.2)
+
+
 def rdb_forward_ref(
     x: torch.Tensor, kernels: list[torch.Tensor], biases: list[torch.Tensor]
 ) -> torch.Tensor:
@@ -129,7 +139,7 @@ def rdb_forward_ref(
         w = kernels[k].to(dt).to(acc).permute(3, 2, 0, 1)
         y = F.conv2d(torch.cat(feats, 1), w, biases[k].to(acc), padding=1)
         if k < 4:
-            feats.append(F.leaky_relu(y, 0.2).to(dt).to(acc))
+            feats.append(lrelu(y).to(dt).to(acc))
     return (y * 0.2 + x32).to(dt).permute(0, 2, 3, 1)
 
 

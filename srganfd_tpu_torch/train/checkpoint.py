@@ -18,6 +18,11 @@ either file, so ``cli.infer --weights`` serves what ``cli.train`` wrote.
 Each file is written to ``<name>.tmp`` and renamed into place, so a kill
 during a save leaves the previous file whole. The mid-epoch, preemption and
 asynchronous snapshots of the JAX package are not ported (ROADMAP.md A4).
+
+``load_pretrained`` and ``merge_by_path`` graft a prior run's G or D into a
+fresh state (``--pretrained-g``/``--pretrained-d``, the JAX package's
+``load_pretrained_params`` and ``merge_by_path``): by name and shape, every
+other tensor keeping its init.
 """
 
 from __future__ import annotations
@@ -26,10 +31,12 @@ import os
 from typing import Any
 
 import torch
+from torch import nn
 
 from srganfd_tpu_torch.train.state import TrainState
 
-__all__ = ["save_checkpoint", "load_checkpoint", "best_metrics", "restore_state", "find_auto_resume"]
+__all__ = ["save_checkpoint", "load_checkpoint", "best_metrics", "restore_state", "find_auto_resume",
+           "load_pretrained", "merge_by_path"]
 
 
 def save_checkpoint(
@@ -99,3 +106,47 @@ def find_auto_resume(directory: str) -> str | None:
     (fresh start) when there is none."""
     path = os.path.join(directory, "ckpt_last.pth")
     return path if os.path.isfile(path) else None
+
+
+def load_pretrained(path: str, key: str = "state_dict") -> dict[str, torch.Tensor]:
+    """The state dict that ``key`` names in a checkpoint, for a graft: the
+    port's ``ckpt_best.pth``/``ckpt_last.pth`` (``state_dict``, the raw G
+    as the JAX graft takes ``g_params``, or ``d_state_dict``, D with its
+    ``u`` and running statistics), or a reference-layout ``.pth.tar``
+    (``ESRGAN/utils.py:30-101``: one model per file under ``state_dict``,
+    in the port's names), which serves either key.
+
+    The JAX package's two other sources, a ``.npz`` in
+    ``tools/port_torch_weights.py``'s layout and an MLflow ``runs:/`` URI,
+    are not ported (ROADMAP.md A15)."""
+    if path.startswith("runs:/"):
+        raise NotImplementedError(f"{path}: MLflow runs:/ sources of a pretrained model are not ported to "
+                                  "srganfd_tpu_torch yet: see ROADMAP.md A15")
+    if path.endswith(".npz"):
+        raise NotImplementedError(f"{path}: .npz sources of a pretrained model are not ported to "
+                                  "srganfd_tpu_torch yet: see ROADMAP.md A15")
+    payload = load_checkpoint(path)
+    if not isinstance(payload, dict):
+        raise ValueError(f"{path} holds no checkpoint dict")
+    if key in payload:
+        return payload[key]
+    if "step" not in payload and "state_dict" in payload:  # a reference-layout file: one model
+        return payload["state_dict"]
+    raise KeyError(f"checkpoint {path} has no {key!r}")
+
+
+def merge_by_path(model: nn.Module, loaded: dict[str, torch.Tensor]) -> tuple[int, int]:
+    """Copy into ``model`` each entry of ``loaded`` whose name is in the
+    model's state dict (parameters and buffers) with the same shape; the
+    rest of the model keeps its values, and entries the model lacks (such
+    as torch BatchNorm's ``num_batches_tracked``) are ignored. Returns
+    ``(n_loaded, n_total)`` over the model's state dict."""
+    current = model.state_dict()
+    n_ok = 0
+    with torch.no_grad():
+        for name, cur in current.items():
+            new = loaded.get(name)
+            if isinstance(new, torch.Tensor) and new.shape == cur.shape:
+                cur.copy_(new)
+                n_ok += 1
+    return n_ok, len(current)

@@ -28,9 +28,19 @@ per-scale maps the BCEs are summed and the reported probabilities are
 scale 0's (the JAX step's ``_first``, ``_bce_scales``, ``_mean_sigmoid``).
 
 GAN configs with the G step first (Real-ESRGAN,
-``Real_ESRGAN/train_realesrgan.py:407-470``; ``g_step_first=True``): the
-G update against the old D, then the D update on the same, detached SR,
-then EMA.
+``Real_ESRGAN/train_realesrgan.py:407-470``, and ESRGAN,
+``ESRGAN/train_esrgan.py:362-425``; ``g_step_first=True``): the G update
+against the old D, then the D update on the same, detached SR, then EMA.
+
+With ``relativistic_gan`` (ESRGAN) the adversarial terms are the
+relativistic average ones: the D update's ``relativistic_d_loss(D(gt),
+D(sr))`` from its two ``update_stats`` forwards, differentiated through
+both means (only SR is detached, as the JAX step differentiates it), and
+the G term's ``relativistic_g_loss(D(gt), D(sr))`` with D(gt) a constant
+(run under ``no_grad``, as the JAX step's ``stop_gradient``) and neither
+forward writing D's state. The D is always run in training mode, as the
+JAX step's ``_d_apply`` runs it (``train=True``): BatchNorm normalises with
+the batch's statistics.
 
 A step takes an optional ``gt_pixel``: the pixel and content terms target
 it (Real-ESRGAN's USM-sharpened GT) while D's real input stays ``gt``;
@@ -46,9 +56,8 @@ Each RDB of the generator is ``ops/cuda/rdb.py`` ``rdb_apply``: the
 hand-written kernel on a CUDA tensor, its backward through the plain
 version, recomputed, as the JAX ``rdb_apply`` does.
 
-Not ported yet, each rejected with its ROADMAP.md item: the relativistic
-step (A8), the VGG-128 and self-attention discriminators (A8, A4),
-``grad_accum_steps``, ``skip_nonfinite_updates``, ``grad_clip_norm``,
+Not ported yet, each rejected with its ROADMAP.md item: the
+self-attention discriminator (A4), ``grad_accum_steps``, ``skip_nonfinite_updates``, ``grad_clip_norm``,
 weight decay (A4), the pipe mesh (A11), and the K-step and fused dispatch
 modes (A4).
 """
@@ -59,9 +68,10 @@ import torch
 
 from srganfd_tpu_torch.configs.base import ExperimentConfig
 from srganfd_tpu_torch.losses.content import ContentLoss
-from srganfd_tpu_torch.losses.gan import bce_with_logits
+from srganfd_tpu_torch.losses.gan import bce_with_logits, relativistic_d_loss, relativistic_g_loss
 from srganfd_tpu_torch.models import check_ported, create_model
 from srganfd_tpu_torch.models.blocks import BatchNorm
+from srganfd_tpu_torch.models.discriminators import DiscriminatorVGG128
 from srganfd_tpu_torch.train.schedule import multistep_lr
 from srganfd_tpu_torch.train.state import TrainState, ema_update
 
@@ -106,9 +116,18 @@ def _mean_sigmoid(logits: Logits) -> torch.Tensor:
     return torch.sigmoid(_first(logits).detach()).mean()
 
 
+def _d_train_mode(d: torch.nn.Module, x: torch.Tensor, update_stats: bool) -> Logits:
+    """D's logit map(s) in training mode, as the JAX step's ``_d_apply``
+    (``train=True``) computes them: the VGG-128 D, whose ``train`` defaults
+    to eval mode as the JAX module's does, is told so; the port's other Ds
+    have a training mode only."""
+    if isinstance(d, DiscriminatorVGG128):
+        return d(x, update_stats=update_stats, train=True)
+    return _first(d(x, update_stats=update_stats))
+
+
 def _reject_unported(cfg: ExperimentConfig) -> None:
     unported = {
-        "relativistic_gan": (cfg.relativistic_gan, "A8"),
         "grad_accum_steps > 1": (cfg.grad_accum_steps > 1, "A4"),
         "skip_nonfinite_updates": (cfg.skip_nonfinite_updates, "A4"),
         "grad_clip_norm": (cfg.grad_clip_norm > 0, "A4"),
@@ -232,8 +251,10 @@ class Trainer:
         return metrics
 
     def _d_update(self, state: TrainState, gt: torch.Tensor, sr: torch.Tensor) -> dict[str, torch.Tensor]:
-        """BCE(D(gt), 1) + BCE(D(sr), 0) with ``u`` and the running
-        statistics advanced by each train forward, then Adam on D."""
+        """BCE(D(gt), 1) + BCE(D(sr), 0), or with ``relativistic_gan`` the
+        relativistic average loss of the same two forwards, with ``u`` and
+        the running statistics advanced by each train forward, then Adam on
+        D."""
         d = state.d_model
         _set_lr(state.d_opt, self.d_schedule(state.step))  # one D update per step
         # a BatchNorm D keeps the two forwards: one would pool the batches'
@@ -242,9 +263,12 @@ class Trainer:
             both = d(torch.cat([gt, sr]), update_stats=True)
             gt_out, sr_out = both[: gt.shape[0]], both[gt.shape[0]:]
         else:
-            gt_out = _first(d(gt, update_stats=True))
-            sr_out = _first(d(sr, update_stats=True))
-        loss = _bce_scales(gt_out, 1.0) + _bce_scales(sr_out, 0.0)
+            gt_out = _d_train_mode(d, gt, update_stats=True)
+            sr_out = _d_train_mode(d, sr, update_stats=True)
+        if self.cfg.relativistic_gan:
+            loss = relativistic_d_loss(gt_out, sr_out)
+        else:
+            loss = _bce_scales(gt_out, 1.0) + _bce_scales(sr_out, 0.0)
         state.d_opt.zero_grad(set_to_none=True)
         loss.backward()
         state.d_opt.step()
@@ -264,8 +288,14 @@ class Trainer:
             parts["content_loss"] = self.content_loss(sr, gt)
             total = total + parts["content_loss"]
         if self.has_d:
-            sr_out = _first(state.d_model(sr, update_stats=False))
-            parts["adversarial_loss"] = _weighted(cfg.adversarial_weight, _bce_scales(sr_out, 1.0))
+            sr_out = _d_train_mode(state.d_model, sr, update_stats=False)
+            if cfg.relativistic_gan:
+                with torch.no_grad():  # a constant of the G term
+                    gt_out = _d_train_mode(state.d_model, gt, update_stats=False)
+                adv = relativistic_g_loss(gt_out, sr_out)
+            else:
+                adv = _bce_scales(sr_out, 1.0)
+            parts["adversarial_loss"] = _weighted(cfg.adversarial_weight, adv)
             total = total + parts["adversarial_loss"]
         parts["g_loss"] = total
         return parts

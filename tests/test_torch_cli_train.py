@@ -113,7 +113,7 @@ def test_infer_serves_the_trained_ema_generator(frames, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--pretrained-g", "g.pth"], ["--pretrained-d", "d.pth"], ["--d-arch", "discriminator_unet_sa"],
+    ["--d-arch", "discriminator_unet_sa"],
     ["--grad-accum", "2"], ["--skip-nonfinite"], ["--async-ckpt"], ["--save-every-steps", "5"],
     ["--ckpt-every-epochs", "2"],
     ["--profile-dir", "prof"], ["--debug-nans"],
@@ -124,7 +124,6 @@ def test_unported_flags_name_the_roadmap_item(frames, flag):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("pretrained_g_model_weights_path", "g.pth"), ("pretrained_d_model_weights_path", "d.pth"),
     ("grad_accum_steps", 2), ("model_weight_decay", 0.01),
 ])
 def test_unported_config_fields_name_the_roadmap_item(frames, field, value):

@@ -1,8 +1,8 @@
 """The port's GAN stage against the JAX package's on the CPU: the
 spectral-norm conv, the bilinear resize, the U-Net discriminator, the
-adversarial losses, the VGG19 content loss, LPIPS and the ``bsrgan``
-config (the lockstep steps of the two trainers are
-``test_torch_gan_lockstep.py``).
+adversarial losses, the VGG19 content loss and LPIPS (the lockstep
+steps of the two trainers are ``test_torch_gan_lockstep.py``, the configs
+``test_torch_train.py``'s).
 
 Inputs are made with numpy from a seed and handed to both frameworks;
 weights are the JAX modules' (surrogates included), converted. Tiny
@@ -11,7 +11,6 @@ widths: D 8 channels; the VGG19 on 32 x 32 (its deepest node,
 """
 
 import copy
-import dataclasses
 import functools
 
 import jax
@@ -20,7 +19,6 @@ import numpy as np
 import pytest
 import torch
 
-from srganfd_tpu import configs as jax_configs
 from srganfd_tpu.losses import gan as jax_gan_losses
 from srganfd_tpu.losses.content import ContentLoss as JaxContentLoss
 from srganfd_tpu.losses.content import VGG19Features as JaxVGG19Features
@@ -29,7 +27,6 @@ from srganfd_tpu.losses.lpips import Lpips as JaxLpips
 from srganfd_tpu.models import create_model as create_flax
 from srganfd_tpu.models.blocks import SNConv as FlaxSNConv
 from srganfd_tpu.ops.resize import resize_bilinear as jax_resize_bilinear
-from srganfd_tpu_torch import configs
 from srganfd_tpu_torch.convert import (
     alexnet_flax_to_state_dict,
     discriminator_flax_to_state_dict,
@@ -205,7 +202,7 @@ def test_discriminator_mapping_refuses_other_trees(flax_d):
         discriminator_flax_to_state_dict(params, variables["spectral"])
 
 
-@pytest.mark.parametrize("arch,item", [("discriminator_unet_sa", "A4"), ("discriminator", "A8")])
+@pytest.mark.parametrize("arch,item", [("discriminator_unet_sa", "A4")])
 def test_unported_discriminators_name_the_roadmap_item(arch, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         create_model(arch)
@@ -376,12 +373,3 @@ def test_lpips_matches_jax(jax_lpips, lo):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-8)
     np.testing.assert_allclose(lpips(_t(a), _t(a)).numpy(), 0.0, atol=1e-12)
 
-
-# -- the config ---------------------------------------------------------------------------
-
-
-def test_bsrgan_config_equals_the_jax_one():
-    ours, theirs = configs.get_config("bsrgan"), jax_configs.get_config("bsrgan")
-    for f in dataclasses.fields(ours):
-        assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
-    assert ours.milestones_epochs == theirs.milestones_epochs and ours.is_gan

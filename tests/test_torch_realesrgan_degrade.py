@@ -409,10 +409,3 @@ def test_adapter_matches_jax_at_zero_noise(tmp_path):
         assert got["lr"].shape == want["lr"].shape
         assert lr.max() <= 0.02 and lr.mean() <= 1e-3, (train, lr.max(), lr.mean())
 
-
-@pytest.mark.parametrize("name", ["realesrnet", "realesrgan"])
-def test_config_equals_the_jax_one(name):
-    ours, theirs = configs.get_config(name), jax_configs.get_config(name)
-    for f in dataclasses.fields(ours):
-        assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
-    assert ours.milestones_epochs == theirs.milestones_epochs
