@@ -16,7 +16,10 @@ upsamples), and trains four recipes at full width: ``bsrgan_x2``, the L1
 pretrain (``bsrnet``) and then the GAN stage (``bsrgan``);
 ``realesrgan_x4``, ``realesrnet`` and then ``realesrgan``;
 ``bsrgantrans_x2`` against the attention-gated U-Net (``aesrgan``); and
-``rrdbnet_x4``, ``rrdbnet`` and then ``esrgan`` (ESRGAN's two stages):
+``rrdbnet_x4``, ``rrdbnet`` and then ``esrgan`` (ESRGAN's two stages);
+then ``bsrgan`` against the self-attention U-Net (``--d-arch
+discriminator_unet_sa``), and evaluates the trained checkpoints with
+``cli.test``:
 
 1. kernel phases: ``rdb_forward`` vs ``rdb_forward_ref`` and
    ``flash_attention`` vs ``flash_attention_ref``, in f32 (the 3xTF32
@@ -159,7 +162,36 @@ pretrain (``bsrnet``) and then the GAN stage (``bsrgan``);
     (``step_check``'s LIMITS, loss parts 1e-5, D 1e-3, running statistics
     1e-5; the logit's bias, which the relativistic losses cancel, by its
     gradient, 1e-6; the same step from fresh Adams printed); ``cli.infer
-    --use-ema`` on esrgan's ``ckpt_best.pth``.
+    --use-ema`` on esrgan's ``ckpt_best.pth``;
+16. the self-attention D: ``cli.train.run_train`` on ``bsrgan`` with
+    ``--d-arch discriminator_unet_sa`` (the config otherwise unchanged:
+    batch 16, pre-crop 320, GT 144, bf16; token self-attention of 8 heads
+    after down2, after down3 and on up1, full softmax), G from the bsrnet
+    run (``--pretrained-g``): one epoch of 4 steps, then ``--resume auto``
+    for a second (69 RDB and 2 filter2d kernel calls per step and
+    validation batch, the resumed D as checkpointed); CUDA-event times of
+    the step, the D update, the adversarial term and each attention's
+    forward, peak memory; one f32 step held to its plain twin (loss parts
+    1e-5, D and ``u`` 1e-3, G by ``step_check.LIMITS``);
+17. evaluation: ``srganfd_tpu_torch.cli.test`` on the card over 6
+    synthetic frames at 4 sizes (sides that are not multiples of 64 among
+    them, so shape buckets and the masked metrics run), on each training
+    phase's ``ckpt_last.pth``: ``bsrgan`` with ``--save-images
+    --save-discriminator-eval --subdivision-lpips --niqe-model`` (the
+    port's asset), ``aesrgan`` with ``--save-attention-layers
+    --save-discriminator-eval`` (the gates' BatchNorm in eval mode),
+    ``esrgan`` with ``--use-ema --self-ensemble`` and then ``--use-ema
+    --tile 64`` on 2 frames, ``realesrgan`` (the second-order eval chain);
+    every G forward f32 (69 3xTF32 RDB kernel calls), 2-3 filter2d calls
+    a chain; ``aesrgan``, ``esrgan`` and ``realesrgan``, whose few
+    training steps leave G's output near 0, again on a copy of the
+    checkpoint whose G and EMA-G are ``spread_weights``' (SR in (0.05,
+    0.95) at 30% of its elements or more). Each run is made again with every kernel
+    swapped for its plain version on the kernel run's LR: each frame's SR
+    to max abs 1e-3, PSNR to 0.01 dB, SSIM and LPIPS to 1e-4; the plain
+    chain's LR to the DiffJPEG envelope (max 0.05); the heat-map and
+    attention-map PNGs exist. Frames/s and each frame's parts (LR, G, metrics, LPIPS, NIQE,
+    D) on the host clock with the device synchronised.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after.
@@ -2225,7 +2257,7 @@ def ae_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
         trainer.content_loss(sr_leaf, gt_c).backward(inputs=[sr_leaf])
 
     def adversarial_fwd_bwd():
-        _bce_scales(_first(d(sr_leaf, update_stats=False)), 1.0).backward(inputs=[sr_leaf])
+        _bce_scales(_first(d(sr_leaf, update_stats=False, train=True)), 1.0).backward(inputs=[sr_leaf])
 
     with torch.inference_mode():
         breakdown = {"chain_ms": cuda_ms(chain, iters=5, warmup=1),
@@ -2686,6 +2718,340 @@ def es_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
     return calls, numbers
 
 
+SA_EXP = "BSRGAN_SA_x2"  # the SA run's results and log directory, beside bsrgan's
+
+
+def sa_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
+    """Full-width ``bsrgan`` with ``--d-arch discriminator_unet_sa`` (the
+    config otherwise unchanged: bsrgan_x2 64/32/23, batch 16, pre-crop 320,
+    GT 144, bf16; the U-Net with token self-attention after down2, after
+    down3 and on up1, 8 heads, full softmax) through cli.train.run_train on
+    the bsrnet phase's frames, G and EMA-G grafted from the bsrnet phase's
+    ckpt_last.pth: one epoch, then --resume auto for a second. Returns its
+    kernel calls and numbers: step p50, the D update, the adversarial term,
+    the three attentions' forward ms, peak memory, and one f32 step held to
+    its plain twin by the bsrgan phase's limits."""
+    from srganfd_tpu_torch import configs
+    from srganfd_tpu_torch.cli import train as cli_train
+    from srganfd_tpu_torch.convert import load_generator_weights
+    from srganfd_tpu_torch.data.datasets import BatchLoader
+    from srganfd_tpu_torch.losses.gan import bce_with_logits
+    from srganfd_tpu_torch.ops.degrade import apply_bsrgan_batch_cropped, bsrgan_lr_size, plan_bsrgan_batch
+    from srganfd_tpu_torch.train import checkpoint as ckpt
+    from srganfd_tpu_torch.train import step_check
+    from srganfd_tpu_torch.train.loop import Trainer, _first
+
+    bsrnet_ckpt = os.path.join(work, "results", configs.get_config("bsrnet").exp_name, "ckpt_last.pth")
+    cfg = configs.get_config("bsrgan").replace(
+        d_arch="discriminator_unet_sa", exp_name=SA_EXP, experience_name=SA_EXP,
+        train_gt_images_dir=os.path.join(work, "train_gt"), valid_gt_images_dir=os.path.join(work, "valid_gt"),
+        results_dir=os.path.join(work, "results"), samples_dir=os.path.join(work, "samples"),
+        pretrained_g_model_weights_path=bsrnet_ckpt,
+    )
+    print(f"bsrgan --d-arch {cfg.d_arch}: {cfg.g_arch} full width against the SA U-Net c = 64 (attentions of "
+          f"256, 512, 256 channels, 8 heads), batch {cfg.batch_size}, pre-crop {cfg.crop_image_size}, GT "
+          f"{cfg.gt_image_size}, {cfg.compute_dtype}", flush=True)
+    metrics_seen, steps, restored = [], [], []
+    real_step, real_restore = Trainer.train_step, ckpt.restore_state
+
+    def recorded_step(self, state, gt, lr_img, gt_pixel=None):
+        entry = time.perf_counter()
+        index = state.step
+        m = real_step(self, state, gt, lr_img, gt_pixel)
+        metrics_seen.append({k: v.item() for k, v in m.items()})  # waits for the step
+        steps.append((index, entry, time.perf_counter()))
+        return m
+
+    def recorded_restore(state, payload):
+        real_restore(state, payload)
+        restored.append({"step": state.step, "d": all(
+            torch.equal(v.cpu(), payload["d_state_dict"][k]) for k, v in state.d_model.state_dict().items())})
+
+    Trainer.train_step, ckpt.restore_state = recorded_step, recorded_restore
+    torch.cuda.reset_peak_memory_stats()
+    rdb.launches = f2d.launches = 0
+    try:
+        run_s = []
+        for epochs, resume in ((GAN_EPOCHS, ""), (GAN_EPOCHS + 1, "auto")):
+            t0 = time.perf_counter()
+            result = cli_train.run_train(cfg.replace(epochs=epochs), GAN_STEPS_PER_EPOCH, resume=resume,
+                                         device="cuda")
+            torch.cuda.synchronize()
+            run_s.append(time.perf_counter() - t0)
+    finally:
+        Trainer.train_step, ckpt.restore_state = real_step, real_restore
+    calls = {"rdb": rdb.launches, "filter2d": f2d.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_steps, n_valid = GAN_STEPS_PER_EPOCH * (GAN_EPOCHS + 1), GAN_EPOCHS + 1
+    state = result["state"]
+    check(type(state.d_model).__name__ == "DiscriminatorUNetSA", f"the SA run trained {type(state.d_model).__name__}")
+    check(len(metrics_seen) == n_steps and state.step == n_steps, f"{len(metrics_seen)} SA steps, expected {n_steps}")
+    check(all(math.isfinite(v) for m in metrics_seen for v in m.values()), f"non-finite SA metrics: {metrics_seen}")
+    check(all(0 < m[k] < 1 for m in metrics_seen for k in ("d_gt_probability", "d_sr_probability")),
+          f"an SA D probability outside (0, 1): {metrics_seen}")
+    check(calls == {"rdb": RDB_PER_FORWARD * (n_steps + n_valid), "filter2d": FILTERS_PER_CHAIN * (n_steps + n_valid)},
+          f"the SA training made {calls} kernel calls for {n_steps} steps and {n_valid} validation batches")
+    check(len(restored) == 1 and restored[0] == {"step": GAN_STEPS_PER_EPOCH, "d": True},
+          f"the resumed SA run's restore: {restored}")
+    intervals = [(b[2] - a[2]) * 1e3 for a, b in zip(steps, steps[1:])
+                 if b[0] == a[0] + 1 and b[0] % GAN_STEPS_PER_EPOCH]
+    step_p50 = float(np.median(intervals))
+    print(f"SA training: metrics {[{k: round(v, 5) for k, v in m.items()} for m in metrics_seen]}", flush=True)
+    print(f"SA training: {n_steps} steps + {n_valid} validation batches in {[round(t, 2) for t in run_s]} s; step p50 "
+          f"{step_p50:.2f} ms host clock over {len(intervals)} steps; peak memory {peak_gb:.2f} GB; {calls} kernel "
+          f"calls", flush=True)
+
+    # a step's parts on the card (CUDA events), on the trained state
+    loader = BatchLoader(cli_train.build_datasets(cfg)[0], cfg.batch_size, seed=cfg.seed, num_workers=2)
+    it = iter(loader)
+    host = next(it)
+    it.close()
+    gt_dev = torch.from_numpy(host["gt"]).cuda()
+    plan = plan_bsrgan_batch(np.random.default_rng(0), cfg.batch_size, cfg.upscale_factor)
+    lim = bsrgan_lr_size(gt_dev.shape[1], plan) - cfg.gt_image_size // cfg.upscale_factor
+    tops = np.random.default_rng(1).integers(0, lim + 1, cfg.batch_size)
+    gt_c, lr_c = apply_bsrgan_batch_cropped(gt_dev, plan, tops, tops, cfg.gt_image_size, cfg.upscale_factor)
+    trainer = Trainer(cfg, GAN_STEPS_PER_EPOCH, device="cuda")
+    g, d = state.g_model, state.d_model
+    sr = g(lr_c).detach()
+    sr_leaf = sr.clone().requires_grad_()
+
+    def adversarial_fwd_bwd():
+        out = _first(d(sr_leaf, update_stats=False, train=True))
+        bce_with_logits(out, torch.ones_like(out)).backward(inputs=[sr_leaf])
+
+    breakdown = {
+        "d_update_ms": cuda_ms(lambda: trainer._d_update(state, gt_c, sr), iters=3, warmup=1),
+        "adversarial_forward_backward_ms": cuda_ms(adversarial_fwd_bwd, iters=3, warmup=1),
+        "train_step_ms": cuda_ms(lambda: real_step(trainer, state, gt_c, lr_c), iters=3, warmup=1),
+    }
+    # each attention's forward alone, at its input of this batch (bf16)
+    attn_in = {}
+    hooks = [getattr(d, name).register_forward_hook(lambda m, i, o, name=name: attn_in.__setitem__(name, i[0]))
+             for name in ("attn_down2", "attn_down3", "attn_up1")]
+    with torch.no_grad():
+        d(sr, train=True)
+    for h in hooks:
+        h.remove()
+    with torch.no_grad():
+        for name, x in attn_in.items():
+            breakdown[f"{name}_ms"] = cuda_ms(lambda m=getattr(d, name), x=x: m(x), iters=5, warmup=1)
+            breakdown[f"{name}_tokens"] = x.shape[2] * x.shape[3]
+    print(f"SA step breakdown on the card (CUDA events, {cfg.compute_dtype}, batch {cfg.batch_size}): D update (2 "
+          f"forwards on GT and SR, backward, Adam) {breakdown['d_update_ms']:.2f} ms; adversarial (D on SR, backward "
+          f"to SR) {breakdown['adversarial_forward_backward_ms']:.2f} ms; whole train step "
+          f"{breakdown['train_step_ms']:.2f} ms; attention forwards: "
+          + ", ".join(f"{n} {breakdown[f'{n}_ms']:.2f} ms ({breakdown[f'{n}_tokens']} tokens)" for n in attn_in),
+          flush=True)
+    d_final = {k: v.detach().clone() for k, v in d.state_dict().items()}
+    del g, d, state, result, trainer, sr, sr_leaf, attn_in
+    torch.cuda.empty_cache()
+
+    # One f32 step held to its plain twin, from the bsrnet-trained G and this
+    # phase's SA D, by the bsrgan phase's limits: loss parts 1e-5, D and u
+    # 1e-3, G by step_check's LIMITS
+    f32, runs = f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters,
+                                  init=(load_generator_weights(bsrnet_ckpt), d_final), plain_runs=1,
+                                  label="bsrgan --d-arch discriminator_unet_sa (trained state)")
+    (_, _, d_k), (_, _, d_p) = runs
+    kept = lambda sd, u: {k: v for k, v in sd.items() if k.endswith(".u") == u}  # noqa: E731
+    f32["d_rel"], f32["d_worst"] = _rel_per_tensor(kept(d_k, False), kept(d_p, False))
+    f32["u_rel"], f32["u_worst"] = _rel_per_tensor(kept(d_k, True), kept(d_p, True))
+    print(f"f32 SA step (trained state): updated D per tensor max relative {f32['d_rel']:.3g} ({f32['d_worst']}), "
+          f"u {f32['u_rel']:.3g} ({f32['u_worst']})", flush=True)
+    failed = step_check.step_check_failures(f32, {**step_check.LIMITS, "d_rel": 1e-3, "u_rel": 1e-3})
+    check(not failed, f"f32 SA step vs plain: {failed}")
+    numbers = {"steps": n_steps, "validation_batches": n_valid, "step_ms_p50": step_p50, "peak_memory_gb": peak_gb,
+               "run_s": run_s, **breakdown, "f32_step_vs_plain": f32}
+    return calls, numbers
+
+
+# cli.test's frames: 6 at 4 sizes, sides that are not multiples of 64 among them (buckets of 64)
+EVAL_SIZES = ((256, 256), (200, 300), (192, 320), (150, 230), (256, 256), (200, 300))
+# (tag, config, the checkpoint's experiment, cli.test flags, (G arch, gain)):
+# with a gain, the same run is made again on a copy of the checkpoint whose
+# G and EMA-G are spread_weights' (the seeded init with the convs outside
+# the trunk scaled by the gain): a few training steps from the x0.1 init
+# leave G's output near 0 (PSNR 6.86 dB on these frames), where the
+# comparison with the plain kernels at 1e-3 would hold little, and scaling
+# the trained tail instead saturates it (rrdbnet's, x4: 1% of SR in (0.05,
+# 0.95))
+EVAL_RUNS = (
+    ("bsrgan", "bsrgan", "BSRGAN_x2", ["--save-images", "--save-discriminator-eval", "--subdivision-lpips",
+                                        "--niqe-model", "NIQE"], None),
+    ("aesrgan", "aesrgan", "AESRGAN_x2", ["--save-attention-layers", "--save-discriminator-eval"],
+     ("bsrgantrans_x2", 6.0)),
+    ("esrgan_ensemble", "esrgan", "train_ESRGAN_x4_bubbles", ["--use-ema", "--self-ensemble", "--max-images", "2"],
+     ("rrdbnet_x4", 4.0)),
+    ("esrgan_tile", "esrgan", "train_ESRGAN_x4_bubbles", ["--use-ema", "--tile", "64", "--max-images", "2"],
+     ("rrdbnet_x4", 4.0)),
+    ("realesrgan", "realesrgan", "RealESRGAN_x4", [], ("realesrgan_x4", 4.0)),
+)
+
+
+def _eval_forwards(flags, sizes, sf: int) -> int:
+    """The generator calls of one cli.test run: one a frame; two (the
+    ensemble's orientations, four variants each) with --self-ensemble;
+    one per 8 tiles of 64 at overlap 16 with --tile 64."""
+    if "--self-ensemble" in flags:
+        return 2 * len(sizes)
+    if "--tile" in flags:
+        calls = 0
+        for h, w in sizes:
+            lh, lw = -(-h // 64) * 64 // sf, -(-w // 64) * 64 // sf
+            tiles = max(1, math.ceil((lh - 32) / 32)) * max(1, math.ceil((lw - 32) / 32))
+            calls += math.ceil(tiles / 8)
+        return calls
+    return len(sizes)
+
+
+def spread_checkpoint(work: str, src: str, dst: str, arch: str, gain: float) -> str:
+    """A copy of a cli.train checkpoint whose G and EMA-G are
+    ``spread_weights(work, arch, gain)``'s; D as the checkpoint holds it."""
+    from srganfd_tpu_torch.train import checkpoint as ckpt
+
+    payload = ckpt.load_checkpoint(src)
+    g = torch.load(spread_weights(work, arch, gain), map_location="cpu", weights_only=True)["state_dict"]
+    payload["state_dict"], payload["ema_state_dict"] = g, {k: v.clone() for k, v in g.items()}
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    torch.save(payload, dst)
+    return dst
+
+
+def eval_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
+    """``srganfd_tpu_torch.cli.test`` on the card on each training phase's
+    ckpt_last.pth (EVAL_RUNS) over 6 synthetic frames at 4 sizes: every G
+    forward in f32 (the 3xTF32 RDB kernel), the BSRGAN and Real-ESRGAN eval
+    chains on the filter2d kernel, the Ds in eval mode; where the few
+    training steps leave G's output near 0, again on a copy of the
+    checkpoint with spread_weights' G. Each run is made again with every kernel swapped
+    for its plain version on the kernel run's LR: each frame's SR held to
+    max abs 1e-3 (the serving f32 limit), PSNR to 0.01 dB, SSIM and LPIPS
+    to 1e-4; the chains' plain LR printed beside the kernel LR and held to
+    the DiffJPEG envelope (max 0.05); a spread copy's SR held to lie in
+    (0.05, 0.95) at 30% of its elements or more. Returns the kernel calls of the
+    kernel runs and the numbers."""
+    import cv2
+
+    from srganfd_tpu_torch.cli import test as cli_test
+
+    gt_dir = os.path.join(work, "eval_gt")
+    os.makedirs(gt_dir)
+    rng = np.random.default_rng(12)
+    for i, (h, w) in enumerate(EVAL_SIZES):
+        yy, xx = np.mgrid[0:h, 0:w] / 64.0
+        base = 0.5 + 0.25 * np.sin(2 * np.pi * (xx * rng.uniform(0.5, 2) + yy * rng.uniform(0.5, 2)))
+        img = np.clip(base[..., None] + 0.04 * rng.standard_normal((h, w, 3)), 0, 1)
+        cv2.imwrite(os.path.join(gt_dir, f"frame_{i:02d}.png"), (img * 255).astype(np.uint8))
+    niqe_asset = os.path.join(ROOT, "srganfd_tpu_torch", "assets", "niqe_cfd_bubbles.npz")
+    real_lr, real_match, real_rdb, real_f2d = cli_test._config_lr, cli_test._match_hw, blocks.rdb_apply, filters.filter2d
+    calls, numbers, home = {"rdb": 0, "filter2d": 0}, {}, os.getcwd()
+
+    def one_run(tag: str, config: str, weights: str, flags: list[str], spread: bool) -> None:
+        run_dir = os.path.join(work, f"eval_{tag}")
+        os.makedirs(run_dir)
+        os.chdir(run_dir)  # cli.test logs under ./samples, as the JAX CLI does
+        argv = (["--config", config, "--gt-dir", gt_dir, "--weights", weights]
+                + [niqe_asset if f == "NIQE" else f for f in flags])
+        lrs, srs = [], []
+
+        def recorded_lr(adapter, gt, i):
+            lr = real_lr(adapter, gt, i)
+            lrs.append(lr.clone())
+            return lr
+
+        def recorded_match(x, h, w):
+            out = real_match(x, h, w)
+            srs.append(out.clone())
+            return out
+
+        cli_test._config_lr, cli_test._match_hw = recorded_lr, recorded_match
+        rdb.launches = f2d.launches = 0
+        t0 = time.perf_counter()
+        out = cli_test.run_eval(cli_test.build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cli_test._config_lr, cli_test._match_hw = real_lr, real_match
+        made = {"rdb": rdb.launches, "filter2d": f2d.launches}
+        frames = out["per_image"]
+        n = len(frames)
+        forwards = _eval_forwards(flags, EVAL_SIZES[:n], 4 if config in ("esrgan", "realesrgan") else 2)
+        check(made["rdb"] == RDB_PER_FORWARD * forwards,
+              f"cli.test {tag}: {made['rdb']} rdb calls for {forwards} generator forwards")
+        lo, hi = {"bsrgan": (2, 2), "aesrgan": (2, 2), "realesrgan": (2, 3)}.get(config, (0, 0))
+        check(lo * n <= made["filter2d"] <= hi * n, f"cli.test {tag}: {made['filter2d']} filter2d calls, {n} frames")
+        for k in calls:
+            calls[k] += made[k]
+        check(all(math.isfinite(r[m]) for r in frames for m in ("psnr", "ssim", "lpips")),
+              f"cli.test {tag}: non-finite metrics {frames}")
+        sr_spread = torch.cat([((s > 0.05) & (s < 0.95)).float().flatten() for s in srs]).mean().item()
+        check(not spread or sr_spread >= 0.3, f"cli.test {tag}: SR in (0.05, 0.95) at {sr_spread:.3f} of its elements")
+
+        # the same run with every kernel swapped for its plain version, on the kernel run's LR
+        plain_lr_diff, plain_srs = [], []
+
+        def replayed_lr(adapter, gt, i):
+            """The plain chain's LR, set beside the kernel run's, which is returned."""
+            kernel_lr = lrs[len(plain_lr_diff)]
+            plain_lr_diff.append((real_lr(adapter, gt, i) - kernel_lr).abs().max().item())
+            return kernel_lr
+
+        def plain_match(x, h, w):
+            plain_srs.append(real_match(x, h, w))
+            return plain_srs[-1]
+
+        cli_test._config_lr, cli_test._match_hw = replayed_lr, plain_match
+        blocks.rdb_apply = lambda x, k, b, packed=None: rdb.rdb_forward_ref(x, k, b)
+        filters.filter2d = f2d.filter2d_ref
+        rdb.launches = f2d.launches = 0
+        os.makedirs(run_dir + "_plain")
+        os.chdir(run_dir + "_plain")
+        plain = cli_test.run_eval(cli_test.build_parser().parse_args(argv))
+        blocks.rdb_apply, filters.filter2d = real_rdb, real_f2d
+        cli_test._config_lr, cli_test._match_hw = real_lr, real_match
+        check(rdb.launches == 0 and f2d.launches == 0, f"the plain {tag} run launched a kernel")
+        sr_diff = [(a - b).abs().max().item() for a, b in zip(srs, plain_srs)]
+        dm = {m: max(abs(a[m] - b[m]) for a, b in zip(frames, plain["per_image"])) for m in ("psnr", "ssim", "lpips")}
+        check(len(sr_diff) == n and max(sr_diff) <= 1e-3, f"cli.test {tag}: SR kernels vs plain {sr_diff}")
+        check(dm["psnr"] <= 0.01 and dm["ssim"] <= 1e-4 and dm["lpips"] <= 1e-4,
+              f"cli.test {tag}: metrics kernels vs plain {dm}")
+        check(not plain_lr_diff or max(plain_lr_diff) <= 0.05, f"cli.test {tag}: chain LR vs plain {plain_lr_diff}")
+        logs = os.path.join(run_dir, "samples", "logs")
+        (exp_dir,) = os.listdir(logs)
+        pngs = sorted(os.listdir(os.path.join(logs, exp_dir)))
+        want = {"sr_": "--save-images" in flags, "d_gt_": "--save-discriminator-eval" in flags,
+                "d_sr_": "--save-discriminator-eval" in flags, "attn2_": "--save-attention-layers" in flags}
+        for prefix, expected in want.items():
+            got = sum(p.startswith(prefix) and p.endswith(".png") for p in pngs)
+            check(got == (n if expected else 0), f"cli.test {tag}: {got} {prefix}*.png for {n} frames")
+        per = {part: float(np.median([r["ms"].get(part, 0.0) for r in frames]))
+               for part in ("lr", "generator", "psnr_ssim", "lpips", "niqe", "discriminator")}
+        numbers[tag] = {"frames": n, "wall_s": wall, "frames_per_s": n / wall, "ms_per_frame_p50": per,
+                        "generator_shapes": out["generator_shapes"], "avg": out["avg"], "launches": made,
+                        "sr_spread": sr_spread, "sr_max_abs_vs_plain": max(sr_diff), "metrics_vs_plain": dm,
+                        "chain_lr_max_abs_vs_plain": max(plain_lr_diff) if plain_lr_diff else None}
+        print(f"cli.test {tag} ({config}, {' '.join(f for f in flags if f != 'NIQE')}): {n} frames in {wall:.2f} s "
+              f"({n / wall:.2f} frames/s) host clock, {out['generator_shapes']} generator shapes; per frame p50: "
+              f"LR {per['lr']:.2f} ms, G {per['generator']:.2f} ms, PSNR/SSIM {per['psnr_ssim']:.2f} ms, LPIPS "
+              f"{per['lpips']:.2f} ms, NIQE {per['niqe']:.2f} ms, D {per['discriminator']:.2f} ms; {made} kernel "
+              f"calls; avg {out['avg']}; SR in (0.05, 0.95) {sr_spread:.3f}; kernels vs plain: SR max abs "
+              f"{max(sr_diff):.3g}, metrics {dm}, chain LR {numbers[tag]['chain_lr_max_abs_vs_plain']}", flush=True)
+
+    try:
+        for tag, config, exp, flags, spread_g in EVAL_RUNS:
+            weights = os.path.join(work, "results", exp, "ckpt_last.pth")
+            one_run(tag, config, weights, flags, spread=False)
+            if spread_g:
+                spread = spread_checkpoint(work, weights, os.path.join(work, "results_spread", exp, "ckpt_last.pth"),
+                                           *spread_g)
+                one_run(f"{tag}_spread", config, spread, flags, spread=True)
+    finally:
+        os.chdir(home)
+        blocks.rdb_apply, filters.filter2d = real_rdb, real_f2d
+        cli_test._config_lr, cli_test._match_hw = real_lr, real_match
+    return calls, numbers
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -2735,14 +3101,17 @@ def main() -> None:
         del reg_state
         ae_launches, ae = ae_train_phase(work, rdb, f2d, blocks, filters)
         es_launches, es = es_train_phase(work, rdb, f2d, blocks, filters)
+        sa_launches, sa = sa_train_phase(work, rdb, f2d, blocks, filters)
+        ev_launches, ev = eval_phase(work, rdb, f2d, blocks, filters)
     launches += (trans_launches["rdb"] + trans_infer["rdb"] + train_launches["rdb"] + gan_launches["rdb"]
-                 + re_launches + ren_launches["rdb"] + reg_launches["rdb"] + ae_launches["rdb"] + es_launches["rdb"])
+                 + re_launches + ren_launches["rdb"] + reg_launches["rdb"] + ae_launches["rdb"] + es_launches["rdb"]
+                 + sa_launches["rdb"] + ev_launches["rdb"])
     flash_launches = trans_launches["flash"] + trans_infer["flash"]
     check(launches > 0, "the main paths launched no rdb_forward kernel")
     check(flash_launches > 0, "the bsrgantrans_x2 path launched no flash_attention kernel")
     entry["launches"] = launches
-    # of which f32 (the 3xTF32 kernels): the f32 stdio requests
-    entry["launches_f32"] = f32_launches + trans_f32["rdb"] + re_f32_launches
+    # of which f32 (the 3xTF32 kernels): the f32 stdio requests and every cli.test forward
+    entry["launches_f32"] = f32_launches + trans_f32["rdb"] + re_f32_launches + ev_launches["rdb"]
     entry["launches_per_forward"] = RDB_PER_FORWARD
     entry["forward_ms"] = forward_ms  # bsrgan_x2 at 256x256, whole generator
     entry["realesrgan_forward_ms"] = re_forward_ms  # realesrgan_x4 at 128x128, realesrgan_x2 at 250x190
@@ -2760,12 +3129,19 @@ def main() -> None:
     entry["realesrgan_launches"] = reg_launches["rdb"]
     entry["aesrgan_launches"] = ae_launches["rdb"]
     entry["esrgan_recipe_launches"] = es_launches["rdb"]
+    entry["sa_launches"] = sa_launches["rdb"]
+    entry["eval_launches"] = ev_launches["rdb"]
+    check(sa_launches["rdb"] > 0 and sa_launches["filter2d"] > 0, "the SA training path launched no kernel")
+    check(ev_launches["rdb"] > 0 and ev_launches["filter2d"] > 0, "the cli.test path launched no kernel")
     check(es_launches["rdb"] > 0, "the ESRGAN training path launched no rdb_forward kernel")
     check(ren_launches["filter2d"] > 0 and reg_launches["filter2d"] > 0,
           "a Real-ESRGAN training path launched no filter2d kernel")
     check(ae_launches["rdb"] > 0 and ae_launches["filter2d"] > 0, "the aesrgan training path launched no kernel")
     filter_entry["launches"] = (train_launches["filter2d"] + gan_launches["filter2d"] + ren_launches["filter2d"]
-                                + reg_launches["filter2d"] + ae_launches["filter2d"])
+                                + reg_launches["filter2d"] + ae_launches["filter2d"] + sa_launches["filter2d"]
+                                + ev_launches["filter2d"])
+    filter_entry["sa_launches"] = sa_launches["filter2d"]
+    filter_entry["eval_launches"] = ev_launches["filter2d"]
     filter_entry["aesrgan_launches"] = ae_launches["filter2d"]
     filter_entry["realesrnet_launches"] = ren_launches["filter2d"]
     filter_entry["realesrgan_launches"] = reg_launches["filter2d"]
@@ -2816,6 +3192,13 @@ def main() -> None:
               f"{ES_RDB_SHAPES[name]} alone {RDB_PER_FORWARD * entry[f'{name}_train_kernel_ms']:.2f} ms){parts}; "
               f"bicubic LR {r['chain_ms']:.2f} ms; host-clock step p50 {r['step_ms_p50']:.2f} ms; peak memory "
               f"{r['peak_memory_gb']:.2f} GB; {r['rdb_launches']} rdb launches", flush=True)
+    print(f"bsrgan --d-arch discriminator_unet_sa step (bf16, batch 16, GT 144): {sa['train_step_ms']:.2f} ms on the "
+          f"card, the D update {sa['d_update_ms']:.2f} ms, adversarial {sa['adversarial_forward_backward_ms']:.2f} ms, "
+          f"attentions {sa['attn_down2_ms']:.2f} / {sa['attn_down3_ms']:.2f} / {sa['attn_up1_ms']:.2f} ms; host-clock "
+          f"step p50 {sa['step_ms_p50']:.2f} ms; peak memory {sa['peak_memory_gb']:.2f} GB; {sa_launches} kernel calls",
+          flush=True)
+    print(f"cli.test on the card: {ev_launches} kernel calls; frames/s "
+          f"{ {tag: round(r['frames_per_s'], 3) for tag, r in ev.items()} }", flush=True)
     # last, so that no timed phase runs after a profiler session
     q, k, v = (t.transpose(1, 2) for t in flash_inputs(FLASH_SHAPE, seed=100))
     flash_entry["library_f32_kernels"] = sdpa_kernels(q, k, v)
@@ -2827,6 +3210,8 @@ def main() -> None:
     print(json.dumps({"realesrgan": reg}))
     print(json.dumps({"aesrgan": {k: v for k, v in ae.items() if k != "metrics"}}))
     print(json.dumps({"esrgan_recipe": es}))
+    print(json.dumps({"sa": sa}))
+    print(json.dumps({"eval": ev}))
     print(smi)
     print(json.dumps({"kernels": [entry, flash_entry, filter_entry]}))
     print(json.dumps({"ok": True, "device": {

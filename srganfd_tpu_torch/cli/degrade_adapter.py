@@ -53,7 +53,17 @@ class DegradationAdapter:
         seed: int = 0,
         train: bool = True,
         device: torch.device | str = "cpu",
+        eval_codec: str = "diffjpeg",
     ) -> None:
+        """``eval_codec`` is the JPEG of the BSRGAN chain in evaluation
+        (``train=False``): ``"diffjpeg"``, the chain's own; the JAX
+        package's ``"cv2"`` (the reference's entropy-coded round trip) is
+        not ported and raises (ROADMAP.md A9)."""
+        if eval_codec == "cv2":
+            raise NotImplementedError("eval_codec='cv2' (--codec cv2) is not ported to srganfd_tpu_torch yet: "
+                                      "see ROADMAP.md A9")
+        if eval_codec != "diffjpeg":
+            raise ValueError(f"unknown codec {eval_codec!r}: expected 'diffjpeg' or 'cv2'")
         if cfg.degradation in _NOT_PORTED:
             raise NotImplementedError(
                 f"degradation {cfg.degradation!r} is not ported to srganfd_tpu_torch yet: "

@@ -15,7 +15,9 @@ chain; and the Real-ESRGAN recipe's two stages, ``realesrnet`` (L1) and
 the USM-sharpened GT), with the second-order chain; and A-ESRGAN's
 ``aesrgan`` (``bsrgantrans_x2`` against the attention-gated U-Net
 discriminator, or with ``--d-arch discriminator_attention_unet_ms`` its
-multi-scale ensemble, the D-first step, the BSRGAN chain). Every blur of
+multi-scale ensemble, the D-first step, the BSRGAN chain). ``--config
+bsrgan --d-arch discriminator_unet_sa`` trains against the U-Net with token
+self-attention instead, the fork's ``BSRGANsa`` experiment. Every blur of
 the chains runs the hand-written ``filter2d`` kernel and the generator's
 RDBs the RDB kernel on the card.
 
@@ -329,6 +331,7 @@ def main(argv: list[str] | None = None) -> None:
                     "name and shape; ignored without a D")
     ap.add_argument("--d-arch", default=None,
                     help="override the discriminator arch (ported: discriminator_unet, "
+                    "discriminator_unet_sa (bsrgan's self-attention U-Net), "
                     "uNetDiscriminatorAesrgan / discriminator_attention_unet, "
                     "discriminator_attention_unet_ms, whose scales need GT sides of 16k)")
     ap.add_argument("--grad-accum", type=int, default=None, help="not ported yet")

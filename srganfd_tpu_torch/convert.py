@@ -49,6 +49,13 @@ frozen networks of the losses map too, so that tests can load the JAX
 package's surrogates: VGG19's ``conv{i}`` onto ``features.{i}`` and
 AlexNet's ``conv{i}`` onto ``alex.{i}``.
 
+A ``DiscriminatorUNetSA`` tree (``discriminator_unet_sa``) holds the same
+leaves and ``TokenSelfAttention_{0,1,2}`` (the attentions after down2,
+after down3 and on up1), each with ``query``/``key``/``value`` kernels (C,
+H, D) and biases (H, D) and an ``out`` kernel (H, D, C) and bias; they map
+onto ``attn_down2``, ``attn_down3`` and ``attn_up1`` in the layout of
+torch's ``nn.MultiheadAttention``, as the transformer's attention maps.
+
 An ``AttentionUNetDiscriminator`` tree (``uNetDiscriminatorAesrgan``) holds
 ``Conv_0``/``Conv_1`` (``conv0``/``conv9``), ``SNConv_0..8`` (``conv1``,
 ``conv2``, ``conv3``, ``gating``, ``conv4..conv8``: the module's call
@@ -90,7 +97,8 @@ __all__ = [
     "flax_to_state_dict", "rrdb_flax_to_state_dict", "realesrgan_flax_to_state_dict",
     "bsrgantrans_flax_to_state_dict",
     "encoder_layer_to_state_dict", "state_dict_to_flax",
-    "discriminator_flax_to_state_dict", "attention_discriminator_flax_to_state_dict",
+    "discriminator_flax_to_state_dict", "sa_discriminator_flax_to_state_dict", "token_attention_to_state_dict",
+    "attention_discriminator_flax_to_state_dict",
     "multiscale_attention_discriminator_flax_to_state_dict", "vgg_discriminator_flax_to_state_dict",
     "vgg19_flax_to_state_dict", "alexnet_flax_to_state_dict",
     "load_generator_weights",
@@ -310,6 +318,42 @@ def discriminator_flax_to_state_dict(params: dict, spectral: dict) -> dict[str, 
     _put_conv(params, sd, used, "Conv_1", "conv9")
     _refuse_unmapped(params, used, "discriminator_unet")
     _refuse_unmapped(spectral, {f"{name}/u" for name in sn}, "discriminator_unet spectral")
+    return sd
+
+
+_SA_NAMES = ("attn_down2", "attn_down3", "attn_up1")  # TokenSelfAttention_0..2
+_TOKEN_ATTENTION_LEAVES = frozenset(f"{p}/{leaf}" for p in ("query", "key", "value", "out")
+                                    for leaf in ("kernel", "bias"))
+
+
+def token_attention_to_state_dict(tree: dict) -> dict[str, np.ndarray]:
+    """One Flax ``TokenSelfAttention`` subtree (``query``/``key``/``value``
+    kernels (C, H, D) and biases (H, D), ``out`` kernel (H, D, C)) -> the
+    port's ``TokenSelfAttention`` state dict in ``nn.MultiheadAttention``'s
+    layout, as ``encoder_layer_to_state_dict`` maps the transformer's."""
+    if _leaves(tree) != _TOKEN_ATTENTION_LEAVES:
+        raise ValueError(f"not a TokenSelfAttention subtree: leaves {sorted(_leaves(tree) ^ _TOKEN_ATTENTION_LEAVES)} "
+                         "missing or unexpected")
+    c = _np(tree["query"]["kernel"]).shape[0]
+    return {
+        "in_proj_weight": np.concatenate([_np(tree[p]["kernel"]).reshape(c, -1).T for p in ("query", "key", "value")]),
+        "in_proj_bias": np.concatenate([_np(tree[p]["bias"]).reshape(-1) for p in ("query", "key", "value")]),
+        "out_proj.weight": np.ascontiguousarray(_np(tree["out"]["kernel"]).reshape(-1, c).T),
+        "out_proj.bias": _np(tree["out"]["bias"]),
+    }
+
+
+def sa_discriminator_flax_to_state_dict(params: dict, spectral: dict) -> dict[str, np.ndarray]:
+    """A ``DiscriminatorUNetSA`` tree (``discriminator_unet_sa``): the U-Net's
+    leaves through :func:`discriminator_flax_to_state_dict`, and
+    ``TokenSelfAttention_{0,1,2}`` onto ``attn_down2``, ``attn_down3`` and
+    ``attn_up1`` (the JAX module's call order)."""
+    sa = {f"TokenSelfAttention_{i}" for i in range(3)}
+    if not sa <= set(params):
+        raise ValueError(f"a discriminator_unet_sa tree has TokenSelfAttention_0..2, found {sorted(params)}")
+    sd = discriminator_flax_to_state_dict({k: v for k, v in params.items() if k not in sa}, spectral)
+    for i, name in enumerate(_SA_NAMES):
+        sd.update({f"{name}.{k}": v for k, v in token_attention_to_state_dict(params[f"TokenSelfAttention_{i}"]).items()})
     return sd
 
 

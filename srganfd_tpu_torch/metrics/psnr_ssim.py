@@ -1,5 +1,7 @@
 """PSNR / SSIM of the port (counterpart of ``srganfd_tpu/metrics/psnr_ssim.py``
-``psnr_tensor``, ``ssim_tensor``, ``psnr`` and ``ssim``).
+``psnr_tensor``, ``ssim_tensor``, ``psnr``, ``ssim`` and the masked
+``psnr_tensor_padded``/``ssim_tensor_padded`` that ``cli.test`` runs on
+bucket-padded frames).
 
 Parity target: the reference's torch ``PSNR``/``SSIM`` modules
 (``ESRGAN/image_quality_assessment.py:361-541``): RGB [0,1] inputs (NHWC
@@ -18,7 +20,8 @@ import torch.nn.functional as F
 
 from srganfd_tpu_torch.ops import color
 
-__all__ = ["gaussian_window", "psnr_tensor", "ssim_tensor", "psnr", "ssim"]
+__all__ = ["gaussian_window", "psnr_tensor", "ssim_tensor", "psnr", "ssim", "psnr_tensor_padded",
+           "ssim_tensor_padded"]
 
 
 def gaussian_window(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
@@ -60,10 +63,11 @@ def _valid_gauss_filter(x: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
     return out.permute(0, 2, 3, 1)
 
 
-def _ssim_x255(raw: torch.Tensor, dst: torch.Tensor, window_size: int,
-               gaussian_sigma: float) -> torch.Tensor:
-    """(N,) SSIM of float64 NHWC images in the x255 domain: valid-conv
-    Gaussian window, c1/c2 = (0.01*255)^2 / (0.03*255)^2."""
+def _ssim_map_x255(raw: torch.Tensor, dst: torch.Tensor, window_size: int,
+                   gaussian_sigma: float) -> torch.Tensor:
+    """The SSIM map of float64 NHWC images in the x255 domain, (N, H - win
+    + 1, W - win + 1, C): valid-conv Gaussian window, c1/c2 =
+    (0.01*255)^2 / (0.03*255)^2."""
     c1 = (0.01 * 255.0) ** 2
     c2 = (0.03 * 255.0) ** 2
     window = torch.from_numpy(gaussian_window(window_size, gaussian_sigma)).to(raw.device)
@@ -75,7 +79,13 @@ def _ssim_x255(raw: torch.Tensor, dst: torch.Tensor, window_size: int,
     cov = _valid_gauss_filter(raw * dst, window) - mu_rd
     num = (2.0 * mu_rd + c1) * (2.0 * cov + c2)
     den = (mu_r2 + mu_d2 + c1) * (var_r + var_d + c2)
-    return (num / den).mean(dim=(1, 2, 3))
+    return num / den
+
+
+def _ssim_x255(raw: torch.Tensor, dst: torch.Tensor, window_size: int,
+               gaussian_sigma: float) -> torch.Tensor:
+    """(N,) SSIM of float64 NHWC images in the x255 domain."""
+    return _ssim_map_x255(raw, dst, window_size, gaussian_sigma).mean(dim=(1, 2, 3))
 
 
 def ssim_tensor(
@@ -91,6 +101,58 @@ def ssim_tensor(
     computed in float64."""
     raw, dst = _prepare(raw, dst, crop_border, only_test_y_channel)
     return _ssim_x255(raw * 255.0, dst * 255.0, window_size, gaussian_sigma).float()
+
+
+# masked variants: the metrics over the top-left (h, w) valid region of
+# bucket-padded images, equal to the unpadded ones on the cropped images
+# (the Y conversion is pointwise; a valid-conv window inside the mask sees
+# valid pixels only)
+
+
+def _region_mask(valid_hw: torch.Tensor, height: int, width: int, border: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """(N, H, W) 0/1 mask of the rows and columns in [border, valid - border)."""
+    valid_hw = valid_hw.to(torch.int64)
+    rows = torch.arange(height, device=valid_hw.device)[None, :]
+    cols = torch.arange(width, device=valid_hw.device)[None, :]
+    ok_r = (rows >= border) & (rows < valid_hw[:, 0:1] - border)
+    ok_c = (cols >= border) & (cols < valid_hw[:, 1:2] - border)
+    return (ok_r[:, :, None] & ok_c[:, None, :]).to(dtype)
+
+
+def psnr_tensor_padded(
+    raw: torch.Tensor, dst: torch.Tensor, valid_hw: torch.Tensor, crop_border: int = 0,
+    only_test_y_channel: bool = True,
+) -> torch.Tensor:
+    """PSNR over the valid region of padded NHWC images -> (N,) float64.
+    ``valid_hw``: (N, 2) integer (h, w) of each image; equals
+    ``psnr_tensor(raw[:, :h, :w], dst[:, :h, :w], ...)``."""
+    if only_test_y_channel:
+        raw, dst = color.rgb_to_y(raw), color.rgb_to_y(dst)
+    raw, dst = raw.double(), dst.double()
+    mask = _region_mask(valid_hw.to(raw.device), raw.shape[1], raw.shape[2], crop_border, raw.dtype)[..., None]
+    err = ((raw - dst) * 255.0) ** 2 * mask
+    count = mask.sum(dim=(1, 2, 3)) * raw.shape[-1]
+    mse = err.sum(dim=(1, 2, 3)) / count + 1e-8
+    return 10.0 * torch.log10(255.0**2 / mse)
+
+
+def ssim_tensor_padded(
+    raw: torch.Tensor, dst: torch.Tensor, valid_hw: torch.Tensor, crop_border: int = 0,
+    only_test_y_channel: bool = True, window_size: int = 11, gaussian_sigma: float = 1.5,
+) -> torch.Tensor:
+    """SSIM over the valid region of padded NHWC images -> (N,) float32: the
+    SSIM map of the whole padded image, averaged over the window positions
+    i with ``border <= i < h - border - window_size + 1`` (each axis), the
+    unpadded kernel's outputs."""
+    if only_test_y_channel:
+        raw, dst = color.rgb_to_y(raw), color.rgb_to_y(dst)
+    raw, dst = raw.double() * 255.0, dst.double() * 255.0
+    ssim_map = _ssim_map_x255(raw, dst, window_size, gaussian_sigma)
+    win_hw = valid_hw.to(raw.device).to(torch.int64) - (window_size - 1)
+    mask = _region_mask(win_hw, ssim_map.shape[1], ssim_map.shape[2], crop_border, ssim_map.dtype)[..., None]
+    count = mask.sum(dim=(1, 2, 3)) * ssim_map.shape[-1]
+    return ((ssim_map * mask).sum(dim=(1, 2, 3)) / count).float()
 
 
 # the reference's numpy convention: one BGR [0, 255] HWC image

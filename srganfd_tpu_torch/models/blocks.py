@@ -3,7 +3,7 @@
 Flax's ``BatchNorm`` (training and eval modes),
 ``ResidualDenseBlock``, ``RRDB`` and the trunk; ``pixel_unshuffle``; the
 attention functions and ``TransformerEncoderLayer`` of the transformer
-bottleneck).
+bottleneck; ``TokenSelfAttention`` of the self-attention discriminator).
 
 Layout: the modules take and return NCHW tensors, kept in
 ``torch.channels_last`` memory format, so that ``x.permute(0, 2, 3, 1)``
@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from srganfd_tpu_torch.ops.cuda.attention import HEAD_DIMS as FLASH_HEAD_DIMS
 from srganfd_tpu_torch.ops.cuda.attention import flash_attention, flash_attention_ref
 from srganfd_tpu_torch.ops.cuda.rdb import lrelu, pack_rdb_weights, rdb_apply
 
@@ -33,7 +34,7 @@ __all__ = [
     "lrelu", "out_dtype", "Conv", "init_lecun_normal", "BatchNorm", "SNConv", "ResidualDenseBlock", "RRDB", "make_trunk", "init_kaiming_x01",
     "pixel_unshuffle",
     "ATTN_BACKENDS", "attention_backend", "chunked_attention", "large_attention",
-    "dot_product_attention", "TransformerEncoderLayer",
+    "dot_product_attention", "TransformerEncoderLayer", "TokenSelfAttention",
 ]
 
 
@@ -414,3 +415,69 @@ class TransformerEncoderLayer(nn.Module):
         x = self.norm1(x + self.self_attn(x))
         y = self.linear2(F.relu(self.linear1(x)))
         return self.norm2(x + y)
+
+
+class TokenSelfAttention(nn.Module):
+    """Multi-head self-attention over the flattened H x W tokens of an NCHW
+    map (``srganfd_tpu/models/blocks.py:522-562``, after torch's
+    ``nn.MultiheadAttention`` in ``BSRGAN/model.py:388-402``): q, k, v are
+    Flax ``DenseGeneral`` projections C -> (H, D) with biases, the logits
+    ``einsum(q, k) / sqrt(D)`` (divided after the product, where
+    ``dot_product_attention`` scales q first: the two round differently),
+    a softmax over the keys, and ``DenseGeneral`` (H, D) -> C on the
+    result, all in the input's dtype.
+
+    Returns ``(output, map)``: the output NCHW as the input, and the
+    softmax weights averaged over heads, (N, Q, K), torch's
+    ``average_attn_weights``. With ``chunk_size`` > 0 the attention is
+    exact in query chunks through ``large_attention`` and the map, itself
+    O((HW)^2), is None, as in JAX. The parameters take the layout of
+    torch's ``nn.MultiheadAttention``: ``in_proj_weight`` (3C, C) stacks q,
+    k, v with the output features head-major (h * D + d), ``out_proj``
+    maps the H * D features back to C."""
+
+    def __init__(self, channels: int, num_heads: int = 8, chunk_size: int = 0,
+                 attn_backend: str | None = None) -> None:
+        super().__init__()
+        if channels % num_heads:
+            raise ValueError(f"{channels} channels are not divisible by {num_heads} heads")
+        self.num_heads, self.chunk_size = num_heads, chunk_size
+        self.backend = attention_backend(attn_backend)
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * channels, channels))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * channels))
+        self.out_proj = Linear(channels, channels)
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """Flax ``DenseGeneral``'s initialiser: lecun-normal kernels over
+        the contracted axes (variance 1/C for q, k, v and 1/(H D) for the
+        output), truncated at 2 standard deviations; zero biases."""
+        with torch.no_grad():
+            for w in (self.in_proj_weight, self.out_proj.weight):
+                std = (1.0 / w.shape[1]) ** 0.5 / 0.87962566103423978
+                t = torch.empty(w.shape, dtype=torch.float32)
+                nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
+                w.copy_(t)
+            self.in_proj_bias.zero_()
+            self.out_proj.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        n, c, h, w = x.shape
+        tokens = x.permute(0, 2, 3, 1).reshape(n, h * w, c)
+        qkv = _linear(tokens, self.in_proj_weight, self.in_proj_bias).view(n, h * w, 3, self.num_heads, -1)
+        q, k, v = qkv.unbind(2)  # (N, T, H, D)
+        d = q.shape[-1]
+        if self.chunk_size:
+            if self.backend == "flash" and ((torch.is_grad_enabled() and q.requires_grad) or d not in FLASH_HEAD_DIMS):
+                raise NotImplementedError(
+                    f"TokenSelfAttention with chunk_size > 0 on the flash backend: the flash kernel has no "
+                    f"backward yet (ROADMAP.md B4) and takes head dims {FLASH_HEAD_DIMS}, this layer's is {d}; "
+                    "use the chunked backend"
+                )
+            out, avg = large_attention(q, k, v, self.chunk_size, self.backend), None
+        else:
+            logits = torch.einsum("nqhd,nkhd->nhqk", q, k) / torch.tensor(math.sqrt(d), dtype=q.dtype)
+            weights = logits.softmax(-1)
+            out = torch.einsum("nhqk,nkhd->nqhd", weights, v)
+            avg = weights.mean(1)  # (N, Q, K)
+        out = self.out_proj(out.reshape(n, h * w, c))
+        return out.reshape(n, h, w, c).permute(0, 3, 1, 2), avg

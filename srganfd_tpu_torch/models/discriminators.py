@@ -10,6 +10,10 @@ Ported:
   with spectral norm of ``Real_ESRGAN/model.py:29-105`` (clone
   ``BSRGAN/model.py:91-167``) that the ``bsrgan`` and ``realesrgan``
   configs train against;
+- ``DiscriminatorUNetSA``, registered as ``discriminator_unet_sa``, that
+  U-Net with token self-attention after down2, after down3 and on up1
+  (``BSRGAN/model.py:170-279``), which ``--d-arch discriminator_unet_sa``
+  trains in the ``bsrgan`` recipe;
 - ``AttentionUNetDiscriminator``, registered as ``uNetDiscriminatorAesrgan``
   and ``discriminator_attention_unet``, A-ESRGAN's attention-gated U-Net
   (``A-ESRGAN/model.py:228-352``) that the ``aesrgan`` config trains
@@ -17,25 +21,26 @@ Ported:
 - ``MultiScaleAttentionDiscriminator``, ``discriminator_attention_unet_ms``,
   the A-ESRGAN paper's ensemble of such U-Nets over 1x, 1/2x, ...
 
-The other discriminators of the JAX package raise in ``create_model`` with
-the ROADMAP.md item that ports them.
+Every discriminator of the JAX package is ported.
 
 ``forward`` takes NHWC float tensors, as ``model.apply`` does in JAX, and
 returns what the JAX module returns: for the VGG-128 D one logit per
 image, (N, 1); for the U-Nets NHWC, the per-pixel logit map (N, H,
 W, 1); in f32 (f64 under f64 compute, a CPU-only dtype of parity tests);
-for the attention U-Net ``(logit map, (ly1, ly2, ly3))``, its three
+for the self-attention U-Net ``(logit map, up1 attention map)``, the map
+(N, Q, K) averaged over heads; for the attention U-Net ``(logit map, (ly1, ly2, ly3))``, its three
 attention maps in the compute dtype; for the ensemble ``(per-scale logit
 maps, scale 0's attention maps)``. Inside, the network runs NCHW
 channels-last in the compute ``dtype``. ``update_stats`` is the JAX
 module's ``train`` with the mutable collections kept: each spectral-norm
 conv runs its power iteration on every call and each BatchNorm normalises
 with the batch's statistics, and they write ``u`` and the running
-statistics only when it is set. The VGG-128 D also takes ``train``, the
-JAX module's own switch between its BatchNorms' batch statistics
+statistics only when it is set. Every D also takes ``train``, the JAX
+module's own switch between its BatchNorms' batch statistics
 (``train=True``, what every training step runs) and their running
 statistics (``train=False``, eval mode, the JAX module's default and so
-the port's). State-dict names are the reference's
+the port's, what ``cli.test`` runs); a D without BatchNorm runs alike in
+both modes. State-dict names are the reference's
 (``tools/port_torch_weights.py``); ``convert.py`` maps the Flax trees onto
 them.
 """
@@ -49,11 +54,19 @@ from torch import nn
 
 import torch.nn.functional as F
 
-from srganfd_tpu_torch.models.blocks import BatchNorm, Conv, SNConv, init_lecun_normal, lrelu, out_dtype
+from srganfd_tpu_torch.models.blocks import (
+    BatchNorm,
+    Conv,
+    SNConv,
+    TokenSelfAttention,
+    init_lecun_normal,
+    lrelu,
+    out_dtype,
+)
 from srganfd_tpu_torch.models.registry import register
 from srganfd_tpu_torch.ops.resize import resize_bilinear
 
-__all__ = ["DiscriminatorVGG128", "DiscriminatorUNet", "AttentionUNetDiscriminator",
+__all__ = ["DiscriminatorVGG128", "DiscriminatorUNet", "DiscriminatorUNetSA", "AttentionUNetDiscriminator",
            "MultiScaleAttentionDiscriminator"]
 
 
@@ -134,6 +147,21 @@ class DiscriminatorVGG128(nn.Module):
         return F.linear(h, fc1.weight.to(h.dtype), fc1.bias.to(h.dtype)).to(out_dtype(self.dtype))
 
 
+def _add_unet_convs(m: nn.Module, in_channels: int, out_channels: int, c: int) -> None:
+    """The spectral-norm U-Net's convs (``Real_ESRGAN/model.py:29-105``):
+    ``conv0``, the stride-2 ``conv1..3``, ``conv4..8`` and ``conv9``."""
+    m.conv0 = Conv(in_channels, c)
+    m.conv1 = SNConv(c, c * 2, 4, 2)
+    m.conv2 = SNConv(c * 2, c * 4, 4, 2)
+    m.conv3 = SNConv(c * 4, c * 8, 4, 2)
+    m.conv4 = SNConv(c * 8, c * 4, 3, 1)
+    m.conv5 = SNConv(c * 4, c * 2, 3, 1)
+    m.conv6 = SNConv(c * 2, c, 3, 1)
+    m.conv7 = SNConv(c, c, 3, 1)
+    m.conv8 = SNConv(c, c, 3, 1)
+    m.conv9 = Conv(c, out_channels)
+
+
 class DiscriminatorUNet(nn.Module):
     """U-Net discriminator with spectral norm: 3 SN-conv /2 down blocks,
     bilinear-up + SN-conv with skip adds, 2 more SN convs, a per-pixel
@@ -150,17 +178,7 @@ class DiscriminatorUNet(nn.Module):
     ) -> None:
         super().__init__()
         self.dtype = dtype
-        c = channels
-        self.conv0 = Conv(in_channels, c)
-        self.conv1 = SNConv(c, c * 2, 4, 2)
-        self.conv2 = SNConv(c * 2, c * 4, 4, 2)
-        self.conv3 = SNConv(c * 4, c * 8, 4, 2)
-        self.conv4 = SNConv(c * 8, c * 4, 3, 1)
-        self.conv5 = SNConv(c * 4, c * 2, 3, 1)
-        self.conv6 = SNConv(c * 2, c, 3, 1)
-        self.conv7 = SNConv(c, c, 3, 1)
-        self.conv8 = SNConv(c, c, 3, 1)
-        self.conv9 = Conv(c, out_channels)
+        _add_unet_convs(self, in_channels, out_channels, channels)
         # the JAX module's call order: Conv_0, SNConv_0..7, Conv_1
         init_lecun_normal(self.conv0, generator)
         for i in range(1, 9):
@@ -169,7 +187,8 @@ class DiscriminatorUNet(nn.Module):
         if device is not None:
             self.to(device)
 
-    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, update_stats: bool = False, train: bool = False) -> torch.Tensor:
+        del train  # no BatchNorm: the spectral-norm convs run alike in both modes
         x = _nchw(x, self.dtype)
         out1 = self.conv0(x)
         down1 = lrelu(self.conv1(out1, update_stats))
@@ -181,6 +200,71 @@ class DiscriminatorUNet(nn.Module):
         out = lrelu(self.conv7(up3, update_stats))
         out = lrelu(self.conv8(out, update_stats))
         return self.conv9(out).to(out_dtype(self.dtype)).permute(0, 2, 3, 1)
+
+
+class DiscriminatorUNetSA(nn.Module):
+    """The spectral-norm U-Net of ``DiscriminatorUNet`` with token
+    self-attention (``TokenSelfAttention``, 8 heads) after down2, after
+    down3, and on up1 before its ``+ down2`` skip
+    (``BSRGAN/model.py:170-279``; JAX
+    ``srganfd_tpu/models/discriminators.py:119-157``). Returns ``(logit
+    map, attn_map_up1)``: the up1 attention's head-averaged weights, (N,
+    Q, K) in the compute dtype, or None with ``attn_chunk`` > 0, whose
+    attentions run exactly in query chunks through ``attn_backend`` (see
+    ``TokenSelfAttention``).
+
+    Names: the U-Net's (``conv0``..``conv9``), and ``attn_down2``,
+    ``attn_down3``, ``attn_up1`` for the attentions in the layout of
+    torch's ``nn.MultiheadAttention`` (``in_proj_weight``,
+    ``in_proj_bias``, ``out_proj``). The reference's module file is not in
+    this repository, so the attentions' names are the port's choice, as
+    for ``bsrgantrans_x2``'s transformer."""
+
+    def __init__(
+        self,
+        in_channels: int = 3,
+        out_channels: int = 1,
+        channels: int = 64,
+        attn_chunk: int = 0,
+        attn_backend: str | None = None,
+        dtype: torch.dtype = torch.float32,
+        device: Any = None,
+        generator: torch.Generator | None = None,
+    ) -> None:
+        super().__init__()
+        self.dtype = dtype
+        c = channels
+        _add_unet_convs(self, in_channels, out_channels, c)
+        self.attn_down2 = TokenSelfAttention(c * 4, chunk_size=attn_chunk, attn_backend=attn_backend)
+        self.attn_down3 = TokenSelfAttention(c * 8, chunk_size=attn_chunk, attn_backend=attn_backend)
+        self.attn_up1 = TokenSelfAttention(c * 4, chunk_size=attn_chunk, attn_backend=attn_backend)
+        # the JAX module's call order: Conv_0, SNConv_0..1, TokenSelfAttention_0,
+        # SNConv_2, TokenSelfAttention_1, SNConv_3, TokenSelfAttention_2, SNConv_4..7, Conv_1
+        init_lecun_normal(self.conv0, generator)
+        for m in (self.conv1, self.conv2, self.attn_down2, self.conv3, self.attn_down3, self.conv4,
+                  self.attn_up1, self.conv5, self.conv6, self.conv7, self.conv8):
+            m.reset_parameters(generator)
+        init_lecun_normal(self.conv9, generator)
+        if device is not None:
+            self.to(device)
+
+    def forward(
+        self, x: torch.Tensor, update_stats: bool = False, train: bool = False
+    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        del train  # no BatchNorm: the spectral-norm convs run alike in both modes
+        us = update_stats
+        x = _nchw(x, self.dtype)
+        out1 = self.conv0(x)
+        down1 = lrelu(self.conv1(out1, us))
+        down2, _ = self.attn_down2(lrelu(self.conv2(down1, us)))
+        down3, _ = self.attn_down3(lrelu(self.conv3(down2, us)))
+        up1, attn_map_up1 = self.attn_up1(lrelu(self.conv4(_upsample2(down3), us)))
+        up1 = up1 + down2
+        up2 = lrelu(self.conv5(_upsample2(up1), us)) + down1
+        up3 = lrelu(self.conv6(_upsample2(up2), us)) + out1
+        out = lrelu(self.conv7(up3, us))
+        out = lrelu(self.conv8(out, us))
+        return self.conv9(out).to(out_dtype(self.dtype)).permute(0, 2, 3, 1), attn_map_up1
 
 
 class _AddAttn(nn.Module):
@@ -201,12 +285,13 @@ class _AddAttn(nn.Module):
         for conv in (self.theta, self.phi, self.psi, self.W[0]):
             init_lecun_normal(conv, generator)
 
-    def forward(self, x: torch.Tensor, g: torch.Tensor, update_stats: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, g: torch.Tensor, update_stats: bool,
+                train: bool) -> tuple[torch.Tensor, torch.Tensor]:
         theta = self.theta(x)
         phi = _resize(self.phi(g), tuple(theta.shape[2:]))
         psi = torch.sigmoid(self.psi(F.relu(theta + phi)))
         psi = _resize(psi, tuple(x.shape[2:]))
-        return self.W[1](self.W[0](psi * x), update_stats), psi
+        return self.W[1](self.W[0](psi * x), update_stats, train), psi
 
 
 class _UNetCat(nn.Module):
@@ -287,7 +372,7 @@ class AttentionUNetDiscriminator(nn.Module):
             self.to(device)
 
     def forward(
-        self, x: torch.Tensor, update_stats: bool = False
+        self, x: torch.Tensor, update_stats: bool = False, train: bool = False
     ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
         us = update_stats
         x0 = lrelu(self.conv0(_nchw(x, self.dtype)))
@@ -295,9 +380,9 @@ class AttentionUNetDiscriminator(nn.Module):
         x2 = lrelu(self.conv2(x1, us))
         x3 = lrelu(self.conv3(x2, us))
         gated = lrelu(self.gating(x3, us))
-        attn1, ly1 = self.attn_1(x2, gated, us)
-        attn2, ly2 = self.attn_2(x1, gated, us)
-        attn3, ly3 = self.attn_3(x0, gated, us)
+        attn1, ly1 = self.attn_1(x2, gated, us, train)
+        attn2, ly2 = self.attn_2(x1, gated, us, train)
+        attn3, ly3 = self.attn_3(x0, gated, us, train)
         y = lrelu(self.conv4(self.cat_1(attn1, x3, us), us))
         y = lrelu(self.conv5(self.cat_2(attn2, y, us), us))
         y = lrelu(self.conv6(self.cat_3(attn3, y, us), us))
@@ -332,12 +417,12 @@ class MultiScaleAttentionDiscriminator(nn.Module):
             self.to(device)
 
     def forward(
-        self, x: torch.Tensor, update_stats: bool = False
+        self, x: torch.Tensor, update_stats: bool = False, train: bool = False
     ) -> tuple[tuple[torch.Tensor, ...], tuple[torch.Tensor, ...]]:
         cur = x.to(self.dtype)
         outs, attns0 = [], ()
         for s in range(self.num_scales):
-            out, attns = getattr(self, f"D{s}")(cur, update_stats)
+            out, attns = getattr(self, f"D{s}")(cur, update_stats, train)
             outs.append(out)
             if s == 0:
                 attns0 = attns
@@ -354,6 +439,11 @@ def discriminator(**kw: Any) -> DiscriminatorVGG128:
 @register("discriminator_unet")
 def discriminator_unet(**kw: Any) -> DiscriminatorUNet:
     return DiscriminatorUNet(**kw)
+
+
+@register("discriminator_unet_sa")
+def discriminator_unet_sa(**kw: Any) -> DiscriminatorUNetSA:
+    return DiscriminatorUNetSA(**kw)
 
 
 @register("uNetDiscriminatorAesrgan")

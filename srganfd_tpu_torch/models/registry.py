@@ -12,9 +12,7 @@ _REGISTRY: dict[str, Callable[..., Any]] = {}
 
 # archs of the JAX package that the port has not built yet -> the ROADMAP.md
 # item that ports them
-_NOT_PORTED = {
-    "discriminator_unet_sa": "A4 (with the flash-attention backward, B4)",
-}
+_NOT_PORTED: dict[str, str] = {}
 
 
 def register(name: str) -> Callable[[Callable[..., Any]], Callable[..., Any]]:

@@ -1,6 +1,6 @@
 """Experiment tracking: a JSONL sink, with MLflow and TensorBoard when
 installed (the port's own copy of ``srganfd_tpu/track/tracker.py``, cut to
-what ``cli/train.py`` calls).
+what ``cli/train.py`` and ``cli/test.py`` call).
 
 Parity target (SURVEY.md §2.7/§5): the reference logs to MLflow
 (experiment/run/params/metrics/models, e.g.
@@ -114,6 +114,29 @@ class Tracker:
         self._write({"type": "artifact", "name": name, "path": path})
         if self._mlflow is not None:
             self._mlflow.log_artifact(path, name)
+
+    def log_image(self, image: np.ndarray, name: str) -> None:
+        """An HWC RGB image, float in [0, 1] (clipped, scaled to uint8) or
+        uint8: a PNG ``<name>.png`` in the log directory, through cv2 (BGR),
+        and its JSONL record."""
+        import cv2
+
+        path = os.path.join(self.dir, name.replace("/", "_"))
+        if not path.lower().endswith((".png", ".jpg")):
+            path += ".png"
+        arr = image if image.dtype == np.uint8 else np.clip(image * 255.0, 0, 255).astype(np.uint8)
+        cv2.imwrite(path, np.ascontiguousarray(arr[..., ::-1]))
+        self._write({"type": "image", "name": name, "path": path})
+        if self._mlflow is not None:
+            self._mlflow.log_image(image, name if "." in name else name + ".png")
+
+    def log_dict(self, payload: dict[str, Any], name: str) -> None:
+        """``payload`` as the JSON file ``<name>.json`` in the log directory."""
+        path = os.path.join(self.dir, name if name.endswith(".json") else name + ".json")
+        with open(path, "w") as f:
+            json.dump({k: _plain(v) for k, v in payload.items()}, f, indent=2)
+        if self._mlflow is not None:
+            self._mlflow.log_dict(payload, name)
 
     def close(self) -> None:
         if self._jsonl is not None:

@@ -36,7 +36,7 @@ from torch import nn
 from srganfd_tpu_torch.train.state import TrainState
 
 __all__ = ["save_checkpoint", "load_checkpoint", "best_metrics", "restore_state", "find_auto_resume",
-           "load_pretrained", "merge_by_path"]
+           "load_pretrained", "refuse_unported_source", "state_dict_of", "is_reference_layout", "merge_by_path", "warn_if_young_ema"]
 
 
 def save_checkpoint(
@@ -119,20 +119,39 @@ def load_pretrained(path: str, key: str = "state_dict") -> dict[str, torch.Tenso
     The JAX package's two other sources, a ``.npz`` in
     ``tools/port_torch_weights.py``'s layout and an MLflow ``runs:/`` URI,
     are not ported (ROADMAP.md A15)."""
+    refuse_unported_source(path)
+    return state_dict_of(load_checkpoint(path), key, path)
+
+
+def refuse_unported_source(path: str) -> None:
+    """Raise, naming ROADMAP.md A15, for the JAX package's weight sources
+    that the port does not read: an MLflow ``runs:/`` URI and a ``.npz`` in
+    ``tools/port_torch_weights.py``'s layout."""
     if path.startswith("runs:/"):
         raise NotImplementedError(f"{path}: MLflow runs:/ sources of a pretrained model are not ported to "
                                   "srganfd_tpu_torch yet: see ROADMAP.md A15")
     if path.endswith(".npz"):
         raise NotImplementedError(f"{path}: .npz sources of a pretrained model are not ported to "
                                   "srganfd_tpu_torch yet: see ROADMAP.md A15")
-    payload = load_checkpoint(path)
+
+
+def state_dict_of(payload: Any, key: str, path: str = "checkpoint") -> dict[str, torch.Tensor]:
+    """``load_pretrained``'s choice in a loaded ``payload``: ``payload[key]``,
+    or the one model of a reference-layout file (no ``step``), whatever the
+    key; KeyError when the port's checkpoint lacks ``key``."""
     if not isinstance(payload, dict):
         raise ValueError(f"{path} holds no checkpoint dict")
     if key in payload:
         return payload[key]
-    if "step" not in payload and "state_dict" in payload:  # a reference-layout file: one model
+    if is_reference_layout(payload):
         return payload["state_dict"]
     raise KeyError(f"checkpoint {path} has no {key!r}")
+
+
+def is_reference_layout(payload: dict[str, Any]) -> bool:
+    """A reference-layout ``.pth.tar`` (one model under ``state_dict``), not
+    a checkpoint of the port's trainer (which carries ``step``)."""
+    return "step" not in payload and "state_dict" in payload
 
 
 def merge_by_path(model: nn.Module, loaded: dict[str, torch.Tensor]) -> tuple[int, int]:
@@ -150,3 +169,26 @@ def merge_by_path(model: nn.Module, loaded: dict[str, torch.Tensor]) -> tuple[in
                 cur.copy_(new)
                 n_ok += 1
     return n_ok, len(current)
+
+
+def warn_if_young_ema(payload: dict[str, Any], decay: float, reference_semantics: bool = False) -> None:
+    """``--use-ema`` on a young checkpoint serves a model that is still
+    mostly its init: the conventional EMA lerps from the initial
+    parameters, so after t steps the init keeps decay^t of the weight.
+    Print a warning when that exceeds 5%, or when the payload carries no
+    ``step`` (the JAX ``warn_if_young_ema``, reading the port payload's
+    ``step``). Under ``ema_reference_semantics`` the EMA is about the raw
+    model and never young: no warning."""
+    if reference_semantics:
+        return
+    try:
+        steps = int(payload["step"])
+    except (KeyError, TypeError, ValueError):
+        print("! --use-ema: checkpoint carries no step metadata, EMA age unknown — a young EMA may still "
+              "be mostly its random init")
+        return
+    init_w = float(decay) ** max(0, steps)
+    if init_w > 0.05:
+        print(f"! --use-ema: EMA decay {decay} over only {steps} steps — the EMA still carries {init_w:.0%} "
+              "of the INITIAL params; expect degraded output until ~3/(1-decay) steps (use raw weights or "
+              "train longer)")

@@ -56,8 +56,7 @@ Each RDB of the generator is ``ops/cuda/rdb.py`` ``rdb_apply``: the
 hand-written kernel on a CUDA tensor, its backward through the plain
 version, recomputed, as the JAX ``rdb_apply`` does.
 
-Not ported yet, each rejected with its ROADMAP.md item: the
-self-attention discriminator (A4), ``grad_accum_steps``, ``skip_nonfinite_updates``, ``grad_clip_norm``,
+Not ported yet, each rejected with its ROADMAP.md item: ``grad_accum_steps``, ``skip_nonfinite_updates``, ``grad_clip_norm``,
 weight decay (A4), the pipe mesh (A11), and the K-step and fused dispatch
 modes (A4).
 """
@@ -71,7 +70,6 @@ from srganfd_tpu_torch.losses.content import ContentLoss
 from srganfd_tpu_torch.losses.gan import bce_with_logits, relativistic_d_loss, relativistic_g_loss
 from srganfd_tpu_torch.models import check_ported, create_model
 from srganfd_tpu_torch.models.blocks import BatchNorm
-from srganfd_tpu_torch.models.discriminators import DiscriminatorVGG128
 from srganfd_tpu_torch.train.schedule import multistep_lr
 from srganfd_tpu_torch.train.state import TrainState, ema_update
 
@@ -118,12 +116,9 @@ def _mean_sigmoid(logits: Logits) -> torch.Tensor:
 
 def _d_train_mode(d: torch.nn.Module, x: torch.Tensor, update_stats: bool) -> Logits:
     """D's logit map(s) in training mode, as the JAX step's ``_d_apply``
-    (``train=True``) computes them: the VGG-128 D, whose ``train`` defaults
-    to eval mode as the JAX module's does, is told so; the port's other Ds
-    have a training mode only."""
-    if isinstance(d, DiscriminatorVGG128):
-        return d(x, update_stats=update_stats, train=True)
-    return _first(d(x, update_stats=update_stats))
+    (``train=True``) computes them: every D's ``train`` defaults to eval
+    mode, as the JAX modules' does, so it is set here."""
+    return _first(d(x, update_stats=update_stats, train=True))
 
 
 def _reject_unported(cfg: ExperimentConfig) -> None:
@@ -260,7 +255,7 @@ class Trainer:
         # a BatchNorm D keeps the two forwards: one would pool the batches'
         # statistics (the Ds without BatchNorm return one logit map)
         if self.cfg.fuse_d_forwards and not any(isinstance(m, BatchNorm) for m in d.modules()):
-            both = d(torch.cat([gt, sr]), update_stats=True)
+            both = _d_train_mode(d, torch.cat([gt, sr]), update_stats=True)
             gt_out, sr_out = both[: gt.shape[0]], both[gt.shape[0]:]
         else:
             gt_out = _d_train_mode(d, gt, update_stats=True)

@@ -118,7 +118,7 @@ def _run(which, dtype, update_stats=True):
     _, x, cots, _ = flax_d(which)
     port = _port(which, DTYPES[dtype][1])
     xt = _t(x).requires_grad_()
-    out = port(xt, update_stats=update_stats)
+    out = port(xt, update_stats=update_stats, train=True)
     sum((o * _t(c)).sum() for o, c in zip(_logit_maps(out), cots)).backward()
     return out, xt.grad, port
 

@@ -113,7 +113,6 @@ def test_infer_serves_the_trained_ema_generator(frames, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--d-arch", "discriminator_unet_sa"],
     ["--grad-accum", "2"], ["--skip-nonfinite"], ["--async-ckpt"], ["--save-every-steps", "5"],
     ["--ckpt-every-epochs", "2"],
     ["--profile-dir", "prof"], ["--debug-nans"],

@@ -202,12 +202,6 @@ def test_discriminator_mapping_refuses_other_trees(flax_d):
         discriminator_flax_to_state_dict(params, variables["spectral"])
 
 
-@pytest.mark.parametrize("arch,item", [("discriminator_unet_sa", "A4")])
-def test_unported_discriminators_name_the_roadmap_item(arch, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        create_model(arch)
-
-
 # -- adversarial losses -------------------------------------------------------------------
 
 

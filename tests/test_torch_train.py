@@ -212,7 +212,7 @@ def test_bsrnet_lockstep_with_jax_trainer():
 
 def test_trainer_names_the_roadmap_item_for_unported_options():
     cfg = configs.get_config("bsrnet", g_kwargs=TINY)
-    for override in ({"d_arch": "discriminator_unet_sa"}, {"grad_accum_steps": 2},
+    for override in ({"grad_accum_steps": 2},
                      {"skip_nonfinite_updates": True}, {"grad_clip_norm": 1.0}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
             Trainer(cfg.replace(**override))
