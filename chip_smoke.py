@@ -18,8 +18,9 @@ pretrain (``bsrnet``) and then the GAN stage (``bsrgan``);
 ``bsrgantrans_x2`` against the attention-gated U-Net (``aesrgan``); and
 ``rrdbnet_x4``, ``rrdbnet`` and then ``esrgan`` (ESRGAN's two stages);
 then ``bsrgan`` against the self-attention U-Net (``--d-arch
-discriminator_unet_sa``), and evaluates the trained checkpoints with
-``cli.test``:
+discriminator_unet_sa``), evaluates the trained checkpoints with
+``cli.test``, serves ``bsrgan_x2`` over HTTP with the micro-batcher, and
+drives A-ESRGAN's generators ``gen_rrdb2x`` and ``gen_rpa2x``:
 
 1. kernel phases: ``rdb_forward`` vs ``rdb_forward_ref`` and
    ``flash_attention`` vs ``flash_attention_ref``, in f32 (the 3xTF32
@@ -31,7 +32,8 @@ discriminator_unet_sa``), and evaluates the trained checkpoints with
    never makes (a cuDNN 5-conv chain; ``scaled_dot_product_attention``,
    its backend named), in bf16 and in f32 with TF32 off, at the serving
    shapes, x (1, 256, 256, 64) and q (1, 16384, 4, 16), and of the RDB at
-   the training shape, beside the card's bounds (f32: on the CUDA cores,
+   the training shapes and at ``gen_rrdb2x``'s (1, 128, 128, 64) (a 256x256
+   frame after its unshuffle), beside the card's bounds (f32: on the CUDA cores,
    and as three TF32 products on the tensor cores), with TFLOP/s and the
    share of the bound;
 2. ``bsrgan_x2`` serving: ``ServingEngine`` over ``serve_stdio`` (4
@@ -191,7 +193,25 @@ discriminator_unet_sa``), and evaluates the trained checkpoints with
     to max abs 1e-3, PSNR to 0.01 dB, SSIM and LPIPS to 1e-4; the plain
     chain's LR to the DiffJPEG envelope (max 0.05); the heat-map and
     attention-map PNGs exist. Frames/s and each frame's parts (LR, G, metrics, LPIPS, NIQE,
-    D) on the host clock with the device synchronised.
+    D) on the host clock with the device synchronised;
+18. HTTP serving: ``cli.serve``'s ``serve_http`` in a thread on a free port
+    of 127.0.0.1, full-width ``bsrgan_x2`` on spread weights with
+    ``--batch auto`` (the micro-batcher), f32 then bf16: a burst of 24
+    concurrent POST /sr of 256x256 from 24 client threads (every reply 200;
+    f32 within one 8-bit level of the engine's ``sr_array`` of the same
+    frame, bf16 within the bf16 serving limit, 8 levels and 45 dB, since a
+    batched bf16 forward's cuDNN convs round apart from a single one's;
+    fewer forwards than requests, by the RDB launch count), 8 sequential
+    requests (host-clock p50/p95 and /stats's), 413 past ``--max-body-mb``,
+    503 + ``Retry-After`` with ``--max-queue 1`` under a burst, /healthz,
+    the ``should_stop`` drain within 10 s, and ``--batch 1``'s
+    single-threaded server;
+19. A-ESRGAN's generators at full width: ``gen_rrdb2x`` (23 RRDBs over the
+    unshuffled half-size frame) on spread weights through the stdio loop
+    and ``cli.infer``, f32 and bf16, 69 RDB kernel calls a forward, held to
+    its plain-RDB twin at the serving limits; ``gen_rpa2x`` (no kernel)
+    over stdio, shape and finite values; one bf16 ``bsrnet`` step of each
+    with ``g_arch`` overridden (batch 16, GT 144): a finite loss, G moved.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after.
@@ -252,6 +272,11 @@ AE_MS_GT = 128  # the ensemble's two scales need GT sides of 16k; the config's 1
 # (esrgan) at x4, so the generator's RDBs run on 48x48 and 32x32 LR crops
 ES_RDB_SHAPES = {"rrdbnet": (16, 48, 48, CH), "esrgan": (16, 32, 32, CH)}
 ES_STEPS_PER_EPOCH, ES_EPOCHS = 4, 1  # then --resume auto for one more epoch
+# gen_rrdb2x unshuffles a 256x256 frame to 128x128 before its trunk
+GEN_RDB_SHAPE = (1, 128, 128, CH)
+LAST_CONV = {"gen_rrdb2x": "conv_last", "gen_rpa2x": "conv3"}  # the other archs' is conv4
+# the HTTP phase: a burst of concurrent requests, then sparse ones
+HTTP_BURST, HTTP_SPARSE = 24, 8
 
 
 def fail(msg: str) -> None:
@@ -350,7 +375,7 @@ def kernel_phase(rdb) -> dict:
     # of 8 in a tile of 16)
     cases = [((2, 64, 64, CH), GC), ((1, 37, 53, CH), GC), (SERVE_SHAPE, GC), ((2, 256, 256, CH), GC),
              ((1, 250, 190, CH), GC), (TRAIN_RDB_SHAPE, GC), (RE_RDB_SHAPE, GC), (AE_RDB_SHAPE, GC),
-             *((shape, GC) for shape in ES_RDB_SHAPES.values()), ((3, 17, 23, CH), GC),
+             *((shape, GC) for shape in ES_RDB_SHAPES.values()), (GEN_RDB_SHAPE, GC), ((3, 17, 23, CH), GC),
              ((2, 37, 53, 24), 16), ((1, 20, 33, 40), 8), ((2, 19, 13, 24), 8)]
     for i, (shape, gc) in enumerate(cases):
         x, ks, bs = rdb_inputs(shape, seed=i, gc=gc)
@@ -411,6 +436,7 @@ def kernel_phase(rdb) -> dict:
     ae_ms, ae_plain_ms, ae_library_ms, ae_bound = rdb_shape_times(rdb, AE_RDB_SHAPE, 103, "aesrgan training")
     es = {name: rdb_shape_times(rdb, shape, 104 + i, f"{name} training")
           for i, (name, shape) in enumerate(ES_RDB_SHAPES.items())}
+    gen = rdb_shape_times(rdb, GEN_RDB_SHAPE, 106, "gen_rrdb2x serving a 256x256 frame")
     n, h, w, ch = SERVE_SHAPE
     flops = rdb_flops(SERVE_SHAPE)
     # x read once, output written once, weights (bf16) and biases (f32) read once
@@ -492,6 +518,8 @@ def kernel_phase(rdb) -> dict:
         **{f"{name}_train_{key}": value for name, shape in ES_RDB_SHAPES.items()
            for key, value in zip(("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms"),
                                  (list(shape), *es[name]))},
+        **{f"gen_rrdb2x_serve_{key}": value for key, value in zip(
+            ("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms"), (list(GEN_RDB_SHAPE), *gen))},
         "shape": list(SERVE_SHAPE),
         "dtype": "bfloat16",
     }
@@ -754,15 +782,18 @@ def spread_weights(work: str, arch: str = "bsrgantrans_x2", gain: float = 6.0) -
     archs take x4: on a 32x32 CPU frame output std 0.19, 8-16% clamped,
     where x6 clamps 64-70%) and a comparison of two runs means something.
     The trunk keeps its x0.1 init: at full gain 23 RRDBs would grow the
-    signal ~1.35x each."""
+    signal ~1.35x each. ``gen_rrdb2x``'s tail takes Flax's default init,
+    not x0.1, and puts out std ~13 unscaled: it takes a gain of 0.5 (std
+    0.20, 90% of a 64x64 CPU frame in (0.05, 0.95)); ``bsrgan_x2`` takes 3
+    (std 0.24, 90%)."""
     from srganfd_tpu_torch.models import create_model
 
     model = create_model(arch, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if p.dim() == 4 and not name.startswith("trunk."):
+            if p.dim() == 4 and not name.startswith(("trunk.", "body.")):
                 p.mul_(gain)
-        model.conv4.bias.add_(0.5)
+        getattr(model, LAST_CONV.get(arch, "conv4")).bias.add_(0.5)
     path = os.path.join(work, f"{arch}_spread.pth")
     torch.save({"state_dict": model.state_dict()}, path)
     return path
@@ -3052,6 +3083,331 @@ def eval_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
     return calls, numbers
 
 
+def _http(port: int, method: str, path: str, body: bytes | None = None, timeout: float = 120):
+    """One request to the local server: (status, body, headers)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body)
+        r = conn.getresponse()
+        return r.status, r.read(), dict(r.getheaders())
+    finally:
+        conn.close()
+
+
+def _start_http(engine, **kw):
+    """``serve_http`` on a free port of 127.0.0.1 in a thread; returns
+    (port, thread, stop)."""
+    import threading
+
+    from srganfd_tpu_torch.cli.serve import serve_http
+
+    up, stop, bound = threading.Event(), threading.Event(), {}
+
+    def ready(addr):
+        bound["port"] = addr[1]
+        up.set()
+
+    th = threading.Thread(target=serve_http, args=(engine, 0),
+                          kwargs={"should_stop": stop.is_set, "ready": ready, **kw}, daemon=True)
+    th.start()
+    check(up.wait(60), "the HTTP server did not come up")
+    return bound["port"], th, stop.set
+
+
+def _stop_http(th, stop, label: str) -> float:
+    t0 = time.perf_counter()
+    stop()
+    th.join(10)
+    check(not th.is_alive(), f"{label}: the HTTP server did not drain within 10 s of should_stop")
+    return time.perf_counter() - t0
+
+
+def _burst(port: int, bodies: list[bytes]) -> list[tuple[int, bytes, dict, float]]:
+    """POST every body at once from its own client thread; each reply with
+    its host-clock ms."""
+    import threading
+
+    replies = [None] * len(bodies)
+    go = threading.Event()
+
+    def post(i):
+        go.wait()
+        t0 = time.perf_counter()
+        status, body, headers = _http(port, "POST", "/sr", bodies[i])
+        replies[i] = (status, body, headers, (time.perf_counter() - t0) * 1e3)
+
+    clients = [threading.Thread(target=post, args=(i,)) for i in range(len(bodies))]
+    for c in clients:
+        c.start()
+    go.set()
+    for c in clients:
+        c.join(300)
+    check(all(r is not None for r in replies), "an HTTP client got no reply within 300 s")
+    return replies
+
+
+def _png_levels(reply: bytes, want: np.ndarray) -> tuple[int, float]:
+    """Largest 8-bit level between a reply's PNG and ``sr_array``'s output
+    quantised as the server quantises it, and their PSNR (dB, on [0, 1])."""
+    import cv2
+
+    got = cv2.imdecode(np.frombuffer(reply, np.uint8), cv2.IMREAD_COLOR)
+    want8 = np.clip(want * 255.0, 0, 255).astype(np.uint8)[..., ::-1]
+    check(got is not None and got.shape == want8.shape, f"reply PNG {None if got is None else got.shape}")
+    diff = got.astype(np.float64) - want8.astype(np.float64)
+    mse = float(np.mean((diff / 255.0) ** 2))
+    return int(np.abs(diff).max()), (10 * math.log10(1.0 / mse) if mse > 0 else float("inf"))
+
+
+def _http_agrees(tag: str, reading: tuple[int, float]) -> bool:
+    """The HTTP agreement limit: f32 one 8-bit level of ``sr_array``; bf16
+    the serving limit of a bf16 forward, 8 levels and 45 dB, since a
+    micro-batched bf16 forward runs cuDNN's convs for another batch size
+    than ``sr_array``'s, and bf16 rounds their other sums apart."""
+    levels, psnr = reading
+    return levels <= 1 if tag == "f32" else (levels <= 8 and psnr >= 45)
+
+
+def http_serve_phase(work: str, rdb, blocks) -> tuple[int, dict]:
+    """``cli.serve --port``'s transport (``serve_http``) on 127.0.0.1 serving
+    full-width bsrgan_x2 on spread weights with ``--batch auto`` (the
+    micro-batcher), f32 then bf16: a burst of HTTP_BURST concurrent POST /sr
+    of 256x256 (every reply 200 and within ``_http_agrees``' limit of the
+    engine's ``sr_array`` of its frame; fewer forwards than requests), HTTP_SPARSE
+    sequential ones (host-clock p50/p95 and /stats's); then, in bf16, the
+    overload limits (413 past ``--max-body-mb``, 503 + Retry-After with a
+    queue of 1), /healthz, the should_stop drain, and ``--batch 1``'s
+    single-threaded server. Returns the RDB kernel calls and the readings."""
+    from srganfd_tpu_torch.cli.serve import ServingEngine
+    from srganfd_tpu_torch.data.datasets import load_image_rgb
+
+    frames = write_frames(os.path.join(work, "http_lr"), HTTP_BURST, 256, 256, seed=20)
+    bodies = [open(p, "rb").read() for p in frames]
+    weights = spread_weights(work, "bsrgan_x2", gain=3.0)
+    launches, out = 0, {}
+    for half in (False, True):
+        tag = "bf16" if half else "f32"
+        engine = ServingEngine("bsrgan_x2", weights=weights, half=half, batch="auto", device="cuda")
+        engine.warmup([(256, 256)])
+        want = [engine.sr_array(load_image_rgb(p)) for p in frames]  # one forward each, not counted
+        port, th, stop = _start_http(engine)
+        rdb.launches = 0
+        t0 = time.perf_counter()
+        replies = _burst(port, bodies)
+        torch.cuda.synchronize()
+        burst_s = time.perf_counter() - t0
+        calls = rdb.launches
+        launches += calls
+        check([r[0] for r in replies] == [200] * HTTP_BURST, f"{tag} burst statuses {[r[0] for r in replies]}")
+        readings = [_png_levels(r[1], w) for r, w in zip(replies, want)]
+        levels, psnr = max(r[0] for r in readings), min(r[1] for r in readings)
+        forwards = calls // RDB_PER_FORWARD
+        check(calls % RDB_PER_FORWARD == 0 and 0 < forwards < HTTP_BURST,
+              f"{tag} burst: {calls} rdb_forward calls for {HTTP_BURST} requests")
+        check(all(_http_agrees(tag, r) for r in readings), f"{tag} burst: replies {readings} from sr_array")
+        spread = float(np.mean([((w > 0.05) & (w < 0.95)).mean() for w in want]))
+        # where a batched forward parts from a single one: the model with the
+        # plain RDB, the first 16 frames as one batch against one by one
+        x = torch.from_numpy(np.stack([load_image_rgb(p) for p in frames[:16]])).cuda()
+        with torch.inference_mode():
+            orig = blocks.rdb_apply
+            blocks.rdb_apply = lambda xh, k, b, packed=None: rdb.rdb_forward_ref(xh, k, b)
+            try:
+                batched = engine.model(x)
+                single = torch.cat([engine.model(x[i:i + 1]) for i in range(16)])
+            finally:
+                blocks.rdb_apply = orig
+        batch_gap = (batched - single).abs().max().item()
+        # and sr_batch (the dispatcher's call; here a batch of 16 and one of
+        # 8) on this thread against sr_array, and the replies against it
+        main_batched = engine.sr_batch([load_image_rgb(p) for p in frames])
+        sr_batch_gap = max(float(np.abs(b - w).max()) for b, w in zip(main_batched, want))
+        reply_vs_batch = [_png_levels(r[1], b) for r, b in zip(replies, main_batched)]
+        print(f"http {tag} burst: {HTTP_BURST} concurrent POST /sr of 256x256 in {burst_s:.2f} s, {forwards} forwards "
+              f"({calls} rdb_forward calls), replies within {levels} level(s) and {psnr:.2f} dB of sr_array, "
+              f"{100 * spread:.0f}% of SR in (0.05, 0.95); with the plain RDB a batch of 16 against 16 single "
+              f"forwards: max abs {batch_gap:.3g}; on this thread sr_batch against sr_array max abs {sr_batch_gap:.3g}, "
+              f"the replies within {max(r[0] for r in reply_vs_batch)} level(s) of it; client ms p50 {np.percentile([r[3] for r in replies], 50):.2f} max "
+              f"{max(r[3] for r in replies):.2f}", flush=True)
+
+        with engine.stats_lock:
+            engine.latencies_ms.clear()
+        rdb.launches = 0
+        sparse = []
+        for i in range(HTTP_SPARSE):
+            t0 = time.perf_counter()
+            status, body, _ = _http(port, "POST", "/sr", bodies[i])
+            sparse.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200 and _http_agrees(tag, _png_levels(body, want[i])), f"{tag} sparse request {i}: {status}")
+        calls = rdb.launches
+        launches += calls
+        check(calls == HTTP_SPARSE * RDB_PER_FORWARD, f"{tag} sparse: {calls} rdb_forward calls")
+        stats = json.loads(_http(port, "GET", "/stats")[1])
+        out[tag] = {
+            "burst_s": burst_s, "burst_forwards": forwards, "burst_levels": levels, "burst_psnr": psnr,
+            "burst_spread": spread, "plain_batch16_vs_single_max_abs": batch_gap,
+            "sr_batch_vs_sr_array_max_abs": sr_batch_gap,
+            "reply_vs_sr_batch_levels": max(r[0] for r in reply_vs_batch),
+            "burst_client_ms": sorted(r[3] for r in replies),
+            "sparse_ms_p50": float(np.percentile(sparse, 50)), "sparse_ms_p95": float(np.percentile(sparse, 95)),
+            "stats_p50_ms": stats["p50_ms"], "stats_p95_ms": stats["p95_ms"], "stats": stats,
+        }
+        print(f"http {tag} sparse: {HTTP_SPARSE} sequential requests, host-clock ms p50 "
+              f"{out[tag]['sparse_ms_p50']:.2f} p95 {out[tag]['sparse_ms_p95']:.2f}; /stats p50 {stats['p50_ms']} p95 "
+              f"{stats['p95_ms']} (decode to encode), served {stats['served']}, queue "
+              f"{stats['queue_depth']}/{stats['queue_capacity']}", flush=True)
+        out[tag]["drain_s"] = _stop_http(th, stop, f"{tag} micro-batched")
+        if not half:
+            out["f32_launches"] = launches  # every call so far ran the f32 kernel
+            del engine
+            continue
+
+        # the overload limits, on the bf16 engine: a 1 MB body cap, a queue of one
+        port, th, stop = _start_http(engine, max_body_bytes=1 << 20, max_queue=1)
+        check(_http(port, "GET", "/healthz")[:2] == (200, b"ok"), "/healthz")
+        # the headers alone: the server answers before reading any body
+        import socket
+
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as sock:
+            sock.sendall(b"POST /sr HTTP/1.1\r\nHost: x\r\nContent-Length: %d\r\n\r\n" % (2 << 20))
+            status_line = sock.recv(64).split(b"\r\n", 1)[0]
+        check(b" 413 " in status_line, f"a 2 MB body against a 1 MB cap: {status_line}")
+        rdb.launches = 0
+        flood = _burst(port, bodies[:16])
+        launches += rdb.launches
+        statuses = [r[0] for r in flood]
+        rejected = statuses.count(503)
+        check(set(statuses) <= {200, 503} and rejected >= 1 and statuses.count(200) >= 1,
+              f"a burst of 16 against a queue of 1: {statuses}")
+        check(all(r[2].get("Retry-After") == "1" for r in flood if r[0] == 503), "503 without Retry-After: 1")
+        stats = json.loads(_http(port, "GET", "/stats")[1])
+        check(stats["rejected"] == rejected and stats["rejected_oversize"] == 1 and stats["queue_capacity"] == 1,
+              f"overload stats {stats}")
+        check(_http(port, "GET", "/healthz")[:2] == (200, b"ok"), "/healthz after the flood")
+        out["overload"] = {"statuses": statuses, "rejected": rejected, "rejected_oversize": stats["rejected_oversize"]}
+        print(f"http overload: 413 for a 2 MB body (cap 1 MB); a burst of 16 against --max-queue 1: "
+              f"{statuses.count(200)} served, {rejected} x 503 with Retry-After 1; /stats rejected {stats['rejected']}, "
+              f"rejected_oversize {stats['rejected_oversize']}", flush=True)
+        out["overload"]["drain_s"] = _stop_http(th, stop, "overload")
+
+        # --batch 1: the single-threaded server runs sr_array on its own thread
+        engine.batch = 1
+        port, th, stop = _start_http(engine)
+        rdb.launches = 0
+        status, body, _ = _http(port, "POST", "/sr", bodies[0])
+        calls = rdb.launches
+        launches += calls
+        check(status == 200 and _http_agrees(tag, _png_levels(body, want[0])) and calls == RDB_PER_FORWARD,
+              f"--batch 1 server: {status}, {calls} rdb_forward calls")
+        stats = json.loads(_http(port, "GET", "/stats")[1])
+        check("queue_depth" not in stats, "the single-threaded server reports a queue")
+        out["single_threaded_drain_s"] = _stop_http(th, stop, "single-threaded")
+        print(f"http --batch 1 (single-threaded): one request, {calls} rdb_forward calls; drains in "
+              f"{out['single_threaded_drain_s']:.2f} s (micro-batched {out['bf16']['drain_s']:.2f} s)", flush=True)
+        del engine
+    return launches, out
+
+
+def gen_phase(work: str, rdb, blocks) -> tuple[int, dict]:
+    """A-ESRGAN's generators at full width: ``gen_rrdb2x`` (64/32/23 over the
+    unshuffled half-size frame) on spread seeded weights through ``cli.serve
+    --stdio``'s loop (2 requests of 256x256, f32 and bf16, 69 RDB kernel
+    calls a forward, the model held to its plain-RDB twin at the serving
+    limits) and ``cli.infer``; ``gen_rpa2x`` (64 features, 20 blocks, no
+    kernel) over stdio: shape and finite values; then one bf16 ``bsrnet``
+    step of each with ``g_arch`` overridden (batch 16, GT 144): a finite
+    loss and a G that moved. Returns the RDB kernel calls and readings."""
+    import cv2
+
+    from srganfd_tpu_torch import configs
+    from srganfd_tpu_torch.cli import infer
+    from srganfd_tpu_torch.cli.serve import ServingEngine, serve_stdio
+    from srganfd_tpu_torch.data.datasets import load_image_rgb
+    from srganfd_tpu_torch.train.loop import Trainer
+
+    frames = write_frames(os.path.join(work, "gen_lr"), 2, 256, 256, seed=30)
+    weights = {"gen_rrdb2x": spread_weights(work, "gen_rrdb2x", gain=0.5),
+               "gen_rpa2x": spread_weights(work, "gen_rpa2x", gain=1.0)}
+    launches, out = 0, {"f32_launches": 0}
+    for arch, half in (("gen_rrdb2x", False), ("gen_rrdb2x", True), ("gen_rpa2x", False), ("gen_rpa2x", True)):
+        tag = "bf16" if half else "f32"
+        engine = ServingEngine(arch, weights=weights[arch], half=half, device="cuda")
+        reqs = [{"id": i, "input": p, "output": os.path.join(work, f"gen_sr_{arch}_{tag}", f"{i}.png")}
+                for i, p in enumerate(frames)]
+        lines = [json.dumps(r) for r in reqs] + ['{"cmd": "stats"}', '{"cmd": "shutdown"}']
+        stdout = io.StringIO()
+        rdb.launches = 0
+        serve_stdio(engine, inp=io.StringIO("\n".join(lines)), out=stdout)
+        torch.cuda.synchronize()
+        calls = rdb.launches
+        launches += calls
+        out["f32_launches"] += 0 if half else calls
+        replies = [json.loads(line) for line in stdout.getvalue().splitlines()]
+        for r in replies[:-1]:
+            check(r.get("ok") and r["out_hw"] == [512, 512], f"{arch} {tag} reply {r}")
+        per_forward = RDB_PER_FORWARD if arch == "gen_rrdb2x" else 0
+        check(calls == len(frames) * per_forward, f"{arch} {tag}: {calls} rdb_forward calls for {len(frames)} forwards")
+        x = torch.from_numpy(load_image_rgb(frames[0])[None]).cuda()
+        if arch == "gen_rrdb2x":
+            y = hold_model_to_plain(engine.model, x, tag, arch, rdb, blocks)
+        else:  # no kernel: its plain version is itself
+            with torch.inference_mode():
+                y = engine.model(x)
+            check(tuple(y.shape) == (1, 512, 512, 3) and torch.isfinite(y).all().item(), f"{arch} {tag}: {y.shape}")
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: engine.model(x), iters=5, warmup=1)
+        out[f"{arch} {tag}"] = {"forward_ms": ms, "mean": y.mean().item(), "std": y.std().item(),
+                                "stdio_ms": [r["ms"] for r in replies[:-1]], "rdb_launches": calls}
+        print(f"{arch} {tag}: 2 stdio requests of 256x256 -> 512x512, {calls} rdb_forward calls; one forward on the "
+              f"card {ms:.2f} ms; output mean {y.mean().item():.4f} std {y.std().item():.4f}", flush=True)
+        del engine
+
+    frames_dir, out_dir = os.path.join(work, "gen_seq"), os.path.join(work, "gen_seq_sr")
+    write_frames(frames_dir, 2, 256, 256, seed=31)
+    for half in (False, True):
+        rdb.launches = 0
+        infer.main(["--model-arch", "gen_rrdb2x", "--batch", "2", "--weights", weights["gen_rrdb2x"],
+                    "--inputs-path", frames_dir, "--output-path", out_dir, *(["--half"] if half else [])])
+        torch.cuda.synchronize()
+        calls = rdb.launches
+        launches += calls
+        out["f32_launches"] += 0 if half else calls
+        outs = sorted(os.listdir(out_dir))
+        check(len(outs) == 2 and all(cv2.imread(os.path.join(out_dir, n)).shape == (512, 512, 3) for n in outs),
+              f"gen_rrdb2x infer wrote {outs}")
+        check(calls == RDB_PER_FORWARD, f"gen_rrdb2x infer: {calls} rdb_forward calls for 1 forward")
+    print(f"cli.infer gen_rrdb2x --batch 2, f32 and bf16: 2 frames each, {RDB_PER_FORWARD} rdb_forward calls a run",
+          flush=True)
+
+    gt = torch.rand((16, 144, 144, 3), generator=torch.Generator().manual_seed(32)).cuda()
+    lr = gt[:, ::2, ::2].contiguous()
+    for arch in ("gen_rrdb2x", "gen_rpa2x"):
+        cfg = configs.get_config("bsrnet", g_arch=arch, g_kwargs={})
+        tr = Trainer(cfg, steps_per_epoch=1, device=torch.device("cuda"))
+        st = tr.init_state()
+        before = {k: v.detach().clone() for k, v in st.g_model.named_parameters()}
+        rdb.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = tr.train_step(st, gt, lr)
+        loss = float(metrics["pixel_loss"])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        calls = rdb.launches
+        launches += calls
+        moved = max((p.detach() - before[k]).abs().max().item() for k, p in st.g_model.named_parameters())
+        check(math.isfinite(loss) and moved > 0, f"{arch} bf16 step: loss {loss}, G moved {moved}")
+        check(calls == (RDB_PER_FORWARD if arch == "gen_rrdb2x" else 0), f"{arch} step: {calls} rdb_forward calls")
+        out[f"{arch} step"] = {"loss": loss, "moved": moved, "first_step_ms": step_ms, "rdb_launches": calls,
+                               "compute_dtype": cfg.compute_dtype}
+        print(f"{arch} bsrnet step ({cfg.compute_dtype}, batch 16, GT 144): L1 {loss:.5f}, G moved up to {moved:.3g}, "
+              f"{calls} rdb_forward calls, first step {step_ms:.1f} ms host clock", flush=True)
+        del tr, st
+    return launches, out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -3103,15 +3459,19 @@ def main() -> None:
         es_launches, es = es_train_phase(work, rdb, f2d, blocks, filters)
         sa_launches, sa = sa_train_phase(work, rdb, f2d, blocks, filters)
         ev_launches, ev = eval_phase(work, rdb, f2d, blocks, filters)
+        http_launches, http = http_serve_phase(work, rdb, blocks)
+        gen_launches, gen = gen_phase(work, rdb, blocks)
     launches += (trans_launches["rdb"] + trans_infer["rdb"] + train_launches["rdb"] + gan_launches["rdb"]
                  + re_launches + ren_launches["rdb"] + reg_launches["rdb"] + ae_launches["rdb"] + es_launches["rdb"]
-                 + sa_launches["rdb"] + ev_launches["rdb"])
+                 + sa_launches["rdb"] + ev_launches["rdb"] + http_launches + gen_launches)
+    check(http_launches > 0 and gen_launches > 0, "the HTTP or gen_rrdb2x path launched no rdb_forward kernel")
     flash_launches = trans_launches["flash"] + trans_infer["flash"]
     check(launches > 0, "the main paths launched no rdb_forward kernel")
     check(flash_launches > 0, "the bsrgantrans_x2 path launched no flash_attention kernel")
     entry["launches"] = launches
     # of which f32 (the 3xTF32 kernels): the f32 stdio requests and every cli.test forward
-    entry["launches_f32"] = f32_launches + trans_f32["rdb"] + re_f32_launches + ev_launches["rdb"]
+    entry["launches_f32"] = (f32_launches + trans_f32["rdb"] + re_f32_launches + ev_launches["rdb"]
+                             + http["f32_launches"] + gen["f32_launches"])
     entry["launches_per_forward"] = RDB_PER_FORWARD
     entry["forward_ms"] = forward_ms  # bsrgan_x2 at 256x256, whole generator
     entry["realesrgan_forward_ms"] = re_forward_ms  # realesrgan_x4 at 128x128, realesrgan_x2 at 250x190
@@ -3131,6 +3491,8 @@ def main() -> None:
     entry["esrgan_recipe_launches"] = es_launches["rdb"]
     entry["sa_launches"] = sa_launches["rdb"]
     entry["eval_launches"] = ev_launches["rdb"]
+    entry["http_launches"] = http_launches
+    entry["gen_rrdb2x_launches"] = gen_launches
     check(sa_launches["rdb"] > 0 and sa_launches["filter2d"] > 0, "the SA training path launched no kernel")
     check(ev_launches["rdb"] > 0 and ev_launches["filter2d"] > 0, "the cli.test path launched no kernel")
     check(es_launches["rdb"] > 0, "the ESRGAN training path launched no rdb_forward kernel")
@@ -3197,6 +3559,15 @@ def main() -> None:
           f"attentions {sa['attn_down2_ms']:.2f} / {sa['attn_down3_ms']:.2f} / {sa['attn_up1_ms']:.2f} ms; host-clock "
           f"step p50 {sa['step_ms_p50']:.2f} ms; peak memory {sa['peak_memory_gb']:.2f} GB; {sa_launches} kernel calls",
           flush=True)
+    print(f"cli.serve --port (bsrgan_x2 256x256, --batch auto): burst of {HTTP_BURST} in "
+          f"{ {t: round(http[t]['burst_s'], 3) for t in ('f32', 'bf16')} } s over "
+          f"{ {t: http[t]['burst_forwards'] for t in ('f32', 'bf16')} } forwards; sparse p50/p95 ms "
+          f"{ {t: (round(http[t]['sparse_ms_p50'], 2), round(http[t]['sparse_ms_p95'], 2)) for t in ('f32', 'bf16')} }; "
+          f"{http_launches} rdb_forward calls", flush=True)
+    print(f"gen_rrdb2x/gen_rpa2x 256x256 forward ms "
+          f"{ {k: round(v['forward_ms'], 2) for k, v in gen.items() if isinstance(v, dict) and 'forward_ms' in v} }; "
+          f"{gen_launches} "
+          f"rdb_forward calls", flush=True)
     print(f"cli.test on the card: {ev_launches} kernel calls; frames/s "
           f"{ {tag: round(r['frames_per_s'], 3) for tag, r in ev.items()} }", flush=True)
     # last, so that no timed phase runs after a profiler session
@@ -3212,6 +3583,8 @@ def main() -> None:
     print(json.dumps({"esrgan_recipe": es}))
     print(json.dumps({"sa": sa}))
     print(json.dumps({"eval": ev}))
+    print(json.dumps({"http": http}))
+    print(json.dumps({"gen": gen}))
     print(smi)
     print(json.dumps({"kernels": [entry, flash_entry, filter_entry]}))
     print(json.dumps({"ok": True, "device": {

@@ -42,7 +42,6 @@ UNPORTED_FLAGS = {
     "spatial_shard": ("--spatial-shard", "A11 (parallel modes)"),
     "data_shard": ("--data-shard", "A11 (parallel modes)"),
     "cp_backend": ("--cp-backend", "A11 (parallel modes)"),
-    "port": ("--port", "A6 (HTTP serving with the micro-batcher)"),
 }
 
 

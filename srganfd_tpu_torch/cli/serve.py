@@ -14,7 +14,11 @@ Transports (pick one):
   --watch DIR        poll DIR for new/updated frames; SR each into
                      --output DIR (same basename). ``--once`` drains the
                      backlog and exits (cron mode).
-  --port N           HTTP: not ported yet (ROADMAP.md A6).
+  --port N           HTTP: POST /sr with an encoded image body returns
+                     the SR PNG; GET /healthz -> 200 "ok"; GET /stats ->
+                     JSON counters. Single-threaded by default (one card
+                     runs one forward at a time); ``--batch auto`` threads
+                     the server and micro-batches concurrent requests.
 
 Behaviours:
   - ``--bucket M`` reflect-pads inputs up to multiples of M and crops the
@@ -32,8 +36,21 @@ Behaviours:
     (``bsrgantrans_x2``) run exact attention in query chunks, through the
     hand-written kernel with ``flash``. ``bsrgantrans_x2`` needs even frame
     sizes, which ``--bucket 2`` (or any even bucket) gives.
-  - request latency percentiles (p50/p95) are reported on shutdown and
-    by ``{"cmd": "stats"}``.
+  - request latency percentiles (p50/p95) are reported on shutdown, by
+    ``{"cmd": "stats"}`` and at GET /stats.
+
+Overload limits (HTTP transport):
+  - POST bodies above ``--max-body-mb`` (default 64) get 413 before the
+    body is read.
+  - with ``--batch auto`` the micro-batcher's queue holds at most
+    ``--max-queue`` frames (default 32); a request that finds it full gets
+    503 + ``Retry-After: 1`` instead of queueing a decoded frame without
+    limit. GET /stats reports both rejection counts.
+
+One thread runs the model: the micro-batcher's dispatcher with ``--batch
+auto``, else the thread that serves. Each makes the engine's device its
+current one first. A failed forward answers every request it carried with
+500; nothing falls back to the CPU.
 
 Runs on ``cuda`` unless ``--device-type cpu`` is given.
 """
@@ -41,8 +58,10 @@ Runs on ``cuda`` unless ``--device-type cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import http.server
 import json
 import os
+import queue
 import sys
 import threading
 import time
@@ -62,7 +81,7 @@ from srganfd_tpu_torch.cli.infer import (
 )
 from srganfd_tpu_torch.data.datasets import list_image_files, load_image_rgb
 
-__all__ = ["ServingEngine", "serve_stdio", "serve_watch", "main"]
+__all__ = ["ServingEngine", "OverloadedError", "serve_stdio", "serve_watch", "serve_http", "main"]
 
 
 def _pad_to_multiple(img: np.ndarray, mult: int) -> tuple[np.ndarray, int, int]:
@@ -128,6 +147,8 @@ class ServingEngine:
         seed: int = 0,
     ) -> None:
         self.device = choice_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         kwargs = {**attention_kwargs(arch, attn_chunk, attn_backend), **(model_kwargs or {})}
         self.model = build_model(
             arch, self.device, weights, use_ema, half, model_kwargs=kwargs, seed=seed
@@ -142,11 +163,20 @@ class ServingEngine:
 
         self.served = 0
         self.failed = 0
+        self.rejected = 0  # HTTP: 503, the micro-batcher's queue full
+        self.rejected_oversize = 0  # HTTP: 413, a body over the cap
         self.latencies_ms: list[float] = []
         self._shapes: set[tuple[int, int]] = set()
         self.stats_lock = threading.Lock()
 
     # -- core -------------------------------------------------------------
+    def use_device(self) -> None:
+        """Make the engine's card the calling thread's current device: a
+        thread starts on device 0, and the kernels launch on the current
+        one."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+
     def sr_array(self, img: np.ndarray) -> np.ndarray:
         """float32 HWC [0,1] -> SR HWC [0,1]; pads to the bucket, crops
         back to ``upscale * true_size``."""
@@ -287,13 +317,14 @@ class ServingEngine:
         with self.stats_lock:
             lat = sorted(self.latencies_ms)
             served, failed = self.served, self.failed
+            rejected, oversize = self.rejected, self.rejected_oversize
             shapes = sorted(self._shapes)
         pick = lambda q: round(lat[min(len(lat) - 1, int(q * len(lat)))], 2) if lat else None
         return {
             "served": served,
             "failed": failed,
-            "rejected": 0,  # HTTP overload counters: no HTTP transport yet
-            "rejected_oversize": 0,
+            "rejected": rejected,
+            "rejected_oversize": oversize,
             "p50_ms": pick(0.50),
             "p95_ms": pick(0.95),
             # input shapes served (the JAX daemon's compiled-program count)
@@ -380,6 +411,225 @@ def serve_watch(
         time.sleep(poll_s)
 
 
+class OverloadedError(RuntimeError):
+    """Raised by :meth:`_MicroBatcher.submit` when the bounded request
+    queue is full; the HTTP handler answers 503 + Retry-After."""
+
+
+class _MicroBatcher:
+    """Cross-request batching for the HTTP transport.
+
+    Concurrent ``POST /sr`` requests enqueue their decoded frames; one
+    dispatcher thread, the only one that runs the model, groups them and
+    pushes the group through :meth:`ServingEngine.sr_batch`, whose
+    ``auto`` ladder sizes the forwards (frames of other padded shapes are
+    forwards of their own). A request that arrives alone dispatches at
+    once; only when a burst is already queued does the dispatcher hold the
+    window open up to ``max_wait_ms`` for stragglers.
+
+    The queue holds at most ``max_queue`` waiting frames, each a decoded
+    float32 frame: when it is full, ``submit`` raises
+    :class:`OverloadedError` at once instead of blocking the handler
+    thread. A dispatch error reaches every request of the group.
+    ``close`` (the SIGTERM drain) refuses new frames, lets the dispatcher
+    serve what is queued, then stops it."""
+
+    def __init__(self, engine: ServingEngine, max_wait_ms: float = 8.0, max_queue: int = 32) -> None:
+        self.engine = engine
+        self.q: queue.Queue = queue.Queue(maxsize=max(1, int(max_queue)))
+        self.max_wait = max_wait_ms / 1e3
+        self._closed = threading.Event()
+        self._lock = threading.Lock()  # no frame is queued once close has begun
+        self._thread = threading.Thread(target=self._loop, name="sr-dispatch", daemon=True)
+        self._thread.start()
+
+    def submit(self, img: np.ndarray) -> np.ndarray:
+        slot: dict = {"ev": threading.Event()}
+        with self._lock:
+            if self._closed.is_set():
+                raise OverloadedError("server shutting down")
+            try:
+                self.q.put_nowait((img, slot))
+            except queue.Full:
+                raise OverloadedError(f"micro-batcher queue full ({self.q.maxsize} waiting)") from None
+        slot["ev"].wait()
+        if "err" in slot:
+            raise RuntimeError(slot["err"])
+        return slot["out"]
+
+    def close(self, timeout: float = 60.0) -> None:
+        with self._lock:
+            self._closed.set()
+        self._thread.join(timeout)
+        while True:  # left only if the join timed out
+            try:
+                _, slot = self.q.get_nowait()
+            except queue.Empty:
+                return
+            slot["err"] = "server shutting down"
+            slot["ev"].set()
+
+    def _loop(self) -> None:
+        while True:
+            try:
+                batch = [self.q.get(timeout=0.2)]
+            except queue.Empty:
+                if self._closed.is_set():
+                    return
+                continue
+            if not self.q.empty():  # a burst in flight: let stragglers join
+                deadline = time.perf_counter() + self.max_wait
+                while (rem := deadline - time.perf_counter()) > 0:
+                    try:
+                        batch.append(self.q.get(timeout=rem))
+                    except queue.Empty:
+                        break
+            try:
+                self.engine.use_device()
+                outs = self.engine.sr_batch([img for img, _ in batch])
+            except Exception as e:  # noqa: BLE001 - delivered to every waiter
+                for _, slot in batch:
+                    slot["err"] = f"{type(e).__name__}: {e}"
+                    slot["ev"].set()
+                continue
+            for (_, slot), out in zip(batch, outs):
+                slot["out"] = out
+                slot["ev"].set()
+
+
+def serve_http(
+    engine: ServingEngine,
+    port: int,
+    host: str = "127.0.0.1",
+    max_body_bytes: int = 64 * 1024 * 1024,
+    max_queue: int = 32,
+    should_stop=None,
+    ready=None,
+) -> None:
+    """Stdlib HTTP server: POST /sr (an image body cv2 decodes) -> PNG;
+    GET /healthz, GET /stats. With ``engine.batch == "auto"`` it threads
+    per request and a :class:`_MicroBatcher` groups concurrent frames;
+    otherwise it is single-threaded and runs ``sr_array`` itself (a fixed
+    ``--batch N`` would repeat-pad a lone request to N frames).
+
+    Answers: 413 for a ``Content-Length`` outside [0, ``max_body_bytes``],
+    before any read (``rejected_oversize``); 400 for an undecodable body
+    (``failed``); 503 + ``Retry-After: 1`` when the queue is full
+    (``rejected``); 500 for an engine or encode error (``failed``); else
+    200 with the PNG, its latency in ``latencies_ms``. ``should_stop``, a
+    callable polled every 0.2 s, shuts the server down (the SIGTERM drain);
+    ``ready``, if given, is called with the bound (host, port) once the
+    socket listens (port 0 picks a free one)."""
+    stats_lock = engine.stats_lock  # the handler threads share the counters
+    batcher = _MicroBatcher(engine, max_queue=max_queue) if engine.batch == "auto" else None
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def log_message(self, fmt, *a):  # quiet: the stats cover it
+            pass
+
+        def _send(self, code: int, body: bytes, ctype: str, extra_headers: dict | None = None) -> None:
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            for k, v in (extra_headers or {}).items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _count(self, field: str) -> None:
+            with stats_lock:
+                setattr(engine, field, getattr(engine, field) + 1)
+
+        def do_GET(self):  # noqa: N802 (stdlib API)
+            if self.path == "/healthz":
+                self._send(200, b"ok", "text/plain")
+            elif self.path == "/stats":
+                stats = engine.stats()
+                if batcher is not None:  # live overload headroom
+                    stats["queue_depth"] = batcher.q.qsize()
+                    stats["queue_capacity"] = batcher.q.maxsize
+                self._send(200, json.dumps(stats).encode(), "application/json")
+            else:
+                self._send(404, b"not found", "text/plain")
+
+        def do_POST(self):  # noqa: N802
+            if self.path != "/sr":
+                self._send(404, b"not found", "text/plain")
+                return
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+            except ValueError:
+                n = -1
+            if n < 0 or n > max_body_bytes:
+                # refused before reading: an oversized upload never lands in
+                # host memory, and a garbage length never becomes a read that
+                # waits for the client to close
+                self._count("rejected_oversize")
+                self._send(413, f"body length {n} outside [0, {max_body_bytes}]".encode(), "text/plain")
+                return
+            img = cv2.imdecode(np.frombuffer(self.rfile.read(n), np.uint8), cv2.IMREAD_COLOR)
+            if img is None:
+                self._count("failed")
+                self._send(400, b"undecodable image", "text/plain")
+                return
+            t0 = time.perf_counter()
+            rgb = np.asarray(img[..., ::-1], np.float32) / 255.0
+            try:
+                sr = batcher.submit(rgb) if batcher is not None else engine.sr_array(rgb)
+            except OverloadedError as e:
+                self._count("rejected")
+                self._send(503, str(e).encode(), "text/plain", extra_headers={"Retry-After": "1"})
+                return
+            except Exception as e:  # noqa: BLE001 - an engine error answers 500
+                self._count("failed")
+                self._send(500, f"{type(e).__name__}: {e}".encode()[:1000], "text/plain")
+                return
+            sr8 = np.clip(sr * 255.0, 0, 255).astype(np.uint8)
+            ok, buf = cv2.imencode(".png", sr8[..., ::-1])
+            if not ok:
+                self._count("failed")
+                self._send(500, b"encode failed", "text/plain")
+                return
+            with stats_lock:
+                engine.served += 1
+                engine.latencies_ms.append((time.perf_counter() - t0) * 1e3)
+            self._send(200, buf.tobytes(), "image/png")
+
+    base = http.server.ThreadingHTTPServer if batcher is not None else http.server.HTTPServer
+
+    class Server(base):
+        # the listen backlog: socketserver's 5 resets the connections of a
+        # burst before the bounded queue could answer them with 503
+        request_queue_size = 128
+
+    if batcher is None:
+        engine.use_device()  # this thread runs the model
+    try:
+        with Server((host, port), Handler) as srv:
+            bound = srv.server_address[:2]
+            mode = "micro-batched" if batcher is not None else "single-threaded"
+            print(f"serving on http://{bound[0]}:{bound[1]} (POST /sr, {mode})", file=sys.stderr, flush=True)
+            if should_stop is not None:
+                # the signal handler only sets a flag; this watcher turns it
+                # into a shutdown: the request in hand finishes, then
+                # serve_forever returns
+                def watch():
+                    while not should_stop():
+                        time.sleep(0.2)
+                    srv.shutdown()
+
+                threading.Thread(target=watch, daemon=True).start()
+            if ready is not None:
+                ready(bound)
+            try:
+                srv.serve_forever()
+            except KeyboardInterrupt:
+                pass
+    finally:
+        if batcher is not None:
+            batcher.close()
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description="srganfd_tpu_torch serving daemon")
     ap.add_argument("--model-arch", dest="arch", default="rrdbnet_x4")
@@ -390,7 +640,7 @@ def main(argv: list[str] | None = None) -> None:
     mode = ap.add_mutually_exclusive_group(required=True)
     mode.add_argument("--stdio", action="store_true", help="JSONL on stdin/stdout")
     mode.add_argument("--watch", default="", help="poll this dir for frames")
-    mode.add_argument("--port", type=int, default=0, help="HTTP server (not ported yet)")
+    mode.add_argument("--port", type=int, default=0, help="HTTP server port")
     ap.add_argument("--output", default="", help="output dir (watch mode)")
     ap.add_argument("--once", action="store_true", help="watch: drain backlog and exit")
     ap.add_argument("--poll-interval", type=float, default=0.5)
@@ -399,14 +649,19 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--batch", default="1", type=_batch_arg,
                     help="watch mode: drain backlogs in calls of this many frames "
                     "(same-shape frames stack into one forward; tails repeat-pad); "
-                    "'auto' = the drain ladder (16s, then one 8, then singles)")
+                    "'auto' = the drain ladder (16s, then one 8, then singles). HTTP "
+                    "mode: 'auto' also threads the server and micro-batches concurrent "
+                    "requests (a fixed N leaves HTTP one frame a forward)")
     ap.add_argument("--warmup", default="", help="run these shapes first, e.g. 256x256,512x512")
     ap.add_argument("--half", action="store_true", help="bfloat16 compute")
     ap.add_argument("--self-ensemble", action="store_true")
     ap.add_argument("--tile", type=int, default=0)
     ap.add_argument("--tile-overlap", type=int, default=16)
-    ap.add_argument("--max-body-mb", type=int, default=64, help="HTTP only (not ported yet)")
-    ap.add_argument("--max-queue", type=int, default=32, help="HTTP only (not ported yet)")
+    ap.add_argument("--max-body-mb", type=int, default=64,
+                    help="HTTP: reject POST bodies larger than this with 413")
+    ap.add_argument("--max-queue", type=int, default=32,
+                    help="HTTP --batch auto: bound the micro-batcher queue; "
+                    "overflow requests get 503 + Retry-After")
     add_attention_flags(ap)
     add_unported_flags(ap)
     args = ap.parse_args(argv)
@@ -442,10 +697,17 @@ def main(argv: list[str] | None = None) -> None:
     try:
         if args.stdio:
             serve_stdio(engine)
-        else:
+        elif args.watch:
             serve_watch(
                 engine, args.watch, args.output, poll_s=args.poll_interval,
                 once=args.once, should_stop=lambda: stop["flag"],
+            )
+        else:
+            serve_http(
+                engine, args.port,
+                max_body_bytes=args.max_body_mb * 1024 * 1024,
+                max_queue=args.max_queue,
+                should_stop=lambda: stop["flag"],
             )
     finally:
         print(json.dumps({"final_stats": engine.stats()}), file=sys.stderr, flush=True)

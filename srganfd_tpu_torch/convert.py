@@ -81,6 +81,30 @@ are already in the order of torch's ``flatten(1)``: the transpose is the
 whole of that mapping, the inverse of ``tools/port_torch_weights.py``'s
 ``convert_vgg_discriminator``.
 
+A ``GeneratorRRDB`` tree (``gen_rrdb2x``) holds ``Conv_0`` (its first
+conv, 12 input channels at x2), the trunk ``RRDB_{i}``, ``Conv_1`` (the
+trunk conv), ``Conv_2``/``Conv_3`` (the two upsampling convs), ``Conv_4``
+(the LAST conv) and ``Conv_5`` (the HR conv): the JAX module writes
+``conv(out)(lrelu(conv(feat)(z)))``, and Flax names the outer conv first.
+Its module names are a ``RealESRGANNet`` x2 tree's, whose ``Conv_4`` is the
+HR conv and ``Conv_5`` the last; the two differ only in which of
+``Conv_4``/``Conv_5`` maps the features to the output channels, so
+``flax_to_state_dict`` tells them apart by that conv's shape, never by
+conv1's channels. The reference tree (``A-ESRGAN/model.py:180-215``) is not
+at hand; its docstring calls the module BasicSR-style, so the port takes
+BasicSR's names: ``Conv_0`` -> ``conv_first``, ``RRDB_{i}`` ->
+``body.{i}.rdb{j}.conv{k}``, ``Conv_1`` -> ``conv_body``, ``Conv_2``/
+``Conv_3`` -> ``conv_up1``/``conv_up2``, ``Conv_5`` -> ``conv_hr``,
+``Conv_4`` -> ``conv_last``.
+
+A ``GeneratorRPA`` tree (``gen_rpa2x``) holds ``Conv_0`` (the first conv),
+``_RPABlock_{i}/Conv_{0..3}`` (the two 1x1 convs, the gate's 3x3 conv, the
+block's last conv), ``_PAUpsample_{i}/Conv_{0..2}`` (the 1x1 conv, the 1x1
+gate conv, the 3x3 conv) and ``Conv_1``/``Conv_2`` (the two tail convs).
+The port chooses the names (the reference's are not at hand): ``conv1``,
+``rpa.{i}.conv{1..4}``, ``us.{i}.conv1``, ``us.{i}.pa_conv``,
+``us.{i}.conv2``, ``conv2``, ``conv3``.
+
 Each mapping takes only the tree it knows: a leaf it would not map raises
 instead of being dropped or mis-assigned.
 """
@@ -95,7 +119,7 @@ import torch
 
 __all__ = [
     "flax_to_state_dict", "rrdb_flax_to_state_dict", "realesrgan_flax_to_state_dict",
-    "bsrgantrans_flax_to_state_dict",
+    "bsrgantrans_flax_to_state_dict", "gen_rrdb_flax_to_state_dict", "gen_rpa_flax_to_state_dict",
     "encoder_layer_to_state_dict", "state_dict_to_flax",
     "discriminator_flax_to_state_dict", "sa_discriminator_flax_to_state_dict", "token_attention_to_state_dict",
     "attention_discriminator_flax_to_state_dict",
@@ -229,6 +253,8 @@ def rrdb_flax_to_state_dict(params: dict) -> dict[str, np.ndarray]:
     rest = _conv_names(params)
     if rest[:2] != ["Conv_0", "Conv_1"] or len(rest) < 4:
         raise ValueError(f"expected conv1, conv2 and >= 2 tail convs, found {rest}")
+    if _is_gen_rrdb_tree(params):
+        raise ValueError("a gen_rrdb2x tree (Conv_4 is its last conv), not an RRDBNet one")
     _put_conv(params, sd, used, "Conv_0", "conv1")
     _put_trunk(params, sd, used)
     _put_conv(params, sd, used, "Conv_1", "conv2")
@@ -253,6 +279,8 @@ def realesrgan_flax_to_state_dict(params: dict) -> dict[str, np.ndarray]:
     convs = _conv_names(params)
     if convs != [f"Conv_{i}" for i in range(6)]:
         raise ValueError(f"a RealESRGANNet tree has Conv_0..Conv_5, found {convs}")
+    if _is_gen_rrdb_tree(params):
+        raise ValueError("a gen_rrdb2x tree (Conv_4 is its last conv), not a RealESRGANNet one")
     cin = int(_np(params["Conv_0"]["Conv_0"]["kernel"]).shape[2])
     if cin not in _UNSHUFFLED_CHANNELS:
         raise ValueError(f"a RealESRGANNet conv1 takes {_UNSHUFFLED_CHANNELS} channels, this one {cin}")
@@ -290,12 +318,94 @@ def bsrgantrans_flax_to_state_dict(params: dict) -> dict[str, np.ndarray]:
     return sd
 
 
+_GEN_RRDB_NAMES = ("conv_first", "conv_body", "conv_up1", "conv_up2", "conv_last", "conv_hr")  # Conv_0..5
+
+
+def _conv_out(params: dict, name: str) -> int | None:
+    kernel = params.get(name, {}).get("Conv_0", {}).get("kernel")
+    return None if kernel is None else int(_np(kernel).shape[3])
+
+
+def _is_gen_rrdb_tree(params: dict) -> bool:
+    """A tree of Conv_0..Conv_5 whose ``Conv_5`` keeps the features and whose
+    ``Conv_4`` leaves them (the last conv): ``GeneratorRRDB``'s layout.
+    RRDBNet x4 and RealESRGANNet trees have the same names with the two
+    roles the other way round. Where the output channels equal the features
+    the shapes cannot tell them apart, and this raises."""
+    if _conv_names(params) != [f"Conv_{i}" for i in range(6)]:
+        return False
+    feat, out4, out5 = (_conv_out(params, f"Conv_{i}") for i in (0, 4, 5))
+    if out4 == out5 == feat:
+        raise ValueError(
+            "a tree of Conv_0..Conv_5 whose output channels equal its features: "
+            "gen_rrdb2x and the RealESRGANNet/RRDBNet trees share their names, and "
+            "only Conv_4's or Conv_5's output channels tell them apart"
+        )
+    return out5 == feat != out4
+
+
+def gen_rrdb_flax_to_state_dict(params: dict) -> dict[str, np.ndarray]:
+    """A ``GeneratorRRDB`` tree (``gen_rrdb2x``; unrolled or scanned trunk) ->
+    the port's state dict in BasicSR's names (module docstring). Raises on
+    a tree of another layout, a ``RealESRGANNet`` one among them."""
+    params = _unstack_trunk(params)
+    if not _is_gen_rrdb_tree(params):
+        raise ValueError(f"a gen_rrdb2x tree has Conv_0..Conv_5 with Conv_4 the last conv, found "
+                         f"{[(k, _conv_out(params, k)) for k in _conv_names(params)]}")
+    sd: dict[str, np.ndarray] = {}
+    used: set[str] = set()
+    _put_trunk(params, sd, used)
+    sd = {k.replace("trunk.", "body.", 1): v for k, v in sd.items()}
+    for i, prefix in enumerate(_GEN_RRDB_NAMES):
+        _put_conv(params, sd, used, f"Conv_{i}", prefix)
+    _refuse_unmapped(params, used, "gen_rrdb2x")
+    return sd
+
+
+_RPA_CONVS = ("conv1", "conv2", "conv3", "conv4")  # _RPABlock_i/Conv_0..3
+_US_CONVS = ("conv1", "pa_conv", "conv2")  # _PAUpsample_i/Conv_0..2
+
+
+def _numbered(params: dict, stem: str) -> list[str]:
+    return sorted((k for k in params if k.startswith(stem)), key=lambda k: int(k[len(stem):]))
+
+
+def gen_rpa_flax_to_state_dict(params: dict) -> dict[str, np.ndarray]:
+    """A ``GeneratorRPA`` tree (``gen_rpa2x``) -> the port's state dict
+    (names in the module docstring)."""
+    sd: dict[str, np.ndarray] = {}
+    used: set[str] = set()
+    if _conv_names(params) != ["Conv_0", "Conv_1", "Conv_2"]:
+        raise ValueError(f"a gen_rpa2x tree has Conv_0..Conv_2 at the top, found {_conv_names(params)}")
+    try:
+        for name, prefix in zip(("Conv_0", "Conv_1", "Conv_2"), ("conv1", "conv2", "conv3")):
+            _put_conv(params, sd, used, name, prefix)
+        for stem, module, convs in (("_RPABlock_", "rpa", _RPA_CONVS), ("_PAUpsample_", "us", _US_CONVS)):
+            for i, block in enumerate(_numbered(params, stem)):
+                inner: set[str] = set()
+                for j, conv in enumerate(convs):
+                    _put_conv(params[block], sd, inner, f"Conv_{j}", f"{module}.{i}.{conv}")
+                used |= {f"{block}/{leaf}" for leaf in inner}
+    except KeyError as e:
+        raise ValueError(f"the gen_rpa2x mapping found no {e}: it is not a tree of that family "
+                         f"(found {sorted(params)})") from None
+    _refuse_unmapped(params, used, "gen_rpa2x")
+    return sd
+
+
 def flax_to_state_dict(params: dict) -> dict[str, np.ndarray]:
     """Flax generator params (unrolled or scanned trunk, nested dicts of
     arrays) -> the port's numpy state dict, through the mapping the tree's
-    keys call for."""
+    keys call for: the modules' names first (transformer layers, RPA
+    blocks), then, among the trees of Conv_0..Conv_5 and a trunk, which of
+    Conv_4 and Conv_5 is the last conv (``gen_rrdb2x``), then conv1's
+    unshuffled channels (``RealESRGANNet``)."""
     if any(k.startswith("TransformerEncoderLayer_") for k in params):
         return bsrgantrans_flax_to_state_dict(params)
+    if any(k.startswith(("_RPABlock_", "_PAUpsample_")) for k in params):
+        return gen_rpa_flax_to_state_dict(params)
+    if _is_gen_rrdb_tree(params):
+        return gen_rrdb_flax_to_state_dict(params)
     conv1 = params.get("Conv_0", {}).get("Conv_0", {}).get("kernel")
     if conv1 is not None and _np(conv1).shape[2] in _UNSHUFFLED_CHANNELS[1:]:
         return realesrgan_flax_to_state_dict(params)
@@ -498,23 +608,39 @@ def _encoder_layer_to_flax(sd: dict[str, Any], prefix: str) -> dict:
     return layer
 
 
+def _gen_rpa_to_flax(sd: dict[str, Any], conv) -> dict:
+    """Inverse of :func:`gen_rpa_flax_to_state_dict`."""
+    params: dict[str, Any] = {f"Conv_{i}": conv(p) for i, p in enumerate(("conv1", "conv2", "conv3"))}
+    for stem, module, convs in (("_RPABlock_", "rpa", _RPA_CONVS), ("_PAUpsample_", "us", _US_CONVS)):
+        count = len({k.split(".")[1] for k in sd if k.startswith(f"{module}.")})
+        for i in range(count):
+            params[f"{stem}{i}"] = {f"Conv_{j}": conv(f"{module}.{i}.{c}") for j, c in enumerate(convs)}
+    return params
+
+
 def state_dict_to_flax(sd: dict[str, Any], num_blocks: int, scan_blocks: bool = False) -> dict:
     """Inverse of :func:`flax_to_state_dict`: the Flax param tree with an
     unrolled trunk, or the ``ScanRRDB`` layout with ``scan_blocks=True``.
-    A state dict with ``transformer.*`` keys gives a ``BSRGANtrans`` tree."""
+    A state dict with ``transformer.*`` keys gives a ``BSRGANtrans`` tree,
+    one with ``conv_first`` a ``GeneratorRRDB`` tree and one with ``rpa.*``
+    keys a ``GeneratorRPA`` tree (``num_blocks`` unused)."""
 
     def conv(prefix: str) -> dict:
         return {"Conv_0": {"kernel": _oihw_to_hwio(sd[f"{prefix}.weight"]),
                            "bias": _np(sd[f"{prefix}.bias"])}}
 
-    params: dict[str, Any] = {"Conv_0": conv("conv1")}
+    if any(k.startswith("rpa.") for k in sd):
+        return _gen_rpa_to_flax(sd, conv)
+    gen_rrdb = "conv_first.weight" in sd
+    trunk = "body" if gen_rrdb else "trunk"
+    params: dict[str, Any] = {"Conv_0": conv("conv_first" if gen_rrdb else "conv1")}
     blocks = []
     for i in range(num_blocks):
         block = {}
         for j in range(3):
             rdb = {}
             for k in range(5):
-                prefix = f"trunk.{i}.rdb{j + 1}.conv{k + 1}"
+                prefix = f"{trunk}.{i}.rdb{j + 1}.conv{k + 1}"
                 rdb[f"conv{k}_kernel"] = _oihw_to_hwio(sd[f"{prefix}.weight"])
                 rdb[f"conv{k}_bias"] = _np(sd[f"{prefix}.bias"])
             block[f"ResidualDenseBlock_{j}"] = rdb
@@ -526,6 +652,9 @@ def state_dict_to_flax(sd: dict[str, Any], num_blocks: int, scan_blocks: bool = 
         }}
     else:
         params.update({f"RRDB_{i}": b for i, b in enumerate(blocks)})
+    if gen_rrdb:
+        params.update({f"Conv_{i}": conv(p) for i, p in enumerate(_GEN_RRDB_NAMES) if i})
+        return params
     n_up = sum(1 for k in sd if k.startswith("upsampling") and k.endswith(".0.weight"))
     tail = [f"upsampling{u + 1}.0" for u in range(n_up)] + ["conv3.0", "conv4"]
     if any(k.startswith("transformer.") for k in sd):

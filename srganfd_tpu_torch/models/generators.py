@@ -1,6 +1,6 @@
-"""RRDB generator family (counterpart of ``srganfd_tpu/models/generators.py``
-``RRDBNet``, ``BSRGAN``, ``BSRGANtrans`` and ``RealESRGANNet`` with their
-registered names).
+"""Generator families (counterpart of ``srganfd_tpu/models/generators.py``
+``RRDBNet``, ``BSRGAN``, ``BSRGANtrans``, ``RealESRGANNet``,
+``GeneratorRPA`` and ``GeneratorRRDB`` with their registered names).
 
 - ``RRDBNet`` x1/x2/x4/x8: ``ESRGAN/model.py:144-243,301-322``; one
   nearest-upsample + conv stage per factor of 2.
@@ -12,6 +12,12 @@ registered names).
 - ``RealESRGANNet`` x4/x2: ``Real_ESRGAN/model.py:179-263,331-334``; a
   pixel-unshuffle front (by 2 at x2, by 4 at x1), then always two
   nearest-upsample + conv stages.
+- ``GeneratorRPA`` (``gen_rpa2x``): A-ESRGAN's residual pixel-attention
+  generator (``A-ESRGAN/model.py:87-175``): 1x1 convs, sigmoid gates, no
+  RDB and no output clamp.
+- ``GeneratorRRDB`` (``gen_rrdb2x``): A-ESRGAN's pixel-unshuffle RRDB
+  generator (``A-ESRGAN/model.py:180-215``): unshuffle by 4 / scale, the
+  RRDB trunk on the RDB kernel, two nearest-x2 stages, no clamp.
 
 ``forward`` takes and returns NHWC float tensors, as ``model.apply`` does
 in JAX; inside, the network runs NCHW channels-last in the compute
@@ -20,8 +26,9 @@ in JAX; inside, the network runs NCHW channels-last in the compute
 State-dict names are the reference's: ``conv1``, ``trunk.{i}.rdb{j}.conv{k}``,
 ``conv2``, ``upsampling{n}.0``, ``conv3.0``, ``conv4`` (``RealESRGANNet``
 too: its conv1 takes the unshuffled channels); ``BSRGANtrans``
-adds ``down_conv``, ``transformer.{0,1}`` and ``up_conv`` (see
-``convert.py``).
+adds ``down_conv``, ``transformer.{0,1}`` and ``up_conv``. The two
+A-ESRGAN generators take the names listed in their docstrings (see
+``convert.py``). Neither of them clamps, so their outputs are unbounded.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from srganfd_tpu_torch.models.blocks import (
     Conv,
     TransformerEncoderLayer,
     init_kaiming_x01,
+    init_lecun_normal,
     lrelu,
     make_trunk,
     out_dtype,
@@ -44,7 +52,7 @@ from srganfd_tpu_torch.models.blocks import (
 from srganfd_tpu_torch.models.registry import register
 from srganfd_tpu_torch.ops.resize import upsample_nearest
 
-__all__ = ["RRDBNet", "BSRGAN", "BSRGANtrans", "RealESRGANNet"]
+__all__ = ["RRDBNet", "BSRGAN", "BSRGANtrans", "RealESRGANNet", "GeneratorRPA", "GeneratorRRDB"]
 
 
 class RRDBNet(nn.Module):
@@ -188,6 +196,149 @@ class RealESRGANNet(RRDBNet):
         return super().forward(pixel_unshuffle(x, self.unshuffle))
 
 
+def _to_nchw(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return x.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+
+def _init_lecun(module: nn.Module, generator: torch.Generator | None) -> None:
+    """Flax's default init for every conv of ``module`` (the JAX ``Conv``
+    without ``scaled_init``), in registration order."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            init_lecun_normal(m, generator)
+
+
+class _RPABlock(nn.Module):
+    """Residual pixel-attention block (``A-ESRGAN/model.py:112-140``):
+    lrelu(1x1 conv to 2F), lrelu(1x1 conv to 4F), a 3x3 conv to F and its
+    sigmoid z, then lrelu(conv(x * z + x)). ``conv1``..``conv3`` take the
+    kaiming x0.1 init, ``conv4`` Flax's default, as in the JAX block."""
+
+    def __init__(self, num_feat: int, generator: torch.Generator | None = None) -> None:
+        super().__init__()
+        self.conv1 = Conv(num_feat, num_feat * 2, kernel=1, padding=0)
+        self.conv2 = Conv(num_feat * 2, num_feat * 4, kernel=1, padding=0)
+        self.conv3 = Conv(num_feat * 4, num_feat)
+        self.conv4 = Conv(num_feat, num_feat)
+        init_kaiming_x01(nn.ModuleList([self.conv1, self.conv2, self.conv3]), generator)
+        init_lecun_normal(self.conv4, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        z = torch.sigmoid(self.conv3(lrelu(self.conv2(lrelu(self.conv1(x))))))
+        return lrelu(self.conv4(x * z + x))
+
+
+class _PAUpsample(nn.Module):
+    """Pixel-attention upsampling block ``US`` (``A-ESRGAN/model.py:87-109``):
+    x_ = lrelu(1x1 conv(nearest x2)), z = sigmoid(1x1 ``pa_conv``(x_)), then
+    lrelu(conv(x_ * z + x_)). Flax's default init throughout."""
+
+    def __init__(self, num_feat: int, scale: int = 2, generator: torch.Generator | None = None) -> None:
+        super().__init__()
+        self.scale = scale
+        self.conv1 = Conv(num_feat, num_feat, kernel=1, padding=0)
+        self.pa_conv = Conv(num_feat, num_feat, kernel=1, padding=0)
+        self.conv2 = Conv(num_feat, num_feat)
+        _init_lecun(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x_ = lrelu(self.conv1(upsample_nearest(x, self.scale)))
+        z = torch.sigmoid(self.pa_conv(x_))
+        return lrelu(self.conv2(x_ * z + x_))
+
+
+class GeneratorRPA(nn.Module):
+    """A-ESRGAN's residual pixel-attention generator (``gen_rpa2x``;
+    ``A-ESRGAN/model.py:143-175``): z = lrelu(``conv1``(x)), z + the
+    ``rpa`` blocks' chain over z, ceil(log2 scale) ``us`` stages, then
+    lrelu(``conv2``) to F/2 and ``conv3`` to the output. No output clamp,
+    as the reference. State-dict names: ``conv1``, ``rpa.{i}.conv{1..4}``,
+    ``us.{i}.{conv1,pa_conv,conv2}``, ``conv2``, ``conv3``."""
+
+    def __init__(
+        self,
+        num_in_ch: int = 3,
+        num_out_ch: int = 3,
+        scale: int = 2,
+        num_feat: int = 64,
+        num_block: int = 20,
+        dtype: torch.dtype = torch.float32,
+        device: Any = None,
+        generator: torch.Generator | None = None,
+    ) -> None:
+        super().__init__()
+        self.dtype = dtype
+        n_up = math.ceil(math.log2(scale)) if scale > 1 else 0
+        self.upscale = 2**n_up
+        self.conv1 = Conv(num_in_ch, num_feat)
+        init_lecun_normal(self.conv1, generator)
+        self.rpa = nn.Sequential(*[_RPABlock(num_feat, generator) for _ in range(num_block)])
+        self.us = nn.Sequential(*[_PAUpsample(num_feat, 2, generator) for _ in range(n_up)])
+        self.conv2 = Conv(num_feat, num_feat // 2)
+        self.conv3 = Conv(num_feat // 2, num_out_ch)
+        _init_lecun(nn.ModuleList([self.conv2, self.conv3]), generator)
+        if device is not None:
+            self.to(device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        z = lrelu(self.conv1(_to_nchw(x, self.dtype)))
+        z = self.us(z + self.rpa(z))
+        out = self.conv3(lrelu(self.conv2(z)))
+        return out.to(out_dtype(self.dtype)).permute(0, 2, 3, 1)
+
+
+class GeneratorRRDB(nn.Module):
+    """A-ESRGAN's pixel-unshuffle RRDB generator (``gen_rrdb2x``;
+    ``A-ESRGAN/model.py:180-215``, BasicSR's layout): pixel-unshuffle by
+    4 // scale (at x2 ``conv_first`` takes 12 channels; H and W must then be
+    even, ``--bucket 2`` pads), the ``body`` of RRDBs (every RDB through
+    ``rdb_apply``: the RDB kernel on a CUDA tensor), ``conv_body`` and the
+    skip, lrelu(``conv_up1``) and lrelu(``conv_up2``) each after a nearest
+    x2, then ``conv_last``(lrelu(``conv_hr``)). No clamp. The trunk takes
+    the kaiming x0.1 init, the other convs Flax's default, as the JAX
+    module. State-dict names are BasicSR's: ``conv_first``,
+    ``body.{i}.rdb{j}.conv{k}``, ``conv_body``, ``conv_up1``, ``conv_up2``,
+    ``conv_hr``, ``conv_last``."""
+
+    def __init__(
+        self,
+        num_in_ch: int = 3,
+        num_out_ch: int = 3,
+        scale: int = 4,
+        num_feat: int = 64,
+        num_block: int = 23,
+        num_grow_ch: int = 32,
+        dtype: torch.dtype = torch.float32,
+        device: Any = None,
+        generator: torch.Generator | None = None,
+    ) -> None:
+        super().__init__()
+        if 4 % scale:
+            raise ValueError(f"GeneratorRRDB takes scale 1, 2 or 4, got {scale}")
+        self.dtype = dtype
+        self.unshuffle = 4 // scale
+        self.upscale = scale
+        self.conv_first = Conv(num_in_ch * self.unshuffle**2, num_feat)
+        self.body = make_trunk(num_feat, num_grow_ch, num_block)
+        self.conv_body = Conv(num_feat, num_feat)
+        self.conv_up1 = Conv(num_feat, num_feat)
+        self.conv_up2 = Conv(num_feat, num_feat)
+        self.conv_hr = Conv(num_feat, num_feat)
+        self.conv_last = Conv(num_feat, num_out_ch)
+        _init_lecun(self, generator)
+        init_kaiming_x01(self.body, generator)
+        if device is not None:
+            self.to(device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        z = self.conv_first(_to_nchw(pixel_unshuffle(x, self.unshuffle), self.dtype))
+        z = z + self.conv_body(self.body(z))
+        z = lrelu(self.conv_up1(upsample_nearest(z, 2)))
+        z = lrelu(self.conv_up2(upsample_nearest(z, 2)))
+        out = self.conv_last(lrelu(self.conv_hr(z)))
+        return out.to(out_dtype(self.dtype)).permute(0, 2, 3, 1)
+
+
 def _rrdbnet(upscale: int):
     def factory(**kw: Any) -> RRDBNet:
         return RRDBNet(upscale_factor=upscale, **kw)
@@ -232,3 +383,13 @@ def realesrgan_x4(**kw: Any) -> RealESRGANNet:
 @register("realesrgan_x2")
 def realesrgan_x2(**kw: Any) -> RealESRGANNet:
     return RealESRGANNet(upscale_factor=2, **kw)
+
+
+@register("gen_rpa2x")
+def gen_rpa2x(**kw: Any) -> GeneratorRPA:
+    return GeneratorRPA(scale=2, **kw)
+
+
+@register("gen_rrdb2x")
+def gen_rrdb2x(**kw: Any) -> GeneratorRRDB:
+    return GeneratorRRDB(scale=2, **kw)

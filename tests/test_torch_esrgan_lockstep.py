@@ -21,7 +21,26 @@ other orders, do differently, and the relativistic step against a
 BatchNorm D carries such a difference on 10^4-fold in three steps (1e-7
 relative to 1e-3, the port against itself with its parameters nudged by
 1e-7 after the first step). In f64 the two trainers agree to 1e-9 after
-three steps, which is what these tests hold.
+three steps, which is what these tests hold, but for two tensors of D
+whose gradient is, wholly or in part, the roundoff of a sum that is 0:
+
+- ``relativistic_d_loss`` does not change when every logit moves by one
+  constant, so the gradients of all rows' logits sum to exactly 0, and
+  the logit's bias ``classifier.2.bias`` gets roundoff (0 - 1.1e-16 here)
+  for a gradient. Adam turns that into ~lr * |g| / eps and leaves the bias
+  at ~1e-14 - 1e-13, whose digits are the frameworks' roundoff: read
+  relative to its largest entry it was 6.5 at one torch thread, 1.0 at six.
+  It is held instead by its value, at roundoff far below one Adam step,
+  and by its gradient at each step, roundoff against the other D
+  gradients at the scale ``tests/test_torch_esrgan_model.py::
+  test_relativistic_d_loss_gives_the_logit_bias_no_gradient`` uses in f64.
+- A hidden unit of ``classifier.0`` whose LeakyReLU takes one slope on
+  all four rows (GT and SR, 2 each) passes that zero sum on to its bias:
+  24-30 of the 100 units at each step here, their gradients 0 - 2.1e-17
+  in both frameworks. Adam moves each such bias by ~lr * 1e-9, so
+  ``classifier.0.bias`` reads 1.6e-9 of its largest entry (8.7e-5) at 1, 4
+  and 6 torch threads and 7.9e-10 at 2; its other 70-76 units agree to
+  2.6e-14. It is held to 1e-8 (6x its worst reading).
 """
 
 import jax
@@ -44,6 +63,10 @@ OVER = {
                    content_weight=()),
 }
 GT = {"rrdbnet": 32, "esrgan": 128}
+# D tensors with a gradient of roundoff (module docstring): the logit's bias,
+# held by value and gradient, and classifier.0's bias, held to 1e-8
+LOGIT_BIAS = "classifier.2.bias"
+ROUNDOFF_BOUND = {"classifier.0.bias": 1e-8}
 KEYS = {
     "rrdbnet": ("pixel_loss", "g_loss"),
     "esrgan": ("pixel_loss", "adversarial_loss", "g_loss", "d_loss", "d_gt_probability", "d_sr_probability"),
@@ -93,7 +116,9 @@ def test_esrgan_recipe_lockstep_with_jax_trainer(name):
     losses and D's probabilities to 1e-9 relative; the learning rates
     exactly; G, EMA-G, D (weights, BatchNorm scales and biases, Linears)
     and D's running mean and variance to 1e-9 of each tensor's largest
-    entry."""
+    entry, but ``classifier.0.bias`` (1e-8) and the logit's bias: its
+    value in both trainers below 1e-7 lr, its gradient in the port's at
+    each step below 1e-15 while the logit weight's is above 1e-3."""
     n_steps, gt_size = 3, GT[name]
     jtr = JaxTrainer(jax_configs.get_config(name, **OVER[name]), steps_per_epoch=1)
     jst = _jax_state_in_f64(jtr, jax.jit(jtr.init_state, static_argnums=(1, 2))(
@@ -110,7 +135,7 @@ def test_esrgan_recipe_lockstep_with_jax_trainer(name):
     tr = Trainer(cfg, steps_per_epoch=1)
     st = _port_state_in_f64(tr.init_state(init, d_init))
     jax_step = jtr.train_step
-    jax_metrics, metrics, lrs_used = [], [], []
+    jax_metrics, metrics, lrs_used, logit_grads = [], [], [], []
     for i in range(n_steps):
         jst, m = jax_step(jst, jnp.asarray(gts[i]), jnp.asarray(lrs[i]))
         jax_metrics.append([float(m[k]) for k in KEYS[name]])
@@ -118,6 +143,9 @@ def test_esrgan_recipe_lockstep_with_jax_trainer(name):
         assert set(out) == set(KEYS[name])
         metrics.append([float(out[k]) for k in KEYS[name]])
         lrs_used.append([o.param_groups[0]["lr"] for o in (st.g_opt, st.d_opt) if o is not None])
+        if gan:
+            fc = st.d_model.classifier[2]
+            logit_grads.append((fc.bias.grad.abs().max().item(), fc.weight.grad.abs().max().item()))
     np.testing.assert_allclose(metrics, jax_metrics, rtol=1e-9, atol=0)
     want_lr = [[cfg.model_lr * 0.5 ** k] * (2 if gan else 1) for k in (1, 2, 3)]
     assert lrs_used == want_lr
@@ -132,8 +160,12 @@ def test_esrgan_recipe_lockstep_with_jax_trainer(name):
         for k in sorted(theirs):
             got, want = ours[k].detach().numpy(), np.asarray(theirs[k])
             assert got.dtype == want.dtype == np.float64, (tree, k)
+            if tree == "D" and k == LOGIT_BIAS:
+                assert max(np.abs(got).max(), np.abs(want).max()) <= 1e-7 * cfg.model_lr, (got, want)
+                continue
             off = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
-            assert off <= 1e-9, (tree, k, off)
+            assert off <= (ROUNDOFF_BOUND.get(k, 1e-9) if tree == "D" else 1e-9), (tree, k, off)
+    assert all(bias <= 1e-15 and weight > 1e-3 for bias, weight in logit_grads), logit_grads
     moved = max(float((st.g_model.state_dict()[k] - init[k]).abs().max()) for k in init)
     assert moved > 1e-5, f"suspiciously small G update {moved}"
     if gan:

@@ -54,7 +54,11 @@ def test_bsrgan_lockstep_with_jax_trainer(jax_gan, fuse):
     at step 2, so the third update checks both schedules' count. The
     bounds are ``test_bsrnet_lockstep_with_jax_trainer``'s: losses rtol
     2e-6, atol 2e-7; parameters rtol 5e-4, atol 2e-6; the ``u`` vectors
-    too.
+    too. The content loss alone is held at rtol 1e-5: it is the one loss
+    both trainers compute in f32 (VGG19 emits f32 features under f64
+    compute, as the JAX module does), and it read 5.8e-7 relative at step
+    0, from the same parameters, and 1.5e-6 - 1.6e-6 at step 1 (0.79 of
+    2e-6), at 1, 2 and 6 torch threads alike.
 
     The step computes in f64 (parameters and Adam stay f32), as the JAX
     package's own lockstep tests do: in f32 the two frameworks' roundoff in
@@ -91,7 +95,10 @@ def test_bsrgan_lockstep_with_jax_trainer(jax_gan, fuse):
         assert tuple(out) == keys
         metrics.append([float(out[k]) for k in keys])
         lrs_used.append((st.g_opt.param_groups[0]["lr"], st.d_opt.param_groups[0]["lr"]))
-    np.testing.assert_allclose(metrics, jax_metrics, rtol=2e-6, atol=2e-7)
+    content = keys.index("content_loss")
+    others = [i for i in range(len(keys)) if i != content]
+    np.testing.assert_allclose(np.array(metrics)[:, others], np.array(jax_metrics)[:, others], rtol=2e-6, atol=2e-7)
+    np.testing.assert_allclose(np.array(metrics)[:, content], np.array(jax_metrics)[:, content], rtol=1e-5, atol=2e-7)
     assert lrs_used == [(8e-5, 2e-4), (8e-5, 2e-4), (8e-5 * 0.85**2, 2e-4 * 0.85**2)]
     assert st.step == n_steps
 

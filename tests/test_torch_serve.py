@@ -196,7 +196,6 @@ def test_cuda_without_gpu_exits(tmp_path, monkeypatch):
     ["serve", "--stdio", "--quant-int8"],
     ["serve", "--stdio", "--spatial-shard"],
     ["serve", "--stdio", "--cp-backend", "ulysses"],
-    ["serve", "--port", "8080"],
     ["infer", "--inputs-path", "in.png", "--output-path", "o.png", "--data-shard"],
 ], ids=lambda a: a[0] + (a[-1] if a[-1].startswith("--") else a[-2]))
 def test_unported_flags_name_the_roadmap_item(argv):
