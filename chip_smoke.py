@@ -242,7 +242,31 @@ drives A-ESRGAN's generators ``gen_rrdb2x`` and ``gen_rpa2x``:
     flash backend through the config, against the chunked backend;
 26. ``cli.test_degradations`` over 4 frames of 512x512, ``--plus`` and
     ``--codec cv2``, each LR held to the same run with filter2d plain (cv2
-    one 8-bit level, plus 0.05), frames/s and filter2d calls.
+    one 8-bit level, plus 0.05), frames/s and filter2d calls;
+27. the s8 conv kernel of the int8 serving path (``csrc/qconv.cu``, in the
+    kernel phases) on the five sources of a full-width RDB (x: 64 -> 192
+    channels; out_1..out_4: 32 -> 160, 128, 96, 64) at (1, 256, 256) and
+    (16, 72, 72): the int32 sums and the f32 output equal to the plain
+    version (an exact float64 conv) bit for bit; CUDA-event times of the
+    five convs at (1, 256, 256), the plain version and the bf16 RDB kernel
+    on the same input, beside the bound (no library call takes an int8
+    conv on CUDA);
+28. ``cli.serve --stdio --quant-int8``: ``bsrgan_x2`` (4 x 256x256) and
+    ``realesrgan_x4`` (4 x 128x128) on spread weights, f32 and bf16: 345
+    qconv kernel calls and no RDB-kernel call a forward; one frame held to
+    the same quantized model with the plain qconv (f32 1e-3; bf16 8/255 and
+    45 dB); the PSNR against the unquantized f32 SR printed, not held;
+29. paired training: ``bsrnet`` with ``degradation="paired"`` (full width,
+    batch 16, bf16) on 16 registered pairs (GT 144, LR 72) for 3 steps:
+    the first step's LR equal to the files (max abs 0), 69 RDB kernel calls
+    a forward, the step p50 and peak memory;
+30. ``cli.export`` of full-width ``bsrgan_x2`` at 128x128 on the card: the
+    ``.pt2`` reloaded and run, held to the module (max abs 1e-3), its 69
+    RDB kernel calls through the custom op ``srganfd::rdb_forward``;
+31. the graft's sources: ``--pretrained-g`` from the paired run's
+    ``ckpt_last.pth``, a ``.npz`` of it and a ``runs:/`` URI of it in a
+    ``file:`` MLflow store: the same ``n_ok/n_all``, G's forwards bit for
+    bit equal.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after.
@@ -298,6 +322,7 @@ RE_FRAME = 288  # edge of the synthetic GT frames, above the 256 crop
 # the generator's RDBs on 60x60 LR crops, its bottleneck on 30x30 tokens
 AE_RDB_SHAPE = (8, 60, 60, CH)
 AE_STEPS_PER_EPOCH, AE_EPOCHS = 4, 1  # then --resume auto for one more epoch
+AE_FIRST_BIAS = "conv0.bias"  # the attention D's first conv's bias, held by its gradient
 AE_MS_GT = 128  # the ensemble's two scales need GT sides of 16k; the config's 120 is not one
 # the ESRGAN configs' shapes: batches of 16, GT 192 (rrdbnet) and 128
 # (esrgan) at x4, so the generator's RDBs run on 48x48 and 32x32 LR crops
@@ -1309,10 +1334,16 @@ def f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters, init=(), plain_runs=
     LeakyReLU slopes the kernel's and the first plain run's backwards take
     differently; the updated G outside and inside the flipped channels;
     with a D, the largest |gradient| of each D parameter that the kernel
-    run's D update handed Adam), the share of SR elements in (0, 1), which the output clamp passes (a
+    run's D update handed Adam, and each one's max |kernel - plain| over
+    the plain run's largest |gradient|), the share of SR elements in (0, 1), which the output clamp passes (a
     forward's rounding reaches the losses through these alone), and each
     run's (metrics, G state dict, D state dict or None), the kernel's
-    first."""
+    first. Each step runs under torch.use_deterministic_algorithms(True,
+    warn_only=True) and cuDNN's deterministic algorithms, so that the
+    card's own run-to-run roundoff does not read as the kernels'; the ops
+    that warned are returned."""
+    import warnings
+
     from srganfd_tpu_torch.cli.degrade_adapter import DegradationAdapter
     from srganfd_tpu_torch.train import checkpoint as ckpt
     from srganfd_tpu_torch.train import step_check
@@ -1328,7 +1359,7 @@ def f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters, init=(), plain_runs=
         plain_lr = DegradationAdapter(cfg, seed=cfg.seed, train=True, device="cuda")(host, 0)["lr"]
     finally:
         filters.filter2d = orig[1]
-    runs, rdbs, inside = [], [], []
+    runs, rdbs, inside, warned, d_grads = [], [], [], set(), []
     try:
         for plain in (False,) + (True,) * plain_runs:
             seen = []
@@ -1349,16 +1380,25 @@ def f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters, init=(), plain_runs=
             hook = state.g_model.register_forward_hook(
                 lambda m, i, o: inside.append(((o > 0) & (o < 1)).float().mean().item()))
             before = rdb.launches
-            metrics = {k: v.item() for k, v in trainer.train_step(state, batch["gt"], batch["lr"],
-                                                                  batch.get("gt_pixel")).items()}
+            torch.backends.cudnn.deterministic = True
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    metrics = {k: v.item() for k, v in trainer.train_step(state, batch["gt"], batch["lr"],
+                                                                          batch.get("gt_pixel")).items()}
+                finally:
+                    torch.use_deterministic_algorithms(False)
+                    torch.backends.cudnn.deterministic = False
+            warned.update(str(w.message)[:160] for w in caught if "deterministic" in str(w.message))
             hook.remove()
             made = rdb.launches - before
             check(made == (0 if plain else RDB_PER_FORWARD), f"f32 {label} step (plain={plain}) made {made} rdb calls")
             names = [n for n, m in state.g_model.named_modules() if isinstance(m, blocks.ResidualDenseBlock)]
             d = None if state.d_model is None else {k: v.detach().clone()
                                                     for k, v in state.d_model.state_dict().items()}
-            if d is not None and not runs:  # what the D update handed the kernel run's Adam
-                d_grad_max_abs = {k: p.grad.abs().max().item() for k, p in state.d_model.named_parameters()}
+            if d is not None and len(d_grads) < 2:  # what the D update handed Adam, kernel and first plain run
+                d_grads.append({k: p.grad.detach().clone() for k, p in state.d_model.named_parameters()})
             runs.append((metrics, {k: v.detach().clone() for k, v in state.g_model.state_dict().items()}, d))
             if len(rdbs) < 2:
                 rdbs.append(seen)
@@ -1376,8 +1416,11 @@ def f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters, init=(), plain_runs=
            "slope_flips": sum(flips), "rdbs_with_flips": sum(f > 0 for f in flips),
            "preactivations": RDB_PER_FORWARD * sum(z.numel() for z in step_check.rdb_preactivations(*rdbs[1][0])),
            **step_check.g_agreement(g_k, g_p, step_check.flipped_channels(names, channels))}
+    out["nondeterministic_ops"] = sorted(warned)
     if runs[0][2] is not None:
-        out["d_grad_max_abs"] = d_grad_max_abs
+        out["d_grad_max_abs"] = {k: v.abs().max().item() for k, v in d_grads[0].items()}
+        out["d_grad_rel_parts"] = {k: (v - d_grads[1][k]).abs().max().item()
+                                   / max(d_grads[1][k].abs().max().item(), 1e-30) for k, v in d_grads[0].items()}
     print(f"f32 {label} step, kernels vs plain versions on one batch: chain LR (filter2d kernel vs plain) max "
           f"abs {out['lr_max_abs']:.3g}; SR in (0, 1) {out['sr_in_range']:.4f}; loss parts relative "
           f"{ {k: float(f'{v:.3g}') for k, v in loss_rel.items()} } (kernel {m_k}, plain {m_p}); LeakyReLU "
@@ -2396,39 +2439,70 @@ def ae_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
     # slope flips and G by step_check's LIMITS; D and u to 1e-3 as the
     # bsrgan check holds them; the gates' running mean and variance, which
     # the D update writes from the GT and SR batches, to 1e-5 of each
-    # tensor's largest entry. The bias of the 1x1 conv before each gate's
-    # BatchNorm has no gradient in exact arithmetic (the batch mean takes
-    # it out): both runs step it by Adam on roundoff, so what the two runs
-    # read there is noise against noise (1.1e-3 - 2.4e-3 of its largest
-    # entry, 2.6e-8 apart, with correct kernels on an H100 80GB HBM3 at
-    # 700 W: PERF.md section 6). Those three are printed, not held; the CPU tests hold
-    # their gradient against JAX's (test_torch_aesrgan_model.py).
-    f32, runs = f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters, init=(g_final, d_final),
+    # tensor's largest entry; every gradient the D update hands Adam to 1e-3
+    # of the tensor's largest; the plain step twice bit for bit (the steps
+    # run under PyTorch's deterministic algorithms) unless an op warned, so
+    # every difference the check reads is the kernels'. The bias of the 1x1
+    # conv before each gate's BatchNorm has no gradient in exact arithmetic
+    # (the batch mean takes it out): both runs step it by Adam on roundoff,
+    # so what the two runs read there is noise against noise (1.1e-3 -
+    # 2.4e-3 of its largest entry, 2.6e-8 apart, with correct kernels on an
+    # H100 80GB HBM3 at 700 W: PERF.md section 6). Those three are printed,
+    # not held, value or gradient; the CPU tests hold their gradient against
+    # JAX's (test_torch_aesrgan_model.py).
+    # conv0.bias, the first conv's, is held by its gradient and its value
+    # printed: zero at init, its largest entry after the phase's steps is
+    # ~10 lr, and a few of its 64 gradients sit below Adam's eps (1e-4),
+    # where the fresh Adam's first update, lr g / (|g| + eps), passes the
+    # gradient on linearly. Its value then reads ~1e3 times the gradient's
+    # absolute difference, which the kernels' rounding of SR puts at 1e-7 -
+    # 1.4e-6 through the D: 4.9e-5 - 5.3e-4 in 8 trainings, 1.29e-3 in
+    # another, with correct kernels (ae_check_study.py, PERF.md section 6).
+    f32, runs = f32_step_vs_plain(cfg, host, rdb, f2d, blocks, filters, init=(g_final, d_final), plain_runs=2,
                                   label="aesrgan (aesrgan-trained G and D)")
-    (_, _, d_k), (_, _, d_p) = runs
+    (_, _, d_k), (m_p, g_p, d_p), (m_p2, g_p2, d_p2) = runs
 
     def kind(k):
         if k.endswith(".u"):
             return "u"
         if k.endswith(("running_mean", "running_var")):
             return "bn"
+        if k == AE_FIRST_BIAS:
+            return "first_bias"
         return "pre_bn_bias" if k.endswith("W.0.bias") else "d"
 
     kept = lambda sd, c: {k: v for k, v in sd.items() if kind(k) == c}  # noqa: E731
     f32["d_rel"], f32["d_worst"] = _rel_per_tensor(kept(d_k, "d"), kept(d_p, "d"))
     f32["u_rel"], f32["u_worst"] = _rel_per_tensor(kept(d_k, "u"), kept(d_p, "u"))
     f32["bn_rel"], f32["bn_worst"] = _rel_per_tensor(kept(d_k, "bn"), kept(d_p, "bn"))
+    f32["d_grad_rel"], f32["d_grad_worst"] = max((v, k) for k, v in f32["d_grad_rel_parts"].items()
+                                                 if kind(k) != "pre_bn_bias")
+    f32["first_bias_rel"] = _rel_per_tensor(kept(d_k, "first_bias"), kept(d_p, "first_bias"))[0]
+    f32["first_bias_max"] = d_p[AE_FIRST_BIAS].abs().max().item()
+    f32["first_bias_grads_below_eps"] = int((d_k[AE_FIRST_BIAS] - d_final[AE_FIRST_BIAS].to(d_k[AE_FIRST_BIAS]))
+                                            .abs().lt(0.5 * cfg.discriminator_lr).sum())
     pre_bn = kept(d_p, "pre_bn_bias")
     check(len(pre_bn) == 3, f"pre-BatchNorm biases {sorted(pre_bn)}")
     f32["pre_bn_bias_abs"] = max((d_k[k] - v).abs().max().item() for k, v in pre_bn.items())
     f32["pre_bn_bias_max"] = max(v.abs().max().item() for v in pre_bn.values())
     f32["pre_bn_bias_rel"] = _rel_per_tensor(kept(d_k, "pre_bn_bias"), pre_bn)[0]
-    print(f"f32 aesrgan step (trained state): updated D per tensor max relative {f32['d_rel']:.3g} "
-          f"({f32['d_worst']}), u {f32['u_rel']:.3g}, the gates' running statistics {f32['bn_rel']:.3g} "
-          f"({f32['bn_worst']}); the pre-BatchNorm biases (no gradient; not held) {f32['pre_bn_bias_abs']:.3g} "
-          f"apart, {f32['pre_bn_bias_rel']:.3g} of their largest entry {f32['pre_bn_bias_max']:.3g}", flush=True)
-    failed = step_check.step_check_failures(f32, {**step_check.LIMITS, "d_rel": 1e-3, "u_rel": 1e-3, "bn_rel": 1e-5})
+    f32["plain_again_exact"] = (m_p2 == m_p and all(torch.equal(g_p2[k], v) for k, v in g_p.items())
+                                and all(torch.equal(d_p2[k], v) for k, v in d_p.items()))
+    print(f"f32 aesrgan step (trained state): updated D per tensor max relative "
+          f"{f32['d_rel']:.3g} ({f32['d_worst']}), u {f32['u_rel']:.3g}, the gates' running statistics "
+          f"{f32['bn_rel']:.3g} ({f32['bn_worst']}); the D update's gradients per tensor {f32['d_grad_rel']:.3g} "
+          f"({f32['d_grad_worst']}); {AE_FIRST_BIAS} (value not held) {f32['first_bias_rel']:.3g} of its largest "
+          f"entry {f32['first_bias_max']:.3g}, {f32['first_bias_grads_below_eps']} of its gradients in Adam's "
+          f"linear range, its gradient {f32['d_grad_rel_parts'][AE_FIRST_BIAS]:.3g}; the pre-BatchNorm biases (no "
+          f"gradient; not held) {f32['pre_bn_bias_abs']:.3g} apart, {f32['pre_bn_bias_rel']:.3g} of their largest "
+          f"entry {f32['pre_bn_bias_max']:.3g}; the plain step twice "
+          f"{'bit for bit' if f32['plain_again_exact'] else 'NOT bit for bit'}; ops without a deterministic "
+          f"implementation: {f32['nondeterministic_ops']}", flush=True)
+    failed = step_check.step_check_failures(f32, {**step_check.LIMITS, "d_rel": 1e-3, "u_rel": 1e-3, "bn_rel": 1e-5,
+                                                  "d_grad_rel": 1e-3})
     check(not failed, f"f32 aesrgan step vs plain: {failed}")
+    check(f32["plain_again_exact"] or f32["nondeterministic_ops"],
+          "the plain aesrgan step run twice differs with no non-deterministic op warned")
 
     # cli.infer --use-ema on ckpt_best.pth: a GT-sized frame (120x120, 60x60
     # tokens at full attention, as the config trains)
@@ -4201,6 +4275,410 @@ def degradations_phase(work: str, f2d, filters) -> tuple[int, dict]:
     return launches, out
 
 
+# -- the int8 serving path, paired training, export and the graft's sources --
+
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate of one H100 SXM
+# the five sources of a full-width RDB: x (64 channels) feeds all five convs'
+# rows (4 * 32 + 64 outputs), out_1..out_4 (32 channels) the later ones
+QCONV_SOURCES = [(CH, 4 * GC + CH), (GC, 3 * GC + CH), (GC, 2 * GC + CH), (GC, GC + CH), (GC, CH)]
+QCONV_PER_FORWARD = 5 * RDB_PER_FORWARD
+PAIRED_STEPS, PAIRED_GT = 3, 144
+
+
+def qconv_bound_ms(n: int, h: int, w: int) -> tuple[float, float, str]:
+    """The card's least time for the five convs of one quantized RDB on
+    (n, h, w): int8 inputs and weights read once, f32 scales read once, f32
+    outputs written once, against 2 * 9 * cin * cout operations a pixel at
+    the dense int8 rate. Returns (bound ms, operations-only ms, bound_by)."""
+    ops = sum(2 * 9 * cin * cout * n * h * w for cin, cout in QCONV_SOURCES)
+    moved = sum(n * h * w * cin + 9 * cin * cout + 4 * cout + 4 * n * h * w * cout for cin, cout in QCONV_SOURCES)
+    t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, moved / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), t_ops, "operations" if t_ops >= t_bytes else "bytes"
+
+
+QCONV_LIBRARY = (("f32", torch.float32, False), ("tf32", torch.float32, True), ("bf16", torch.bfloat16, False))
+
+
+def qconv_library(xq, kq, scale, want_i, want_f, timed: bool) -> dict:
+    """The library's way to the s8 conv: one cuDNN ``F.conv2d`` on the int8
+    values cast to a float type, times the scales. Every product (<= 127^2)
+    and every partial sum (<= 127^2 * 9 * 64 < 2^24) is an integer that f32
+    holds exactly, so a direct or implicit-GEMM algorithm with f32 sums
+    gives the int32 sums in any order; a Winograd or FFT algorithm, or a
+    bf16 output, rounds. Each variant (f32 with TF32 off, f32 with TF32 on,
+    bf16 inputs and output) is held to the int32 sums and to the kernel's
+    plain f32 output, and timed where ``timed`` (20 calls after 3, the
+    casts made before the timing: the library's best case)."""
+    import torch.nn.functional as F
+
+    out = {}
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        for name, dt, tf32 in QCONV_LIBRARY:
+            torch.backends.cudnn.allow_tf32 = tf32
+            x = xq.permute(0, 3, 1, 2).to(dt)  # channels_last, as xq is NHWC
+            w = kq.permute(3, 2, 0, 1).to(dt).contiguous(memory_format=torch.channels_last)
+            s = scale.view(1, -1, 1, 1)
+            with torch.inference_mode():
+                sums = F.conv2d(x, w, padding=1)
+                y = (sums * s).permute(0, 2, 3, 1)
+            row = {"int32_max_diff": (sums.double().permute(0, 2, 3, 1) - want_i.double()).abs().max().item(),
+                   "f32_max_diff": (y - want_f).abs().max().item()}
+            row["exact"] = row["int32_max_diff"] == 0 and torch.equal(y, want_f)
+            if timed:
+                with torch.inference_mode():
+                    row["ms"] = cuda_ms(lambda: F.conv2d(x, w, padding=1) * s)
+            out[name] = row
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    return out
+
+
+def qconv_kernel_phase(qc, rdb) -> dict:
+    """The s8 conv kernel against its plain version (an exact float64 conv
+    on the card) on the five sources of a full-width RDB at (1, 256, 256)
+    and (16, 72, 72): the int32 sums and the f32 output bit for bit. Times
+    (CUDA events, 20 calls after 3 warm-up ones) of each source's conv, of
+    the plain version, of the library's float convs (:func:`qconv_library`;
+    ``library_ms`` is the fastest bit-exact one) and of the bf16 RDB kernel
+    on the same (1, 256, 256, 64) input, beside the bound."""
+    g = torch.Generator().manual_seed(51)
+    worst = 0
+    per_source, plain_ms_total, ms_total = [], 0.0, 0.0
+    for shape in ((1, 256, 256), (16, 72, 72)):
+        for cin, cout in QCONV_SOURCES:
+            xq = torch.randint(-127, 128, (*shape, cin), generator=g, dtype=torch.int8).cuda()
+            kq = torch.randint(-127, 128, (3, 3, cin, cout), generator=g, dtype=torch.int8).cuda()
+            scale = (torch.rand(cout, generator=g) * 1e-4 + 1e-6).cuda()
+            packed = qc.pack_qconv_weights(kq)
+            got_i, got_f = qc.qconv3x3(xq, kq, None, packed), qc.qconv3x3(xq, kq, scale, packed)
+            torch.cuda.synchronize()
+            want_i, want_f = qc.qconv3x3_ref(xq, kq), qc.qconv3x3_ref(xq, kq, scale)
+            diff_i = (got_i.long() - want_i.long()).abs().max().item()
+            diff_f = (got_f - want_f).abs().max().item()
+            worst = max(worst, diff_i, diff_f)
+            check(torch.equal(got_i, want_i) and torch.equal(got_f, want_f),
+                  f"qconv {shape} cin {cin} cout {cout}: int32 max diff {diff_i}, f32 max diff {diff_f}")
+            row = {"shape": [*shape, cin], "cout": cout, "int32_max_diff": diff_i, "f32_max_diff": diff_f,
+                   "library": qconv_library(xq, kq, scale, want_i, want_f, timed=shape == (1, 256, 256))}
+            if shape == (1, 256, 256):
+                with torch.inference_mode():
+                    row["ms"] = cuda_ms(lambda: qc.qconv3x3(xq, kq, scale, packed))
+                    row["plain_ms"] = cuda_ms(lambda: qc.qconv3x3_ref(xq, kq, scale), iters=3, warmup=1)
+                row["bound_ms"] = max(2 * 9 * cin * cout * 65536 / PEAK_INT8_OPS,
+                                      (65536 * (cin + 4 * cout) + 9 * cin * cout + 4 * cout) / PEAK_HBM_BYTES) * 1e3
+                ms_total += row["ms"]
+                plain_ms_total += row["plain_ms"]
+            per_source.append(row)
+            lib = "; ".join(f"cuDNN {k}: int32 max diff {v['int32_max_diff']:g}, f32 max diff {v['f32_max_diff']:g}"
+                            + (f", {v['ms']:.4f} ms" if "ms" in v else "") for k, v in row["library"].items())
+            print(f"qconv {shape} cin {cin} -> cout {cout}: int32 and f32 equal to the plain version "
+                  f"(max diffs {diff_i}, {diff_f})" + (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+                                                        f"ms, bound {row['bound_ms']:.4f} ms" if "ms" in row else "")
+                  + f"; {lib}", flush=True)
+    bound, ops_bound, bound_by = qconv_bound_ms(1, 256, 256)
+    x, ks, bs = rdb_inputs(SERVE_SHAPE, seed=52)
+    xb = x.to(torch.bfloat16)
+    packed_b = rdb.pack_rdb_weights(ks, bs, torch.bfloat16)
+    with torch.inference_mode():
+        bf16_rdb_ms = cuda_ms(lambda: rdb.rdb_forward(xb, ks, bs, packed_b))
+    ops = sum(2 * 9 * cin * cout * 65536 for cin, cout in QCONV_SOURCES)
+    variants = {}
+    for name, _, _ in QCONV_LIBRARY:
+        rows = [r["library"][name] for r in per_source]
+        variants[name] = {"ms": sum(r["ms"] for r in rows if "ms" in r), "exact": all(r["exact"] for r in rows),
+                          "f32_max_diff": max(r["f32_max_diff"] for r in rows)}
+    exact = {k: v for k, v in variants.items() if v["exact"]}
+    library = min(exact or variants, key=lambda k: variants[k]["ms"])
+    library_ms = variants[library]["ms"]
+    print(f"qconv timing, the five convs of one quantized RDB at x {SERVE_SHAPE}: kernel {ms_total:.4f} ms "
+          f"({ops / ms_total / 1e9:.1f} TOP/s), plain {plain_ms_total:.4f} ms, library {library_ms:.4f} ms "
+          f"(cuDNN F.conv2d {library}, {'exact' if library in exact else 'NOT exact'}; "
+          + ", ".join(f"{k} {v['ms']:.4f} ms {'exact' if v['exact'] else 'max diff ' + format(v['f32_max_diff'], 'g')}"
+                      for k, v in variants.items())
+          + f"); bound {bound:.4f} ms by {bound_by} (operations alone {ops_bound:.4f} ms, "
+          f"{ops:.3e} ops at {PEAK_INT8_OPS / 1e12:.0f} TOP/s), {100 * bound / ms_total:.1f}% of it; the bf16 RDB "
+          f"kernel on the same input {bf16_rdb_ms:.4f} ms", flush=True)
+    return {
+        "name": "qconv3x3 (qconv2d's s8 conv)",
+        "route": "cuda",
+        "design": "mma.sync.m16n8k32 s8 x s8 -> s32 on the bf16 RDB kernel's staging (18x10 halo tile and "
+                  "32-channel weight steps by cp.async into swizzled shared memory, ldmatrix), epilogue "
+                  "(float)acc * scale in f32",
+        "source": "srganfd_tpu_torch/csrc/qconv.cu",
+        "replaces": "srganfd_tpu/ops/quant.py:64",
+        "replaces_note": "an XLA s8 convolution in the JAX package (no Pallas kernel): the int8 serving path",
+        "max_abs_err": worst,
+        "ms": ms_total,
+        "plain_ms": plain_ms_total,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "bound_ops_ms": ops_bound,
+        "library_ms": library_ms,
+        "library": f"cuDNN F.conv2d on the int8 values as {library} times the scales "
+                   f"({'bit-equal' if library in exact else 'not bit-equal'} to the kernel); casts untimed",
+        "library_variants": variants,
+        "bf16_rdb_kernel_ms": bf16_rdb_ms,
+        "tops": ops / ms_total / 1e9,
+        "share_of_bound": bound / ms_total,
+        "shape": [*SERVE_SHAPE[:3], "five sources of one RDB"],
+        "sources": per_source,
+    }
+
+
+def quant_serve_phase(work: str, qc, rdb, blocks) -> tuple[int, dict]:
+    """``cli.serve --stdio --quant-int8``: full-width ``bsrgan_x2`` (4
+    requests of 256x256) and ``realesrgan_x4`` (4 of 128x128) on spread
+    weights, f32 then bf16. Every forward makes 345 qconv kernel calls (5 an
+    RDB) and no RDB-kernel call; one frame is held to the same quantized
+    model with the plain qconv (the serving limits), and its PSNR against
+    the unquantized f32 SR is printed, not held. Returns the qconv calls of
+    the stdio runs and the numbers."""
+    from srganfd_tpu_torch.cli.serve import ServingEngine, serve_stdio
+    from srganfd_tpu_torch.data.datasets import load_image_rgb
+    from srganfd_tpu_torch.ops import quant
+
+    out, launches = {}, 0
+    for arch, size, gain in (("bsrgan_x2", 256, 3.0), ("realesrgan_x4", RE_SERVE, 4.0)):
+        weights = spread_weights(work, arch, gain=gain)
+        frames = write_frames(os.path.join(work, f"q_lr_{arch}"), 4, size, size, seed=53)
+        x = torch.from_numpy(load_image_rgb(frames[0])[None]).cuda()
+        y_ref = None  # the unquantized f32 SR: the f32 engine's model with its RDBs' quant off
+        for half in (False, True):
+            tag = "bf16" if half else "f32"
+            engine = ServingEngine(arch, weights=weights, half=half, quant_int8=True, device="cuda")
+            reqs = [{"id": i, "input": p, "output": os.path.join(work, f"q_sr_{arch}_{tag}", f"{i}.png")}
+                    for i, p in enumerate(frames)]
+            lines = [json.dumps(r) for r in reqs] + ['{"cmd": "shutdown"}']
+            buf = io.StringIO()
+            qc.launches = rdb.launches = 0
+            t0 = time.perf_counter()
+            serve_stdio(engine, inp=io.StringIO("\n".join(lines)), out=buf)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            calls, rdb_calls = qc.launches, rdb.launches
+            launches += calls
+            replies = [json.loads(line) for line in buf.getvalue().splitlines()]
+            scale = engine.upscale
+            check(len(replies) == 4 and all(r.get("ok") and r["out_hw"] == [scale * size] * 2 for r in replies),
+                  f"{arch} --quant-int8 {tag}: replies {replies}")
+            check(calls == 4 * QCONV_PER_FORWARD and rdb_calls == 0,
+                  f"{arch} --quant-int8 {tag}: {calls} qconv and {rdb_calls} rdb_forward calls for 4 forwards")
+            with torch.inference_mode():
+                y = engine.model(x)
+                if y_ref is None:
+                    rdbs = [m for m in engine.model.modules() if isinstance(m, blocks.ResidualDenseBlock)]
+                    for m in rdbs:
+                        m.quant = False
+                    y_ref = engine.model(x)
+                    for m in rdbs:
+                        m.quant = True
+                real = quant.qconv3x3
+                quant.qconv3x3 = lambda xq, kq, s=None, packed=None: qc.qconv3x3_ref(xq, kq, s)
+                try:
+                    qc.launches = 0
+                    y_plain = engine.model(x)
+                    plain_calls = qc.launches
+                finally:
+                    quant.qconv3x3 = real
+                forward_ms = cuda_ms(lambda: engine.model(x), iters=5, warmup=1)
+            check(plain_calls == 0, f"{arch} {tag}: the plain twin launched {plain_calls} qconv kernels")
+            err = (y - y_plain).abs().max().item()
+            mse = ((y - y_plain) ** 2).mean().item()
+            psnr_plain = 10 * math.log10(1.0 / mse) if mse > 0 else float("inf")
+            mse_ref = ((y - y_ref) ** 2).mean().item()
+            psnr_ref = 10 * math.log10(1.0 / mse_ref) if mse_ref > 0 else float("inf")
+            check(torch.isfinite(y).all().item() and y.std().item() > 0.05, f"{arch} {tag}: output {y.std().item()}")
+            if half:
+                check(err <= 8 / 255 and psnr_plain >= 45,
+                      f"{arch} --quant-int8 bf16 vs plain qconv: {err}, {psnr_plain}")
+            else:
+                check(err <= 1e-3, f"{arch} --quant-int8 f32 vs plain qconv: {err}")
+            out[f"{arch} {tag}"] = {"wall_s": wall, "per_frame_ms": [r["ms"] for r in replies],
+                                    "qconv_per_forward": calls // 4, "vs_plain_qconv_max_abs": err,
+                                    "psnr_vs_unquantized_f32_db": psnr_ref, "forward_ms": forward_ms}
+            print(f"serve stdio --quant-int8 {arch} {tag}: 4 x {size}x{size} in {wall:.2f} s, per-frame ms "
+                  f"{[r['ms'] for r in replies]}, {calls // 4} qconv calls a forward, 0 rdb_forward; vs the plain "
+                  f"qconv max abs {err:.3g}; PSNR against the unquantized f32 SR {psnr_ref:.2f} dB (printed, not "
+                  f"held); one forward on the card {forward_ms:.2f} ms", flush=True)
+            del engine
+    return launches, out
+
+
+def write_pairs(root: str, n: int, size: int, seed: int) -> tuple[str, str]:
+    """``n`` registered pairs: GT frames of ``size`` and their 2x area
+    downscales as LR, under ``root/gt`` and ``root/lr``."""
+    import cv2
+
+    gt_dir, lr_dir = os.path.join(root, "gt"), os.path.join(root, "lr")
+    write_gt_frames(gt_dir, n, size, seed)
+    os.makedirs(lr_dir, exist_ok=True)
+    for name in sorted(os.listdir(gt_dir)):
+        img = cv2.imread(os.path.join(gt_dir, name))
+        cv2.imwrite(os.path.join(lr_dir, name), cv2.resize(img, (size // 2, size // 2), interpolation=cv2.INTER_AREA))
+    return gt_dir, lr_dir
+
+
+def paired_train_phase(work: str, rdb) -> tuple[int, dict, str]:
+    """``bsrnet`` unchanged but ``degradation="paired"`` (full-width
+    ``bsrgan_x2``, batch 16, bf16) on 16 synthetic registered pairs (GT
+    144, LR 72), one epoch of 3 steps through ``run_train``: the first
+    step's LR equals the loader's batch read from disk (max abs 0), 69 RDB
+    kernel calls a forward. Returns the RDB calls, the numbers and the
+    path of ``ckpt_last.pth``."""
+    from srganfd_tpu_torch import configs
+    from srganfd_tpu_torch.cli import train as cli_train
+    from srganfd_tpu_torch.data.datasets import BatchLoader
+    from srganfd_tpu_torch.train.loop import Trainer
+
+    train_gt, train_lr = write_pairs(os.path.join(work, "paired_train"), 16, PAIRED_GT, seed=54)
+    valid_gt, valid_lr = write_pairs(os.path.join(work, "paired_valid"), 4, PAIRED_GT, seed=55)
+    cfg = configs.get_config("bsrnet").replace(
+        degradation="paired", train_gt_images_dir=train_gt, train_lr_images_dir=train_lr,
+        valid_gt_images_dir=valid_gt, valid_lr_images_dir=valid_lr, epochs=1,
+        results_dir=os.path.join(work, "paired_results"))
+    first_lr, steps = [], []
+    real_step = Trainer.train_step
+
+    def recorded(self, state, gt, lr_img, gt_pixel=None):
+        if not first_lr:
+            first_lr.append(lr_img.float().cpu())
+        entry = time.perf_counter()
+        metrics = real_step(self, state, gt, lr_img, gt_pixel)
+        metrics["g_loss"].item()
+        steps.append((entry, time.perf_counter()))
+        return metrics
+
+    Trainer.train_step = recorded
+    torch.cuda.reset_peak_memory_stats()
+    rdb.launches = 0
+    try:
+        t0 = time.perf_counter()
+        result = cli_train.run_train(cfg, PAIRED_STEPS, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        Trainer.train_step = real_step
+    calls = rdb.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    host = next(iter(BatchLoader(cli_train.build_datasets(cfg)[0], cfg.batch_size, seed=cfg.seed, num_workers=1,
+                                 loop=False)))
+    lr_diff = (first_lr[0] - torch.from_numpy(host["lr"])).abs().max().item()
+    check(first_lr[0].shape == (16, PAIRED_GT // 2, PAIRED_GT // 2, 3) and lr_diff == 0,
+          f"paired: the first step's LR {tuple(first_lr[0].shape)} differs from the files by {lr_diff}")
+    check(len(steps) == PAIRED_STEPS and result["state"].step == PAIRED_STEPS, f"paired: {len(steps)} steps")
+    check(calls == RDB_PER_FORWARD * (PAIRED_STEPS + 1), f"paired: {calls} rdb_forward calls for "
+          f"{PAIRED_STEPS} steps and 1 validation batch")
+    check(math.isfinite(result["best_psnr"]) and result["best_psnr"] > 0, f"paired: PSNR {result['best_psnr']}")
+    intervals = [(b[1] - a[1]) * 1e3 for a, b in zip(steps, steps[1:])]
+    numbers = {"steps": PAIRED_STEPS, "step_ms_p50": float(np.median(intervals)), "peak_memory_gb": peak_gb,
+               "run_s": wall, "lr_vs_files_max_abs": lr_diff, "rdb_per_forward": calls // (PAIRED_STEPS + 1),
+               "valid_psnr": result["best_psnr"]}
+    print(f"paired bsrnet (bf16, batch 16, GT {PAIRED_GT}, LR {PAIRED_GT // 2} from disk): {PAIRED_STEPS} steps + 1 "
+          f"validation batch in {wall:.2f} s, step p50 {numbers['step_ms_p50']:.2f} ms host clock, peak memory "
+          f"{peak_gb:.2f} GB, {calls} rdb_forward calls ({calls // (PAIRED_STEPS + 1)} a forward), LR vs files "
+          f"max abs {lr_diff}, valid PSNR {result['best_psnr']:.3f} dB", flush=True)
+    ckpt_path = os.path.join(cfg.results_dir, cfg.exp_name, "ckpt_last.pth")
+    del result
+    return calls, numbers, ckpt_path
+
+
+def export_phase(work: str, rdb) -> tuple[int, dict]:
+    """``cli.export`` of full-width ``bsrgan_x2`` at 128x128 on the card
+    (spread weights as G and EMA-G), the ``.pt2`` reloaded and run: its
+    output held to the module's (f32 limit 1e-3), 69 RDB kernel calls
+    through the custom op ``srganfd::rdb_forward``."""
+    from srganfd_tpu_torch.cli import export
+    from srganfd_tpu_torch.convert import load_generator_weights
+    from srganfd_tpu_torch.models import create_model
+
+    sd = torch.load(spread_weights(work, "bsrgan_x2", gain=3.0), weights_only=True)["state_dict"]
+    weights = os.path.join(work, "export_weights.pth")
+    torch.save({"state_dict": sd, "ema_state_dict": sd}, weights)
+    t0 = time.perf_counter()
+    res = export.export_generator("bsrgan_x2", os.path.join(work, "export", "bsrgan_x2"), weights, 128, 1, "cuda")
+    export_s = time.perf_counter() - t0
+    program = torch.export.load(res["program"]).module()
+    n_ops = sum(1 for n in program.graph.nodes if "srganfd.rdb_forward" in str(n.target))
+    check(n_ops == RDB_PER_FORWARD, f"exported program holds {n_ops} srganfd::rdb_forward nodes")
+    model = create_model("bsrgan_x2")
+    model.load_state_dict(load_generator_weights(weights, use_ema=True))
+    model = model.cuda().eval().requires_grad_(False)
+    x = torch.from_numpy(np.random.default_rng(56).uniform(size=(1, 128, 128, 3)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        rdb.launches = 0
+        y = program(x)
+        torch.cuda.synchronize()
+        calls = rdb.launches
+        want = model(x)
+        ms = cuda_ms(lambda: program(x), iters=5, warmup=1)
+        module_ms = cuda_ms(lambda: model(x), iters=5, warmup=1)
+    err = (y - want).abs().max().item()
+    check(calls == RDB_PER_FORWARD, f"the exported program made {calls} rdb_forward calls")
+    check(y.shape == (1, 256, 256, 3) and torch.isfinite(y).all().item() and err <= 1e-3,
+          f"exported program vs module: shape {tuple(y.shape)}, max abs {err}")
+    print(f"cli.export bsrgan_x2 128x128 on the card: traced and saved in {export_s:.2f} s "
+          f"({os.path.getsize(res['program'])} B .pt2, {res['arrays']} arrays in .params.npz); reloaded: "
+          f"{calls} rdb_forward calls through srganfd::rdb_forward, vs the module max abs {err:.3g}; forward "
+          f"{ms:.2f} ms (module {module_ms:.2f} ms)", flush=True)
+    return calls, {"export_s": export_s, "vs_module_max_abs": err, "forward_ms": ms, "module_forward_ms": module_ms,
+                   "rdb_launches": calls, "pt2_bytes": os.path.getsize(res["program"])}
+
+
+def graft_sources_phase(work: str, ckpt_path: str, rdb) -> tuple[int, dict]:
+    """``--pretrained-g`` from the paired run's ``ckpt_last.pth``, from a
+    ``.npz`` of it (Flax paths, ``tools/port_torch_weights.py``'s layout)
+    and from a ``runs:/`` URI of it in a ``file:`` MLflow store: the same
+    ``n_ok/n_all``, and G's forward on one LR batch bit for bit equal."""
+    import contextlib
+
+    from srganfd_tpu_torch import configs
+    from srganfd_tpu_torch.cli.train import graft_pretrained
+    from srganfd_tpu_torch.convert import flatten_flax, state_dict_to_flax
+    from srganfd_tpu_torch.train.loop import Trainer
+
+    sd = torch.load(ckpt_path, weights_only=True)["state_dict"]
+    npz = os.path.join(work, "paired_g.npz")
+    np.savez(npz, **flatten_flax(state_dict_to_flax(sd, NUM_RRDB)))
+    store = os.path.join(work, "mlstore")
+    os.makedirs(os.path.join(store, "5", "run0", "artifacts"))
+    os.link(ckpt_path, os.path.join(store, "5", "run0", "artifacts", "ckpt_last.pth"))
+    prev = os.environ.get("MLFLOW_TRACKING_URI")
+    os.environ["MLFLOW_TRACKING_URI"] = f"file:{store}"
+    x = torch.from_numpy(np.random.default_rng(57).uniform(size=(2, 72, 72, 3)).astype(np.float32)).cuda()
+    out, ys = {}, {}
+    rdb.launches = 0
+    try:
+        for source in (ckpt_path, npz, "runs:/run0/ckpt_last.pth"):
+            cfg = configs.get_config("bsrnet", pretrained_g_model_weights_path=source)
+            state = Trainer(cfg, 1, device="cuda").init_state()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                graft_pretrained(cfg, state)
+            line = buf.getvalue().strip()
+            with torch.no_grad():
+                ys[source] = state.g_model.eval()(x)
+            kind = "pth" if source == ckpt_path else "npz" if source == npz else "runs"
+            out[kind] = line.split("(")[1].split(" ")[0]
+            print(f"graft from {kind}: {line}", flush=True)
+            del state
+    finally:
+        if prev is None:
+            os.environ.pop("MLFLOW_TRACKING_URI", None)
+        else:
+            os.environ["MLFLOW_TRACKING_URI"] = prev
+    calls = rdb.launches
+    n_all = len(sd)
+    check(set(out.values()) == {f"{n_all}/{n_all}"}, f"graft counts {out}")
+    y0 = ys[ckpt_path]
+    same = {k: torch.equal(y0, y) for k, y in ys.items()}
+    check(all(same.values()) and torch.isfinite(y0).all().item(), f"grafted G forwards differ: {same}")
+    check(calls == 3 * RDB_PER_FORWARD, f"graft forwards: {calls} rdb_forward calls")
+    print(f"graft sources: .pth, .npz and runs:/ each {n_all}/{n_all} tensors, G forwards bit for bit equal, "
+          f"{calls} rdb_forward calls", flush=True)
+    return calls, {"counts": out, "forwards_equal": all(same.values())}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -4210,6 +4688,7 @@ def main() -> None:
     from srganfd_tpu_torch.ops.cuda import attention as attn
     from srganfd_tpu_torch.ops.cuda import build, rdb
     from srganfd_tpu_torch.ops.cuda import filter2d as f2d
+    from srganfd_tpu_torch.ops.cuda import qconv as qc
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4231,6 +4710,7 @@ def main() -> None:
     filter_entry = filter2d_kernel_phase(f2d)
     filter_entry["realesrgan"] = re_filter2d_phase(f2d)
     entry.update(rdb_grad_phase(rdb))
+    qconv_entry = qconv_kernel_phase(qc, rdb)
     base = os.path.join(ROOT, "build")
     os.makedirs(base, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=base) as work:
@@ -4262,11 +4742,22 @@ def main() -> None:
         flash_bwd = flash_backward_phase(attn)
         flash_train = flash_train_phase(work, rdb, attn, blocks)
         deg_launches, deg = degradations_phase(work, f2d, filters)
+        quant_launches, quant_serve = quant_serve_phase(work, qc, rdb, blocks)
+        paired_launches, paired, paired_ckpt = paired_train_phase(work, rdb)
+        export_launches, exported = export_phase(work, rdb)
+        graft_launches, grafts = graft_sources_phase(work, paired_ckpt, rdb)
     launches += (trans_launches["rdb"] + trans_infer["rdb"] + train_launches["rdb"] + gan_launches["rdb"]
                  + re_launches + ren_launches["rdb"] + reg_launches["rdb"] + ae_launches["rdb"] + es_launches["rdb"]
                  + sa_launches["rdb"] + ev_launches["rdb"] + http_launches + gen_launches + opt_launches["rdb"]
                  + guard["rdb_launches"] + accum["rdb_launches"] + nans["rdb_launches"]
-                 + flash_train["flash"]["rdb_launches"] + flash_train["chunked"]["rdb_launches"])
+                 + flash_train["flash"]["rdb_launches"] + flash_train["chunked"]["rdb_launches"]
+                 + paired_launches + export_launches + graft_launches)
+    check(quant_launches > 0, "the --quant-int8 serving path launched no qconv kernel")
+    check(paired_launches > 0 and export_launches > 0, "the paired or exported path launched no rdb_forward kernel")
+    qconv_entry["launches"] = quant_launches
+    qconv_entry["launches_per_forward"] = QCONV_PER_FORWARD
+    entry["paired_launches"] = paired_launches
+    entry["export_launches"] = export_launches
     check(http_launches > 0 and gen_launches > 0, "the HTTP or gen_rrdb2x path launched no rdb_forward kernel")
     flash_launches = trans_launches["flash"] + trans_infer["flash"] + flash_train["flash"]["flash_launches"]
     check(launches > 0, "the main paths launched no rdb_forward kernel")
@@ -4396,12 +4887,13 @@ def main() -> None:
     print(json.dumps({"gen": gen}))
     print(json.dumps({"options": opt, "preempt": pre, "guard": guard, "accum": accum, "debug_nans": nans,
                       "flash_train": flash_train, "test_degradations": deg}))
+    print(json.dumps({"quant_serve": quant_serve, "paired": paired, "export": exported, "graft_sources": grafts}))
     # rdb_forward_pallas_v2 (whole images per grid cell) computes row 1's
     # function: the port runs both through the one kernel, whose numbers these are
     entry_v2 = {**entry, "name": "rdb_forward (rdb_forward_pallas_v2)", "replaces": "srganfd_tpu/ops/pallas/rdb.py:255",
                 "same_kernel_as": "rdb_forward"}
     print(smi)
-    print(json.dumps({"kernels": [entry, entry_v2, flash_entry, filter_entry]}))
+    print(json.dumps({"kernels": [entry, entry_v2, flash_entry, filter_entry, qconv_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

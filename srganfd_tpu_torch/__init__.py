@@ -7,12 +7,15 @@ with a plain PyTorch version beside it that the CPU tests hold against
 the JAX package. Entry points run on ``cuda`` unless the caller asks for
 the CPU.
 
-Ported so far: the RRDB generator family (``rrdbnet_x*``, ``bsrgan_x*``,
-``bsrgansa_x2``) and the transformer-bottleneck ``bsrgantrans_x2``, served
-through ``cli.serve`` (stdio and watch transports) and ``cli.infer``;
-training of ``bsrgan_x2`` through ``cli.train --config bsrnet`` with the
-BSRGAN degradation chain; the RDB, flash-attention and filter2d kernels
-(``csrc/rdb.cu``, ``csrc/flash_attention.cu``, ``csrc/filter2d.cu``).
+Ported: every arch, config and single-device entry point of the JAX
+package (``cli.train``, ``cli.test``, ``cli.infer``, ``cli.serve`` with its
+stdio, watch and HTTP transports and ``--quant-int8``, ``cli.export``,
+``cli.summary``, ``cli.test_degradations``, ``cli.prepare_dataset``,
+``cli.split_dataset``), on four kernels: the RDB, flash attention,
+filter2d and the int8 serving path's s8 conv (``csrc/rdb.cu``,
+``csrc/flash_attention.cu``, ``csrc/filter2d.cu``, ``csrc/qconv.cu``).
+Not ported: the multi-device modes (``parallel/`` but tiled inference) and
+the native loader.
 """
 
 __version__ = "0.1.0"

@@ -13,10 +13,9 @@ Ported:
 - ``bicubic`` (ESRGAN): the GT crop as it comes (uint8 scaled by 1/255)
   and its MATLAB-bicubic downscale by ``1 / upscale_factor``, clipped to
   [0, 1] (``ESRGAN/dataset.py``, ``imresize``), the same in training and
-  evaluation.
-
-``paired`` (LR read from disk) raises with the ROADMAP.md item that ports
-it.
+  evaluation;
+- ``paired``: the LR comes from the dataset (``PairedImageDataset``); GT
+  and LR go to the device exactly as read, with no crop, flip or rounding.
 """
 
 from __future__ import annotations
@@ -41,10 +40,6 @@ from srganfd_tpu_torch.ops.realesrgan_degrade import (
 
 __all__ = ["DegradationAdapter"]
 
-_NOT_PORTED = {
-    "paired": "A14 (paired degradation)",
-}
-
 
 class DegradationAdapter:
     def __init__(
@@ -61,12 +56,7 @@ class DegradationAdapter:
         (``BSRGAN/imgproc.py:284-293``); training keeps DiffJPEG."""
         if eval_codec not in ("diffjpeg", "cv2"):
             raise ValueError(f"unknown codec {eval_codec!r}: expected 'diffjpeg' or 'cv2'")
-        if cfg.degradation in _NOT_PORTED:
-            raise NotImplementedError(
-                f"degradation {cfg.degradation!r} is not ported to srganfd_tpu_torch yet: "
-                f"see ROADMAP.md {_NOT_PORTED[cfg.degradation]}"
-            )
-        if cfg.degradation not in ("bsrgan", "realesrgan", "bicubic"):
+        if cfg.degradation not in ("bsrgan", "realesrgan", "bicubic", "paired"):
             raise ValueError(f"unknown degradation {cfg.degradation!r}")
         self.cfg = cfg
         self.seed = seed
@@ -83,6 +73,8 @@ class DegradationAdapter:
         return np.random.default_rng((self.seed, 0xDE64ADE, 0, step))
 
     def __call__(self, host_batch: dict[str, np.ndarray], step: int) -> dict[str, torch.Tensor]:
+        if self.cfg.degradation == "paired":
+            return {k: torch.from_numpy(np.ascontiguousarray(host_batch[k])).to(self.device) for k in ("gt", "lr")}
         if self.cfg.degradation == "realesrgan":
             return self._realesrgan(host_batch, step)
         if self.cfg.degradation == "bicubic":

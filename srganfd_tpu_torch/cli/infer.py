@@ -12,6 +12,8 @@ Usage:
         --inputs-path frames/ --output-path sr_frames/ --batch 8 --half
     python -m srganfd_tpu_torch.cli.infer --model-arch bsrgantrans_x2 \
         --attn-chunk 1024 --attn-backend flash --inputs-path in.png --output-path out.png
+    python -m srganfd_tpu_torch.cli.infer --model-arch bsrgan_x2 --quant-int8 \
+        --inputs-path in.png --output-path out.png
 
 Runs on ``cuda`` unless ``--device-type cpu`` is given; asking for cuda
 without a visible GPU exits with an error.
@@ -38,7 +40,6 @@ from srganfd_tpu_torch.models.blocks import ATTN_BACKENDS
 # flags of the JAX CLIs whose parts are not ported yet -> the ROADMAP.md
 # item that ports them; using one is an error, never a silent no-op
 UNPORTED_FLAGS = {
-    "quant_int8": ("--quant-int8", "A10 (int8 PTQ serving)"),
     "spatial_shard": ("--spatial-shard", "A11 (parallel modes)"),
     "data_shard": ("--data-shard", "A11 (parallel modes)"),
     "cp_backend": ("--cp-backend", "A11 (parallel modes)"),
@@ -53,7 +54,6 @@ def reject_unported(args: argparse.Namespace) -> None:
 
 def add_unported_flags(ap: argparse.ArgumentParser) -> None:
     """The JAX CLIs' flags that this port rejects (see ``UNPORTED_FLAGS``)."""
-    ap.add_argument("--quant-int8", action="store_true", help="not ported yet")
     ap.add_argument("--spatial-shard", action="store_true", help="not ported yet")
     ap.add_argument("--cp-backend", choices=["ring", "ulysses"], default=None,
                     help="not ported yet")
@@ -70,6 +70,26 @@ def add_attention_flags(ap: argparse.ArgumentParser) -> None:
                     "in plain PyTorch) or 'flash' (the hand-written online-softmax CUDA "
                     "kernel). Without --attn-chunk it changes nothing. Default: "
                     "$SRGANFD_ATTN_BACKEND, else 'chunked'")
+
+
+def add_quant_flag(ap: argparse.ArgumentParser) -> None:
+    """``--quant-int8``, with the JAX CLIs' meaning."""
+    ap.add_argument("--quant-int8", action="store_true",
+                    help="int8 post-training quantization of the RDB trunk: s8 x s8 -> s32 convs on the "
+                    "hand-written tensor-core kernel, per-output-channel weight and dynamic per-tensor "
+                    "activation scales (ops/quant.py). Serving only; measure the PSNR cost on your data "
+                    "before shipping")
+
+
+def quant_kwargs(arch: str, quant_int8: bool) -> dict:
+    """Model kwargs for ``--quant-int8``: ``quant`` for archs that take it
+    (``arch_accepts``, as in JAX); others print that it is ignored."""
+    if not quant_int8:
+        return {}
+    if arch_accepts(arch, "quant"):
+        return {"quant": True}
+    print(f"! --quant-int8 ignored: arch {arch!r} has no RDB trunk")
+    return {}
 
 
 def attention_kwargs(arch: str, attn_chunk: int, attn_backend: str | None) -> dict:
@@ -231,13 +251,15 @@ def main(argv: list[str] | None = None) -> None:
                     "after inverse mapping), 8x the serving FLOPs")
     ap.add_argument("--data-shard", action="store_true", help="not ported yet")
     add_attention_flags(ap)
+    add_quant_flag(ap)
     add_unported_flags(ap)
     args = ap.parse_args(argv)
     reject_unported(args)
 
     device = choice_device(args.device)
-    model = build_model(args.arch, device, args.weights, args.use_ema, args.half,
-                        model_kwargs=attention_kwargs(args.arch, args.attn_chunk, args.attn_backend))
+    kwargs = {**quant_kwargs(args.arch, args.quant_int8),
+              **attention_kwargs(args.arch, args.attn_chunk, args.attn_backend)}
+    model = build_model(args.arch, device, args.weights, args.use_ema, args.half, model_kwargs=kwargs)
     apply_fn = make_apply(model, device)
 
     if os.path.isdir(args.inputs):

@@ -30,8 +30,9 @@ Behaviours:
   - ``--batch N``: watch-mode backlogs drain in batched calls; same-shape
     frames stack into one forward, ragged tails repeat-pad to N.
     ``--batch auto`` uses the 16/8/1 drain ladder of the JAX daemon.
-  - ``--half`` serves in bfloat16; ``--self-ensemble`` and ``--tile``
-    compose like the one-shot CLI.
+  - ``--half`` serves in bfloat16; ``--quant-int8`` serves the RDB trunk
+    in int8 (the s8 tensor-core kernel, ``ops/quant.py``); ``--self-ensemble``
+    and ``--tile`` compose like the one-shot CLI.
   - ``--attn-chunk N [--attn-backend flash]``: attention-bearing archs
     (``bsrgantrans_x2``) run exact attention in query chunks, through the
     hand-written kernel with ``flash``. ``bsrgantrans_x2`` needs even frame
@@ -72,11 +73,13 @@ import torch
 
 from srganfd_tpu_torch.cli.infer import (
     add_attention_flags,
+    add_quant_flag,
     add_unported_flags,
     attention_kwargs,
     build_model,
     choice_device,
     make_apply,
+    quant_kwargs,
     reject_unported,
 )
 from srganfd_tpu_torch.data.datasets import list_image_files, load_image_rgb
@@ -135,6 +138,7 @@ class ServingEngine:
         weights: str = "",
         use_ema: bool = False,
         half: bool = False,
+        quant_int8: bool = False,
         self_ensemble: bool = False,
         tile: int = 0,
         tile_overlap: int = 16,
@@ -149,7 +153,8 @@ class ServingEngine:
         self.device = choice_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        kwargs = {**attention_kwargs(arch, attn_chunk, attn_backend), **(model_kwargs or {})}
+        kwargs = {**quant_kwargs(arch, quant_int8), **attention_kwargs(arch, attn_chunk, attn_backend),
+                  **(model_kwargs or {})}
         self.model = build_model(
             arch, self.device, weights, use_ema, half, model_kwargs=kwargs, seed=seed
         )
@@ -663,6 +668,7 @@ def main(argv: list[str] | None = None) -> None:
                     help="HTTP --batch auto: bound the micro-batcher queue; "
                     "overflow requests get 503 + Retry-After")
     add_attention_flags(ap)
+    add_quant_flag(ap)
     add_unported_flags(ap)
     args = ap.parse_args(argv)
     reject_unported(args)
@@ -671,7 +677,7 @@ def main(argv: list[str] | None = None) -> None:
 
     engine = ServingEngine(
         args.arch, weights=args.weights, use_ema=args.use_ema, half=args.half,
-        self_ensemble=args.self_ensemble, tile=args.tile, tile_overlap=args.tile_overlap,
+        quant_int8=args.quant_int8, self_ensemble=args.self_ensemble, tile=args.tile, tile_overlap=args.tile_overlap,
         bucket=args.bucket, batch=args.batch, attn_chunk=args.attn_chunk,
         attn_backend=args.attn_backend, device=args.device,
     )

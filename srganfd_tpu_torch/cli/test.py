@@ -24,8 +24,10 @@ same). The Real-ESRGAN chain needs each frame's kernel triple, which the
 JAX CLI does not pass (its ``--config realesrgan`` raises a KeyError): the
 port draws it per frame from ``(seed, frame index)``. ``--codec cv2`` takes
 the BSRGAN chain's JPEG stages through the reference's cv2 round trip on
-the host, the blurs on the card between them. Not ported: ``--weights
-*.npz`` (ROADMAP.md A15).
+the host, the blurs on the card between them. ``--weights`` takes a
+checkpoint of ``cli.train``, a reference-layout ``.pth.tar`` or a ``.npz``
+of Flax paths (``tools/port_torch_weights.py``), mapped through the
+arch's bridge.
 
 Usage:
     python -m srganfd_tpu_torch.cli.test --config bsrgan --gt-dir data/test \\
@@ -143,8 +145,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gt-dir", required=True)
     ap.add_argument("--lr-dir", default="", help="paired LR dir; default: degrade GT per config")
     ap.add_argument("--weights", default="",
-                    help="a checkpoint of cli.train (ckpt_best.pth / ckpt_last.pth: G, EMA-G and D) or a "
-                    "reference-layout .pth.tar; default: a seeded random generator")
+                    help="a checkpoint of cli.train (ckpt_best.pth / ckpt_last.pth: G, EMA-G and D), a "
+                    "reference-layout .pth.tar or a .npz of Flax paths (tools/port_torch_weights.py); default: a "
+                    "seeded random generator")
     ap.add_argument("--save-images", action="store_true")
     ap.add_argument("--max-images", type=int, default=0)
     ap.add_argument("--subdivision-lpips", action="store_true",
@@ -239,12 +242,18 @@ def run_eval(args) -> dict:
         raise SystemExit("--self-ensemble and --tile cannot combine (the ensemble runs whole-frame forwards, "
                          "defeating --tile's in-distribution token count)")
     payload = None
-    if args.weights:
-        ckpt.refuse_unported_source(args.weights)
-        payload = ckpt.load_checkpoint(args.weights)
-
     model = create_model(cfg.g_arch, dtype=torch.float32, generator=torch.Generator().manual_seed(0), **cfg.g_kwargs)
-    _load_generator(args, cfg, model, payload)
+    if args.weights and args.weights.endswith(".npz"):
+        # a .npz of Flax paths (a ported reference .pth.tar) carries one
+        # param tree: the whole G, through the arch's bridge
+        if args.use_ema:
+            print("! --use-ema ignored: .npz weights carry a single param tree (no EMA variant to select)")
+        model.load_state_dict(ckpt.load_pretrained(args.weights, "state_dict", model))
+        payload = {}
+    else:
+        if args.weights:
+            payload = ckpt.load_checkpoint(args.weights)
+        _load_generator(args, cfg, model, payload)
     model = model.to(device).eval().requires_grad_(False)
     shapes: set[tuple[int, ...]] = set()
 

@@ -26,7 +26,11 @@ A recipe's second stage starts from its first stage's generator:
 into the fresh state by name and shape, ``--pretrained-d`` a
 discriminator with its ``u`` and running statistics, before any
 ``--resume``, which still restores the whole state. Optimizers start
-fresh. E.g. ``--config rrdbnet``, then ``--config esrgan --pretrained-g
+fresh. A source may also be a ``.npz`` of Flax paths
+(``tools/port_torch_weights.py``), mapped through its family's bridge
+(a discriminator's: the target's), or an MLflow ``runs:/`` URI. ``degradation="paired"`` (a config
+override with ``train_lr_images_dir``/``valid_lr_images_dir``) trains on
+registered GT/LR pairs read from disk. E.g. ``--config rrdbnet``, then ``--config esrgan --pretrained-g
 results/train_RRDBNet_x4/ckpt_last.pth``.
 
 Usage:
@@ -69,7 +73,12 @@ from srganfd_tpu_torch import configs
 from srganfd_tpu_torch.cli.degrade_adapter import DegradationAdapter
 from srganfd_tpu_torch.cli.infer import choice_device
 from srganfd_tpu_torch.configs.base import ExperimentConfig
-from srganfd_tpu_torch.data.datasets import BatchLoader, DegeneratedImageDataset, TrainValidImageDataset
+from srganfd_tpu_torch.data.datasets import (
+    BatchLoader,
+    DegeneratedImageDataset,
+    PairedImageDataset,
+    TrainValidImageDataset,
+)
 from srganfd_tpu_torch.losses.lpips import Lpips
 from srganfd_tpu_torch.metrics.psnr_ssim import psnr_tensor, ssim_tensor
 from srganfd_tpu_torch.models import check_ported
@@ -127,16 +136,18 @@ def _reject_unported_env() -> None:
 def build_datasets(cfg: ExperimentConfig) -> tuple[Any, Any]:
     """GT-only train and valid datasets at the pre-crop (or GT) size (the
     BSRGAN chain and bicubic LR); for the Real-ESRGAN chain each record
-    also carries its kernel triple."""
+    also carries its kernel triple; ``paired`` reads registered GT/LR
+    pairs from ``train_lr_images_dir`` and ``valid_lr_images_dir`` beside
+    the GT dirs (a config override selects it, as in JAX)."""
+    if cfg.degradation == "paired":
+        return (PairedImageDataset(cfg.train_gt_images_dir, cfg.train_lr_images_dir),
+                PairedImageDataset(cfg.valid_gt_images_dir, cfg.valid_lr_images_dir))
     if cfg.degradation == "realesrgan":
         model = cfg.degradation_params["model"]
         return (DegeneratedImageDataset(cfg.train_gt_images_dir, cfg.gt_image_size, model, "Train"),
                 DegeneratedImageDataset(cfg.valid_gt_images_dir, cfg.gt_image_size, model, "Valid"))
     if cfg.degradation not in ("bsrgan", "bicubic"):
-        raise NotImplementedError(
-            f"degradation {cfg.degradation!r} is not ported to srganfd_tpu_torch yet: "
-            "see ROADMAP.md A14 (paired degradation)"
-        )
+        raise ValueError(f"unknown degradation {cfg.degradation!r}")
     crop = cfg.crop_image_size or cfg.gt_image_size
     train_ds = TrainValidImageDataset(cfg.train_gt_images_dir, cfg.gt_image_size, "Train", crop)
     valid_ds = TrainValidImageDataset(cfg.valid_gt_images_dir, cfg.gt_image_size, "Valid", crop)
@@ -210,14 +221,14 @@ def graft_pretrained(cfg: ExperimentConfig, state: TrainState) -> None:
     of it."""
     if cfg.pretrained_g_model_weights_path:
         path = cfg.pretrained_g_model_weights_path
-        n_ok, n_all = ckpt.merge_by_path(state.g_model, ckpt.load_pretrained(path, "state_dict"))
+        n_ok, n_all = ckpt.merge_by_path(state.g_model, ckpt.load_pretrained(path, "state_dict", state.g_model))
         with torch.no_grad():
             for name, p in state.g_model.named_parameters():
                 state.ema_g[name].copy_(p)
         print(f"loaded pretrained G ({n_ok}/{n_all} tensors) from {path}")
     if cfg.pretrained_d_model_weights_path and state.d_model is not None:
         path = cfg.pretrained_d_model_weights_path
-        n_ok, n_all = ckpt.merge_by_path(state.d_model, ckpt.load_pretrained(path, "d_state_dict"))
+        n_ok, n_all = ckpt.merge_by_path(state.d_model, ckpt.load_pretrained(path, "d_state_dict", state.d_model))
         print(f"loaded pretrained D ({n_ok}/{n_all} tensors) from {path}")
 
 
@@ -438,11 +449,12 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device-type", "--device_type", dest="device", default="cuda",
                     choices=["cuda", "cpu"])
     ap.add_argument("--pretrained-g", default=None,
-                    help="checkpoint (.pth, or a reference-layout .pth.tar) whose G initialises this run's G and "
-                    "EMA-G, by name and shape")
+                    help="checkpoint (.pth, a reference-layout .pth.tar, a .npz of Flax paths in "
+                    "tools/port_torch_weights.py's layout, or an MLflow runs:/<run_id>/<artifact> URI of one) whose "
+                    "G initialises this run's G and EMA-G, by name and shape")
     ap.add_argument("--pretrained-d", default=None,
-                    help="checkpoint whose D (u and running statistics included) initialises this run's D, by "
-                    "name and shape; ignored without a D")
+                    help="checkpoint (as --pretrained-g's) whose D (u and running statistics included; a .npz "
+                    "carries no u) initialises this run's D, by name and shape; ignored without a D")
     ap.add_argument("--d-arch", default=None,
                     help="override the discriminator arch (ported: discriminator_unet, "
                     "discriminator_unet_sa (bsrgan's self-attention U-Net), "

@@ -125,7 +125,7 @@ __all__ = [
     "attention_discriminator_flax_to_state_dict",
     "multiscale_attention_discriminator_flax_to_state_dict", "vgg_discriminator_flax_to_state_dict",
     "vgg19_flax_to_state_dict", "alexnet_flax_to_state_dict",
-    "load_generator_weights",
+    "flatten_flax", "unflatten_flax", "load_generator_weights",
 ]
 
 
@@ -412,9 +412,11 @@ def flax_to_state_dict(params: dict) -> dict[str, np.ndarray]:
     return rrdb_flax_to_state_dict(params)
 
 
-def discriminator_flax_to_state_dict(params: dict, spectral: dict) -> dict[str, np.ndarray]:
+def discriminator_flax_to_state_dict(params: dict, spectral: dict | None) -> dict[str, np.ndarray]:
     """A ``DiscriminatorUNet`` tree (``params``) and its ``spectral``
-    collection -> the port's numpy state dict, ``u`` buffers included."""
+    collection -> the port's numpy state dict, ``u`` buffers included.
+    ``spectral`` None (a ``.npz`` in ``tools/port_torch_weights.py``'s
+    layout, which carries no ``u``) leaves the ``u`` out."""
     sd: dict[str, np.ndarray] = {}
     used: set[str] = set()
     sn = sorted((k for k in params if k.startswith("SNConv_")), key=lambda k: int(k.split("_")[1]))
@@ -423,11 +425,13 @@ def discriminator_flax_to_state_dict(params: dict, spectral: dict) -> dict[str, 
     _put_conv(params, sd, used, "Conv_0", "conv0")
     for i, name in enumerate(sn):
         sd[f"conv{i + 1}.weight"] = _hwio_to_oihw(params[name]["kernel"])
-        sd[f"conv{i + 1}.u"] = _np(spectral[name]["u"])
+        if spectral is not None:
+            sd[f"conv{i + 1}.u"] = _np(spectral[name]["u"])
         used.add(f"{name}/kernel")
     _put_conv(params, sd, used, "Conv_1", "conv9")
     _refuse_unmapped(params, used, "discriminator_unet")
-    _refuse_unmapped(spectral, {f"{name}/u" for name in sn}, "discriminator_unet spectral")
+    if spectral is not None:
+        _refuse_unmapped(spectral, {f"{name}/u" for name in sn}, "discriminator_unet spectral")
     return sd
 
 
@@ -453,7 +457,7 @@ def token_attention_to_state_dict(tree: dict) -> dict[str, np.ndarray]:
     }
 
 
-def sa_discriminator_flax_to_state_dict(params: dict, spectral: dict) -> dict[str, np.ndarray]:
+def sa_discriminator_flax_to_state_dict(params: dict, spectral: dict | None) -> dict[str, np.ndarray]:
     """A ``DiscriminatorUNetSA`` tree (``discriminator_unet_sa``): the U-Net's
     leaves through :func:`discriminator_flax_to_state_dict`, and
     ``TokenSelfAttention_{0,1,2}`` onto ``attn_down2``, ``attn_down3`` and
@@ -471,16 +475,20 @@ def sa_discriminator_flax_to_state_dict(params: dict, spectral: dict) -> dict[st
 _ATTN_SN = ("conv1", "conv2", "conv3", "gating", "conv4", "conv5", "conv6", "conv7", "conv8")
 
 
-def attention_discriminator_flax_to_state_dict(params: dict, batch_stats: dict, spectral: dict) -> dict[str, np.ndarray]:
+def attention_discriminator_flax_to_state_dict(
+    params: dict, batch_stats: dict, spectral: dict | None
+) -> dict[str, np.ndarray]:
     """An ``AttentionUNetDiscriminator`` tree (``params``) and its
     ``batch_stats`` and ``spectral`` collections -> the port's numpy state
-    dict, the gates' running statistics and every ``u`` included."""
+    dict, the gates' running statistics and every ``u`` included
+    (``spectral`` None, a ``.npz`` source's: no ``u``)."""
     sd: dict[str, np.ndarray] = {}
     used, used_stats, used_u = set(), set(), set()
 
     def sn(flax_name: str, prefix: str) -> None:
         sd[f"{prefix}.weight"] = _hwio_to_oihw(_get(params, flax_name)["kernel"])
-        sd[f"{prefix}.u"] = _np(_get(spectral, flax_name)["u"])
+        if spectral is not None:
+            sd[f"{prefix}.u"] = _np(_get(spectral, flax_name)["u"])
         used.add(f"{flax_name}/kernel")
         used_u.add(f"{flax_name}/u")
 
@@ -507,12 +515,13 @@ def attention_discriminator_flax_to_state_dict(params: dict, batch_stats: dict, 
                          f"family (found {sorted(params)})") from None
     _refuse_unmapped(params, used, "attention U-Net discriminator")
     _refuse_unmapped(batch_stats, used_stats, "attention U-Net discriminator batch_stats")
-    _refuse_unmapped(spectral, used_u, "attention U-Net discriminator spectral")
+    if spectral is not None:
+        _refuse_unmapped(spectral, used_u, "attention U-Net discriminator spectral")
     return sd
 
 
 def multiscale_attention_discriminator_flax_to_state_dict(
-    params: dict, batch_stats: dict, spectral: dict
+    params: dict, batch_stats: dict, spectral: dict | None
 ) -> dict[str, np.ndarray]:
     """A ``MultiScaleAttentionDiscriminator`` tree: each scale's ``D{s}``
     through :func:`attention_discriminator_flax_to_state_dict`, its names
@@ -521,7 +530,7 @@ def multiscale_attention_discriminator_flax_to_state_dict(
     if sorted(params) != sorted(scales):
         raise ValueError(f"the multi-scale attention discriminator mapping takes D0..D{{n-1}}, found {sorted(params)}")
     return {f"{d}.{k}": v for d in scales for k, v in attention_discriminator_flax_to_state_dict(
-        params[d], batch_stats.get(d, {}), spectral.get(d, {})).items()}
+        params[d], batch_stats.get(d, {}), None if spectral is None else spectral.get(d, {})).items()}
 
 
 _VGG_CONVS = (0, 2, 5, 8, 11, 14, 17, 20, 23, 26)  # features.N of Conv_0..9; BatchNorm_i is features.{3 + 3i}
@@ -668,7 +677,20 @@ def state_dict_to_flax(sd: dict[str, Any], num_blocks: int, scan_blocks: bool = 
     return params
 
 
-def _unflatten(flat: dict[str, np.ndarray]) -> dict:
+def flatten_flax(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    """A nested Flax tree as ``/``-joined key paths, in the tree's order
+    (the JAX export's and ``tools/port_torch_weights.py``'s flat layout)."""
+    flat: dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        name = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            flat.update(flatten_flax(v, name))
+        else:
+            flat[name] = np.asarray(v)
+    return flat
+
+
+def unflatten_flax(flat: dict[str, np.ndarray]) -> dict:
     tree: dict = {}
     for key, value in flat.items():
         node = tree
@@ -700,7 +722,7 @@ def load_generator_weights(path: str, use_ema: bool = False) -> dict[str, torch.
         )
     if path.endswith(".npz"):
         with np.load(path) as f:
-            tree = _unflatten({k: f[k] for k in f.files})
+            tree = unflatten_flax({k: f[k] for k in f.files})
         if "g_params" in tree:
             tree = tree["ema_g_params" if use_ema else "g_params"]
         elif use_ema:

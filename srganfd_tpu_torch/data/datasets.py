@@ -1,7 +1,7 @@
 """Image datasets and the threaded batch loader of the port (its own copies
 of ``srganfd_tpu/data/datasets.py`` ``IMAGE_EXTS``, ``list_image_files``,
-``load_image_rgb``, ``TrainValidImageDataset``, ``DegeneratedImageDataset``
-and ``BatchLoader``).
+``load_image_rgb``, ``TrainValidImageDataset``, ``TestImageDataset``,
+``DegeneratedImageDataset``, ``PairedImageDataset`` and ``BatchLoader``).
 
 Datasets only decode, crop and augment on the host; LR generation (the
 degradation chain) runs on the device downstream. ``BatchLoader`` yields
@@ -26,17 +26,30 @@ from srganfd_tpu_torch.ops.augment import center_crop_np, random_crop_np, random
 from srganfd_tpu_torch.ops.realesrgan_degrade import sample_kernel_triple
 
 __all__ = [
-    "IMAGE_EXTS", "list_image_files", "load_image_rgb", "TrainValidImageDataset",
-    "DegeneratedImageDataset", "BatchLoader",
+    "IMAGE_EXTS", "list_image_files", "load_image_rgb", "TrainValidImageDataset", "TestImageDataset",
+    "DegeneratedImageDataset", "PairedImageDataset", "BatchLoader",
 ]
 
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff", ".webp")
 
 
-def list_image_files(directory: str) -> list[str]:
-    """Sorted paths of the images in ``directory`` (by extension)."""
+def list_image_files(directory: str, shard: tuple[int, int] | None = None) -> list[str]:
+    """Sorted paths of the images in ``directory`` (by extension);
+    ``shard=(index, count)`` keeps every count-th file from ``index``."""
     names = sorted(f for f in os.listdir(directory) if f.lower().endswith(IMAGE_EXTS))
-    return [os.path.join(directory, f) for f in names]
+    paths = [os.path.join(directory, f) for f in names]
+    if shard is not None:
+        index, count = shard
+        paths = paths[index::count]
+    return paths
+
+
+def _resolve_shard(shard: tuple[int, int] | str | None) -> tuple[int, int] | None:
+    """``"auto"``: this process's shard, the whole list in the port's one
+    process (the JAX package splits by ``jax.process_index()`` across
+    hosts, which the port does not run: ROADMAP.md A11); tuples and None
+    pass through."""
+    return None if shard == "auto" else shard
 
 
 def load_image_rgb(path: str) -> np.ndarray:
@@ -81,6 +94,42 @@ class TrainValidImageDataset:
         else:
             img = center_crop_np(img, size)
         return {"gt": img}
+
+
+class TestImageDataset:
+    """Paired GT/LR directories in sorted order (``ESRGAN/dataset.py:90-123``):
+    records ``{"gt", "lr"}`` as decoded, no crop. Lists of unequal length
+    raise ``ValueError`` (the JAX class asserts)."""
+
+    def __init__(self, test_gt_images_dir: str, test_lr_images_dir: str) -> None:
+        self.gt_paths = list_image_files(test_gt_images_dir)
+        self.lr_paths = list_image_files(test_lr_images_dir)
+        self._check_pairs()
+
+    def _check_pairs(self) -> None:
+        if len(self.gt_paths) != len(self.lr_paths):
+            raise ValueError(f"{len(self.gt_paths)} GT images against {len(self.lr_paths)} LR images: "
+                             "paired directories need one LR image per GT image")
+
+    def __len__(self) -> int:
+        return len(self.gt_paths)
+
+    def __getitem__(self, index: int, rng: np.random.Generator | None = None) -> dict[str, Any]:
+        return {"gt": load_image_rgb(self.gt_paths[index]), "lr": load_image_rgb(self.lr_paths[index])}
+
+
+class PairedImageDataset(TestImageDataset):
+    """Registered GT/LR training pairs (``Real_ESRGAN/dataset.py:153-189``,
+    the ``paired`` degradation): sorted GT and LR lists of equal length,
+    records ``{"gt", "lr"}`` exactly as read (no crop, flip or rounding),
+    so a batch needs frames of one size. ``shard`` as
+    ``list_image_files``'s, ``"auto"`` by default."""
+
+    def __init__(self, gt_images_dir: str, lr_images_dir: str, shard: tuple[int, int] | str | None = "auto") -> None:
+        shard = _resolve_shard(shard)
+        self.gt_paths = list_image_files(gt_images_dir, shard)
+        self.lr_paths = list_image_files(lr_images_dir, shard)
+        self._check_pairs()
 
 
 class DegeneratedImageDataset:

@@ -28,7 +28,9 @@ from torch import nn
 
 from srganfd_tpu_torch.ops.cuda.attention import HEAD_DIMS as FLASH_HEAD_DIMS
 from srganfd_tpu_torch.ops.cuda.attention import flash_attention, flash_attention_ref, flash_block_q
-from srganfd_tpu_torch.ops.cuda.rdb import lrelu, pack_rdb_weights, rdb_apply
+from srganfd_tpu_torch.ops.cuda.qconv import pack_qconv_weights
+from srganfd_tpu_torch.ops.cuda.rdb import lrelu, pack_rdb_weights, rdb_apply, rdb_forward_op
+from srganfd_tpu_torch.ops.quant import qconv2d_prequantized, quantize_symmetric
 
 __all__ = [
     "lrelu", "out_dtype", "Conv", "init_lecun_normal", "BatchNorm", "SNConv", "ResidualDenseBlock", "RRDB", "make_trunk", "init_kaiming_x01",
@@ -204,18 +206,37 @@ class ResidualDenseBlock(nn.Module):
     (ESRGAN/model.py:29-60), through ``ops/cuda/rdb.py`` ``rdb_apply``:
     the hand-written kernel on a CUDA tensor, the plain version on a CPU
     tensor, both taking any H x W; gradients through the plain version,
-    recomputed."""
+    recomputed. While ``torch.export`` traces the block it calls the
+    custom op ``srganfd::rdb_forward`` instead (``ops/cuda/rdb.py``), which
+    the exported program keeps as one node, on the packed weights that
+    :meth:`pack_for_export` registered as buffers.
 
-    def __init__(self, channels: int, growth_channels: int) -> None:
+    ``quant=True`` is the int8 serving path (``--quant-int8``), the JAX
+    block's fused int8 form (``srganfd_tpu/models/blocks.py:263-300``):
+    each source (x, then out_1..out_4) is quantized per tensor on its own
+    and convolved once against the stacked input rows of every later conv
+    it feeds (``ops/quant.py``: the s8 kernel on the card), whose weight
+    scales are per output channel over that slice's fan-in; the
+    contributions are summed into each conv's accumulator in the compute
+    dtype, in source order, and the bias is added after the sum. It serves
+    only: under grad it raises."""
+
+    def __init__(self, channels: int, growth_channels: int, quant: bool = False) -> None:
         super().__init__()
         self.channels, self.growth_channels = channels, growth_channels
+        self.quant = quant
         for k in range(5):
             cout = growth_channels if k < 4 else channels
             setattr(self, f"conv{k + 1}", Conv(channels + k * growth_channels, cout))
         self._packed: tuple | None = None  # (key, packed weights, packed biases)
+        self._quantized: tuple | None = None  # (key, [(kq, ks, packed) per source])
 
     def _convs(self) -> list[Conv]:
         return [getattr(self, f"conv{k + 1}") for k in range(5)]
+
+    def _params_key(self) -> tuple:
+        params = [p for c in self._convs() for p in (c.weight, c.bias)]
+        return params[0].device, tuple((p.data_ptr(), p._version) for p in params)
 
     def kernels_biases(self) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
         """The five convs as HWIO kernels (views) and biases."""
@@ -226,15 +247,81 @@ class ResidualDenseBlock(nn.Module):
         """The kernel's packed weights for ``dtype``, rebuilt only when the
         dtype, the device or a parameter (its version counter, which
         ``load_state_dict`` and optimisers bump) changed."""
-        params = [p for c in self._convs() for p in (c.weight, c.bias)]
-        key = (dtype, params[0].device, tuple((p.data_ptr(), p._version) for p in params))
+        key = (dtype, *self._params_key())
         if self._packed is None or self._packed[0] != key:
             self._packed = (key, *pack_rdb_weights(*self.kernels_biases(), dtype))
         return self._packed[1], self._packed[2]
 
+    def pack_for_export(self, dtype: torch.dtype) -> None:
+        """Register :meth:`packed` for ``dtype`` as the non-persistent
+        buffers ``packed_w`` and ``packed_b`` (the state dict is unchanged):
+        ``torch.export`` keeps them as constants of the program, which
+        passes them to ``srganfd::rdb_forward``. Call it before tracing."""
+        w, b = self.packed(dtype)
+        self.register_buffer("packed_w", w, persistent=False)
+        self.register_buffer("packed_b", b, persistent=False)
+
+    def quantized(self) -> list[tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]]:
+        """Per source s (x, out_1..out_4): the int8 HWIO wide kernel that
+        stacks conv_k's input rows ``[off_s, off_s + width_s)`` for k >= s
+        along the output channels, its per-output-channel scales and, on
+        the card, its packed layout; rebuilt only when a parameter
+        changed, as :meth:`packed` is."""
+        key = self._params_key()
+        if self._quantized is None or self._quantized[0] != key:
+            ch, gc = self.channels, self.growth_channels
+            offsets, widths = [0, ch, ch + gc, ch + 2 * gc, ch + 3 * gc], [ch, gc, gc, gc, gc]
+            kernels, _ = self.kernels_biases()
+            per_source = []
+            with torch.no_grad():
+                for s in range(5):
+                    wide = torch.cat([kernels[k][:, :, offsets[s]:offsets[s] + widths[s]] for k in range(s, 5)], 3)
+                    kq, ks = quantize_symmetric(wide.float(), channel_axis=3)
+                    per_source.append((kq.contiguous(), ks.reshape(-1).contiguous(),
+                                       pack_qconv_weights(kq) if kq.is_cuda else None))
+            self._quantized = (key, per_source)
+        return self._quantized[1]
+
+    def _forward_quant(self, x: torch.Tensor) -> torch.Tensor:
+        """The int8 fused form on NHWC ``x``, in x's dtype."""
+        if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in self.parameters())):
+            raise RuntimeError("the int8 RDB (quant=True) serves only: run it under torch.no_grad or "
+                               "inference_mode with parameters that do not require grad")
+        dt = x.dtype
+        ch, gc = self.channels, self.growth_channels
+        splits = [gc, gc, gc, gc, ch]  # output widths of conv1..conv5
+        quantized = self.quantized()
+        biases = [c.bias for c in self._convs()]
+
+        def contributions(s: int, inp: torch.Tensor) -> list[torch.Tensor | None]:
+            kq, ks, packed = quantized[s]
+            y = qconv2d_prequantized(inp, kq, ks, packed).to(dt)
+            out: list[torch.Tensor | None] = [None] * 5
+            start = 0
+            for k in range(s, 5):
+                out[k] = y[..., start:start + splits[k]]
+                start += splits[k]
+            return out
+
+        acc = contributions(0, x)
+        for k in range(4):
+            out_k = lrelu(acc[k] + biases[k].to(dt))
+            contrib = contributions(k + 1, out_k)
+            for t in range(k + 1, 5):
+                acc[t] = acc[t] + contrib[t]
+        return (acc[4] + biases[4].to(dt)) * 0.2 + x
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xh = x.permute(0, 2, 3, 1)
+        if self.quant:
+            return self._forward_quant(xh.contiguous()).permute(0, 3, 1, 2)
+        if torch.compiler.is_exporting():
+            if not hasattr(self, "packed_w"):
+                raise RuntimeError("export an RDB after its pack_for_export(dtype)")
+            kernels, biases = self.kernels_biases()
+            return rdb_forward_op(xh.contiguous(), kernels, biases, self.packed_w, self.packed_b).permute(0, 3, 1, 2)
         packed = self.packed(x.dtype) if x.is_cuda else None  # the CPU path takes HWIO
-        y = rdb_apply(x.permute(0, 2, 3, 1).contiguous(), *self.kernels_biases(), packed=packed)
+        y = rdb_apply(xh.contiguous(), *self.kernels_biases(), packed=packed)
         return y.permute(0, 3, 1, 2)
 
 
@@ -242,19 +329,20 @@ class RRDB(nn.Module):
     """Residual-in-residual dense block: 3 RDBs + 0.2-scaled residual
     (ESRGAN/model.py:63-86)."""
 
-    def __init__(self, channels: int, growth_channels: int) -> None:
+    def __init__(self, channels: int, growth_channels: int, quant: bool = False) -> None:
         super().__init__()
-        self.rdb1 = ResidualDenseBlock(channels, growth_channels)
-        self.rdb2 = ResidualDenseBlock(channels, growth_channels)
-        self.rdb3 = ResidualDenseBlock(channels, growth_channels)
+        self.rdb1 = ResidualDenseBlock(channels, growth_channels, quant)
+        self.rdb2 = ResidualDenseBlock(channels, growth_channels, quant)
+        self.rdb3 = ResidualDenseBlock(channels, growth_channels, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.rdb3(self.rdb2(self.rdb1(x))) * 0.2 + x
 
 
-def make_trunk(channels: int, growth_channels: int, num_blocks: int) -> nn.Sequential:
-    """The RRDB trunk (``run_trunk`` in JAX, unrolled): ``trunk.{i}``."""
-    return nn.Sequential(*[RRDB(channels, growth_channels) for _ in range(num_blocks)])
+def make_trunk(channels: int, growth_channels: int, num_blocks: int, quant: bool = False) -> nn.Sequential:
+    """The RRDB trunk (``run_trunk`` in JAX, unrolled): ``trunk.{i}``;
+    ``quant`` runs each RDB's int8 serving path."""
+    return nn.Sequential(*[RRDB(channels, growth_channels, quant) for _ in range(num_blocks)])
 
 
 def pixel_unshuffle(x: torch.Tensor, factor: int) -> torch.Tensor:

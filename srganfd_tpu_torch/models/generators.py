@@ -23,7 +23,10 @@
 in JAX; inside, the network runs NCHW channels-last in the compute
 ``dtype`` (f32, or bf16 for ``--half``) and emits f32 clamped to [0, 1]
 (f64 under f64 compute, a CPU-only dtype of parity tests).
-State-dict names are the reference's: ``conv1``, ``trunk.{i}.rdb{j}.conv{k}``,
+``quant=True`` (``RRDBNet``, ``BSRGAN``, ``BSRGANtrans`` and
+``RealESRGANNet``, as in JAX) serves the trunk in int8
+(``ResidualDenseBlock``'s quant path); the other convs keep the compute
+dtype. State-dict names are the reference's: ``conv1``, ``trunk.{i}.rdb{j}.conv{k}``,
 ``conv2``, ``upsampling{n}.0``, ``conv3.0``, ``conv4`` (``RealESRGANNet``
 too: its conv1 takes the unshuffled channels); ``BSRGANtrans``
 adds ``down_conv``, ``transformer.{0,1}`` and ``up_conv``. The two
@@ -68,17 +71,19 @@ class RRDBNet(nn.Module):
         num_blocks: int = 23,
         upscale_factor: int = 4,
         dtype: torch.dtype = torch.float32,
+        quant: bool = False,
         device: Any = None,
         generator: torch.Generator | None = None,
     ) -> None:
         super().__init__()
         self.dtype = dtype
+        self.quant = quant
         self.num_upsample = self._num_upsample(upscale_factor)
         self.upscale = 2**self.num_upsample
         # built and initialised on the CPU (the generator is a CPU one),
         # then moved
         self.conv1 = Conv(in_channels, channels)
-        self.trunk = make_trunk(channels, growth_channels, num_blocks)
+        self.trunk = make_trunk(channels, growth_channels, num_blocks, quant)
         self.conv2 = Conv(channels, channels)
         for i in range(self.num_upsample):
             setattr(self, f"upsampling{i + 1}", nn.Sequential(Conv(channels, channels)))
@@ -111,8 +116,8 @@ class BSRGAN(RRDBNet):
     """BSRGAN generator: RRDBNet topology where upsampling1 always runs and
     upsampling2 only at x4."""
 
-    def __init__(self, *, num_rrdb: int = 23, **kwargs: Any) -> None:
-        super().__init__(num_blocks=num_rrdb, **kwargs)
+    def __init__(self, *, num_rrdb: int = 23, quant: bool = False, **kwargs: Any) -> None:
+        super().__init__(num_blocks=num_rrdb, quant=quant, **kwargs)
 
     @staticmethod
     def _num_upsample(upscale_factor: int) -> int:
@@ -134,11 +139,12 @@ class BSRGANtrans(BSRGAN):
         *,
         attn_chunk: int = 0,
         attn_backend: str | None = None,
+        quant: bool = False,
         device: Any = None,
         generator: torch.Generator | None = None,
         **kwargs: Any,
     ) -> None:
-        super().__init__(generator=generator, **kwargs)
+        super().__init__(generator=generator, quant=quant, **kwargs)
         c = self.conv1.out_channels
         self.down_conv = Conv(c, c, stride=2)
         self.transformer = nn.Sequential(*[
@@ -179,13 +185,14 @@ class RealESRGANNet(RRDBNet):
     _UNSHUFFLE = {4: 1, 2: 2, 1: 4}
 
     def __init__(
-        self, *, in_channels: int = 3, num_rrdb: int = 23, upscale_factor: int = 4, **kwargs: Any
+        self, *, in_channels: int = 3, num_rrdb: int = 23, upscale_factor: int = 4, quant: bool = False,
+        **kwargs: Any
     ) -> None:
         if upscale_factor not in self._UNSHUFFLE:
             raise ValueError(f"RealESRGANNet takes upscale_factor 1, 2 or 4, got {upscale_factor}")
         self.unshuffle = self._UNSHUFFLE[upscale_factor]
         super().__init__(in_channels=in_channels * self.unshuffle**2, num_blocks=num_rrdb,
-                         upscale_factor=upscale_factor, **kwargs)
+                         upscale_factor=upscale_factor, quant=quant, **kwargs)
         self.upscale = upscale_factor
 
     @staticmethod

@@ -22,6 +22,13 @@ operand split into two TF32 halves, three products per pair).
   pulls the cotangent through it, as ``_rdb_apply_bwd``
   (``ops/pallas/rdb.py:163-166``) does through ``_rdb_xla``. The JAX
   package has no backward kernel, so neither has the port.
+- :func:`rdb_forward_op` is the custom op ``srganfd::rdb_forward``
+  (``torch.library``) over :func:`rdb_forward`, with a fake (shape)
+  implementation, so that ``torch.export`` keeps the ctypes launch, which
+  it cannot trace, as one node of the exported program: on a CUDA tensor
+  the op launches the kernel on the packed weights it is passed (the
+  program's constants), on a CPU tensor it runs the plain version.
+  Loading a program that holds it needs ``srganfd_tpu_torch`` imported.
 - ``launches`` counts kernel calls, one per RDB (the kernel itself makes
   five CUDA launches, one per conv).
 """
@@ -36,8 +43,8 @@ import torch.nn.functional as F
 from srganfd_tpu_torch.ops.cuda.build import load_library
 
 __all__ = [
-    "lrelu", "rdb_forward", "rdb_forward_ref", "rdb_apply", "pack_rdb_weights", "tf32_round", "split_tf32",
-    "launches",
+    "lrelu", "rdb_forward", "rdb_forward_ref", "rdb_apply", "rdb_forward_op", "pack_rdb_weights", "tf32_round",
+    "split_tf32", "launches",
 ]
 
 launches = 0  # rdb_forward kernel calls in this process; reset by assigning 0
@@ -251,6 +258,28 @@ def rdb_apply(
     with the forward's rounding points (operands and ``out_k`` in x's
     dtype, f32 sums)."""
     return _RdbApply.apply(x, packed, *kernels, *biases)
+
+
+@torch.library.custom_op("srganfd::rdb_forward", mutates_args=())
+def rdb_forward_op(
+    x: torch.Tensor, kernels: list[torch.Tensor], biases: list[torch.Tensor], w_packed: torch.Tensor,
+    b_packed: torch.Tensor,
+) -> torch.Tensor:
+    """:func:`rdb_forward` as an opaque op (inference only): the kernel on
+    a CUDA tensor, with ``w_packed``/``b_packed`` the
+    :func:`pack_rdb_weights` of the same weights for x's dtype (an exported
+    program holds them as constants, packed once at export); the plain
+    version, which reads the HWIO kernels, on a CPU tensor."""
+    x = x.contiguous()
+    if x.is_cuda:
+        return rdb_forward(x, kernels, biases, (w_packed, b_packed))
+    return rdb_forward(x, kernels, biases)
+
+
+@rdb_forward_op.register_fake
+def _(x: torch.Tensor, kernels: list[torch.Tensor], biases: list[torch.Tensor], w_packed: torch.Tensor,
+      b_packed: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 def _library() -> ctypes.CDLL:

@@ -35,23 +35,30 @@ state is copied to the host, and a write's error is raised by the next
 ``load_pretrained`` and ``merge_by_path`` graft a prior run's G or D into a
 fresh state (``--pretrained-g``/``--pretrained-d``, the JAX package's
 ``load_pretrained_params`` and ``merge_by_path``): by name and shape, every
-other tensor keeping its init.
+other tensor keeping its init. Its sources are the port's checkpoints, a
+reference-layout ``.pth.tar``, a ``.npz`` of Flax paths through its
+family's bridge, and an MLflow ``runs:/`` URI of any of them
+(``resolve_checkpoint_uri``).
 """
 
 from __future__ import annotations
 
+import glob
 import os
 import queue
 import threading
 from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 
+from srganfd_tpu_torch.track.tracker import _optional_mlflow
 from srganfd_tpu_torch.train.state import TrainState
 
 __all__ = ["save_checkpoint", "AsyncCheckpointWriter", "load_checkpoint", "best_metrics", "restore_state", "find_auto_resume",
-           "load_pretrained", "refuse_unported_source", "state_dict_of", "is_reference_layout", "merge_by_path", "warn_if_young_ema"]
+           "resolve_checkpoint_uri", "load_pretrained", "state_dict_of", "is_reference_layout", "merge_by_path",
+           "warn_if_young_ema"]
 
 
 def save_checkpoint(
@@ -241,31 +248,97 @@ def find_auto_resume(directory: str) -> str | None:
     return best_path
 
 
-def load_pretrained(path: str, key: str = "state_dict") -> dict[str, torch.Tensor]:
-    """The state dict that ``key`` names in a checkpoint, for a graft: the
-    port's ``ckpt_best.pth``/``ckpt_last.pth`` (``state_dict``, the raw G
-    as the JAX graft takes ``g_params``, or ``d_state_dict``, D with its
-    ``u`` and running statistics), or a reference-layout ``.pth.tar``
-    (``ESRGAN/utils.py:30-101``: one model per file under ``state_dict``,
-    in the port's names), which serves either key.
+def resolve_checkpoint_uri(path: str) -> str:
+    """An MLflow ``runs:/<run_id>/<artifact_path>`` URI as a local path
+    (``srganfd_tpu/train/checkpoint.py:231-268``; the reference's
+    ``loadsFromMlrun``, ``BSRGAN/bsrgan_config.py:66,109-119``); any other
+    path passes through. A malformed URI raises ``ValueError``. With
+    ``mlflow`` importable the tracking client downloads the artifact;
+    without, the local file store (``$MLFLOW_TRACKING_URI`` with a
+    ``file:`` or ``file://`` prefix stripped, else ``./mlruns``) is
+    searched for ``<root>/*/<run_id>/artifacts/<artifact>``, the first
+    sorted hit taken, ``FileNotFoundError`` when there is none."""
+    if not path.startswith("runs:/"):
+        return path
+    run_id, _, artifact = path[len("runs:/"):].partition("/")
+    if not run_id or not artifact:
+        raise ValueError(f"malformed MLflow URI {path!r}: want runs:/<run_id>/<artifact>")
+    mlflow = _optional_mlflow()
+    if mlflow is not None and hasattr(mlflow, "artifacts"):
+        return mlflow.artifacts.download_artifacts(run_id=run_id, artifact_path=artifact)
+    root = os.environ.get("MLFLOW_TRACKING_URI", "mlruns")
+    for prefix in ("file://", "file:"):
+        if root.startswith(prefix):
+            root = root[len(prefix):]
+            break
+    hits = sorted(glob.glob(os.path.join(root, "*", run_id, "artifacts", artifact)))
+    if not hits:
+        raise FileNotFoundError(
+            f"cannot resolve {path!r}: mlflow is not installed and no "
+            f"{root}/*/{run_id}/artifacts/{artifact} exists on disk"
+        )
+    return hits[0]
 
-    The JAX package's two other sources, a ``.npz`` in
-    ``tools/port_torch_weights.py``'s layout and an MLflow ``runs:/`` URI,
-    are not ported (ROADMAP.md A15)."""
-    refuse_unported_source(path)
+
+def load_pretrained(path: str, key: str = "state_dict", model: nn.Module | None = None) -> dict[str, torch.Tensor]:
+    """The state dict that ``key`` names in a checkpoint, for a graft into
+    ``model`` (``srganfd_tpu/train/checkpoint.py`` ``load_pretrained_params``):
+
+    - the port's ``ckpt_best.pth``/``ckpt_last.pth`` (``state_dict``, the raw
+      G as the JAX graft takes ``g_params``, or ``d_state_dict``, D with its
+      ``u`` and running statistics);
+    - a reference-layout ``.pth.tar`` (``ESRGAN/utils.py:30-101``: one model
+      per file under ``state_dict``, in the port's names), which serves
+      either key;
+    - a ``.npz`` in ``tools/port_torch_weights.py``'s layout (``/``-joined
+      Flax paths, the VGG-128 and attention U-Net D's ``batch_stats``
+      inline), mapped to the port's names by the bridge of its own family
+      for a generator, of ``model``'s class for a discriminator
+      (:func:`_npz_state_dict`), and then, as every source,
+      :func:`merge_by_path` takes what matches by name and shape;
+    - an MLflow ``runs:/<run_id>/<artifact>`` URI naming one of these
+      (:func:`resolve_checkpoint_uri`).
+
+    The JAX package's own checkpoints are Orbax directories, which need
+    JAX: a directory raises ``ValueError``."""
+    path = resolve_checkpoint_uri(path)
+    if os.path.isdir(path):
+        raise ValueError(f"{path} is a directory (an Orbax checkpoint of the JAX package?): the port reads "
+                         "no Orbax; convert it with `python tools/export_to_torch.py` to a .pth")
+    if path.endswith(".npz"):
+        if model is None:
+            raise ValueError(f"{path}: a .npz source maps through the target model's bridge; pass the model")
+        return _npz_state_dict(path, model)
     return state_dict_of(load_checkpoint(path), key, path)
 
 
-def refuse_unported_source(path: str) -> None:
-    """Raise, naming ROADMAP.md A15, for the JAX package's weight sources
-    that the port does not read: an MLflow ``runs:/`` URI and a ``.npz`` in
-    ``tools/port_torch_weights.py``'s layout."""
-    if path.startswith("runs:/"):
-        raise NotImplementedError(f"{path}: MLflow runs:/ sources of a pretrained model are not ported to "
-                                  "srganfd_tpu_torch yet: see ROADMAP.md A15")
-    if path.endswith(".npz"):
-        raise NotImplementedError(f"{path}: .npz sources of a pretrained model are not ported to "
-                                  "srganfd_tpu_torch yet: see ROADMAP.md A15")
+def _npz_state_dict(path: str, model: nn.Module) -> dict[str, torch.Tensor]:
+    """A ``.npz`` of ``/``-joined Flax paths as the port's state dict: a
+    discriminator's tree (``batch_stats`` inline, no spectral collection,
+    so every ``u`` keeps its init) through the bridge of ``model``'s class;
+    any other through ``convert.flax_to_state_dict``, which picks the
+    generator bridge from the tree's own keys, as ``.npz`` weights are read
+    everywhere in the port."""
+    from srganfd_tpu_torch import convert
+    from srganfd_tpu_torch.models import discriminators as d
+
+    d_bridges = {
+        d.DiscriminatorVGG128: convert.vgg_discriminator_flax_to_state_dict,
+        d.DiscriminatorUNet: lambda p, stats: convert.discriminator_flax_to_state_dict(p, None),
+        d.DiscriminatorUNetSA: lambda p, stats: convert.sa_discriminator_flax_to_state_dict(p, None),
+        d.AttentionUNetDiscriminator:
+            lambda p, stats: convert.attention_discriminator_flax_to_state_dict(p, stats, None),
+        d.MultiScaleAttentionDiscriminator:
+            lambda p, stats: convert.multiscale_attention_discriminator_flax_to_state_dict(p, stats, None),
+    }
+    with np.load(path) as f:
+        tree = convert.unflatten_flax({k: f[k] for k in f.files})
+    bridge = d_bridges.get(type(model))
+    if bridge is None:
+        sd = convert.flax_to_state_dict(tree)
+    else:
+        sd = bridge({k: v for k, v in tree.items() if k != "batch_stats"}, tree.get("batch_stats", {}))
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 
 def state_dict_of(payload: Any, key: str, path: str = "checkpoint") -> dict[str, torch.Tensor]:

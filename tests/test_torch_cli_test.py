@@ -319,14 +319,24 @@ def test_niqe_on_the_ported_asset(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["npz_weights", "multiscale_heatmaps", "ensemble_with_tile"])
-def test_refusals(gt_dir, tmp_path, monkeypatch, case):
-    """``--weights *.npz`` names ROADMAP.md A15; the two-scale D's heat-maps (one logit map per scale: the JAX CLI fails on
-    the tuple's ``.ndim``) raise a ValueError naming the cause; the
-    ensemble with tiles exits, as in JAX."""
+def test_refusals(gt_dir, weights, tmp_path, monkeypatch, capsys, case):
+    """``--weights *.npz`` (Flax paths, the JAX CLI's other weights source)
+    evaluates the G it holds exactly as the ``.pth`` of the same G, and
+    ``--use-ema`` on it prints the JAX notice; the two-scale D's heat-maps
+    (one logit map per scale: the JAX CLI fails on the tuple's ``.ndim``)
+    raise a ValueError naming the cause; the ensemble with tiles exits, as
+    in JAX."""
     monkeypatch.chdir(tmp_path)
     if case == "npz_weights":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A15"):
-            port_test.run_eval(_args(gt_dir=gt_dir, weights="w.npz", device="cpu"))
+        from srganfd_tpu_torch.convert import flatten_flax, state_dict_to_flax
+
+        port_w = weights["rrdbnet"][1]
+        sd = torch.load(port_w, weights_only=True)["state_dict"]
+        np.savez(tmp_path / "w.npz", **flatten_flax(state_dict_to_flax(sd, 1)))
+        want = port_test.run_eval(_args(gt_dir=gt_dir, weights=port_w, max_images=2, device="cpu"))
+        got = port_test.run_eval(_args(gt_dir=gt_dir, weights="w.npz", max_images=2, use_ema=True, device="cpu"))
+        assert "! --use-ema ignored: .npz weights carry a single param tree" in capsys.readouterr().out
+        assert got["avg"] == want["avg"] and got["avg"]["PSNR"] > 10
     elif case == "multiscale_heatmaps":
         with pytest.raises(ValueError, match="one logit map per scale"):
             port_test.run_eval(_args(config="aesrgan", gt_dir=gt_dir, max_images=1, save_discriminator_eval=True,

@@ -19,6 +19,7 @@ import torch
 from srganfd_tpu_torch import configs
 from srganfd_tpu_torch.cli import infer
 from srganfd_tpu_torch.cli import train as cli_train
+from srganfd_tpu_torch.models import create_model
 from srganfd_tpu_torch.track import tracker
 from srganfd_tpu_torch.train import checkpoint as ckpt
 from srganfd_tpu_torch.train.loop import Trainer
@@ -237,10 +238,30 @@ def test_a_graft_across_archs_takes_what_matches_by_name_and_shape(frames, tmp_p
 
 
 @pytest.mark.parametrize("source", ["g.npz", "runs:/0123/best_g_model"])
-def test_graft_sources_that_are_not_ported_name_the_roadmap_item(frames, source):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A15"):
-        cli_train.main(["--config", "bsrnet", "--device-type", "cpu", "--tiny", "--train-dir", frames,
-                        "--valid-dir", frames, "--gt-size", "32", "--pretrained-g", source])
+def test_graft_sources_that_are_not_ported_name_the_roadmap_item(frames, source, tmp_path, monkeypatch, capsys,
+                                                                 first_step):
+    """The JAX graft's two other sources, now ported: a ``.npz`` of Flax
+    paths (the bridge's inverse of a tiny ``bsrgan_x2``) and an MLflow
+    ``runs:/`` URI resolved in a ``file:`` store (its artifact a
+    reference-layout file). ``--pretrained-g`` from each grafts every
+    tensor: G and EMA-G at step 0 are the source's."""
+    from srganfd_tpu_torch.convert import flatten_flax, state_dict_to_flax
+
+    monkeypatch.chdir(tmp_path)
+    model = create_model("bsrgan_x2", **TINY, num_rrdb=1)
+    sd = {k: v + 1 for k, v in model.state_dict().items()}
+    if source.endswith(".npz"):
+        np.savez(tmp_path / source, **flatten_flax(state_dict_to_flax(sd, 1)))
+    else:
+        store = tmp_path / "store"
+        (store / "0" / "0123" / "artifacts").mkdir(parents=True)
+        torch.save({"state_dict": sd}, store / "0" / "0123" / "artifacts" / "best_g_model")
+        monkeypatch.setenv("MLFLOW_TRACKING_URI", f"file:{store}")
+    cli_train.main(["--config", "bsrnet", "--device-type", "cpu", "--tiny", "--train-dir", frames,
+                    "--valid-dir", frames, "--gt-size", "32", "--batch-size", "1", "--steps-per-epoch", "1",
+                    "--epochs", "1", "--pretrained-g", source])
+    assert f"loaded pretrained G ({len(sd)}/{len(sd)} tensors) from {source}" in capsys.readouterr().out
+    assert _same(first_step[0]["g"], sd) and _same(first_step[0]["ema"], sd)
 
 
 def test_a_reference_layout_file_grafts(frames, tmp_path):

@@ -1,5 +1,6 @@
-"""The port's kernels on the card (RDB, flash attention, filter2d), the RDB
-under autograd and one training step. Every test here carries the ``cuda``
+"""The port's kernels on the card (RDB, flash attention, filter2d, the s8
+conv of the int8 serving path), the RDB under autograd and one training
+step. Every test here carries the ``cuda``
 marker and skips without a CUDA device: a hand-written CUDA kernel has no
 CPU mode. On a machine with an NVIDIA GPU (sm_90a) and nvcc, run from the
 root of the checkout:
@@ -19,6 +20,7 @@ import torch
 from srganfd_tpu_torch.models import create_model
 from srganfd_tpu_torch.ops.cuda import attention as attn_mod
 from srganfd_tpu_torch.ops.cuda import filter2d as f2d_mod
+from srganfd_tpu_torch.ops.cuda import qconv as qconv_mod
 from srganfd_tpu_torch.ops.cuda import rdb as rdb_mod
 
 pytestmark = pytest.mark.cuda
@@ -397,3 +399,91 @@ def test_train_step_with_kernels_matches_plain_versions(cuda, monkeypatch):
     assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
     for k in g_p:
         torch.testing.assert_close(g_k[k], g_p[k], atol=1e-7, rtol=1e-5)
+
+
+def _int8(shape, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).to(device)
+
+
+@pytest.mark.parametrize(
+    "shape,cin,cout",
+    [((1, 9, 13), 32, 8), ((2, 17, 23), 64, 192), ((1, 16, 8), 32, 160), ((3, 5, 37), 96, 40), ((1, 1, 1), 32, 64)],
+    ids=["cout8", "x_source", "out1_source", "ragged_cin96", "one_pixel"],
+)
+def test_qconv_kernel_equals_plain_version(cuda, shape, cin, cout):
+    """The s8 conv bit for bit: its int32 sums and its f32 output, over
+    ragged 16x8 tiles, cout tiles of 64 partly filled and cin of 1-3 steps."""
+    xq, kq = _int8((*shape, cin), 0, cuda), _int8((3, 3, cin, cout), 1, cuda)
+    scale = torch.rand(cout, generator=torch.Generator().manual_seed(2)).to(cuda) * 1e-4
+    before = qconv_mod.launches
+    got_i, got_f = qconv_mod.qconv3x3(xq, kq), qconv_mod.qconv3x3(xq, kq, scale)
+    torch.cuda.synchronize()
+    assert qconv_mod.launches == before + 2
+    assert torch.equal(got_i, qconv_mod.qconv3x3_ref(xq, kq))
+    assert torch.equal(got_f, qconv_mod.qconv3x3_ref(xq, kq, scale))
+
+
+def test_qconv_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
+    def refuse(*args):
+        raise AssertionError("a CUDA tensor reached qconv3x3_ref")
+
+    monkeypatch.setattr(qconv_mod, "qconv3x3_ref", refuse)
+    out = qconv_mod.qconv3x3(_int8((1, 4, 4, 32), 3, cuda), _int8((3, 3, 32, 8), 4, cuda))
+    assert out.dtype == torch.int32 and out.shape == (1, 4, 4, 8)
+
+
+def test_qconv_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    before = qconv_mod.launches
+    with pytest.raises(ValueError, match="multiple of 32"):
+        qconv_mod.qconv3x3(_int8((1, 4, 4, 16), 5, cuda), _int8((3, 3, 16, 8), 6, cuda))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        qconv_mod.qconv3x3(_int8((1, 4, 4, 32), 5, cuda), _int8((3, 3, 32, 12), 6, cuda))
+    with pytest.raises(TypeError, match="int8"):
+        qconv_mod.qconv3x3(_int8((1, 4, 4, 32), 5, cuda).float(), _int8((3, 3, 32, 8), 6, cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        qconv_mod.qconv3x3(_int8((1, 4, 32, 4), 5, cuda).transpose(2, 3), _int8((3, 3, 32, 8), 6, cuda))
+    assert qconv_mod.launches == before
+
+
+def test_qconv_failed_launch_raises(cuda, monkeypatch):
+    class FailingLibrary:
+        def qconv3x3_s8_cuda(self, *args):
+            return 9  # cudaErrorInvalidConfiguration
+
+        def qconv_error_string(self, code):
+            return b"invalid configuration argument"
+
+    monkeypatch.setattr(qconv_mod, "_library", FailingLibrary)
+    before = qconv_mod.launches
+    with pytest.raises(RuntimeError, match="invalid configuration"):
+        qconv_mod.qconv3x3(_int8((1, 4, 4, 32), 7, cuda), _int8((3, 3, 32, 8), 8, cuda))
+    assert qconv_mod.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_quantized_generator_on_cuda_matches_plain_qconv(cuda, dtype, monkeypatch):
+    """``bsrgan_x2`` with ``quant=True`` at 32/32 (the kernel takes cin in
+    multiples of 32) on the card, with the kernel and again with the plain
+    qconv on the same device: the int32 sums are exact in both, so the
+    outputs agree to f32 roundoff (the CPU is no reference here: its f32
+    convs outside the trunk round apart, and one flipped activation
+    rounding moves an output by a quantization step)."""
+    from srganfd_tpu_torch.ops import quant
+
+    model = create_model("bsrgan_x2", dtype=dtype, quant=True, generator=torch.Generator().manual_seed(0),
+                         channels=32, growth_channels=32, num_rrdb=1).eval()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(10)
+        model.conv4.bias.add_(0.5)
+    model = model.to(cuda)
+    x = torch.rand((2, 12, 10, 3), generator=torch.Generator().manual_seed(1)).to(cuda)
+    with torch.inference_mode():
+        before = qconv_mod.launches
+        got = model(x)
+        assert qconv_mod.launches == before + 5 * 3
+        monkeypatch.setattr(quant, "qconv3x3", lambda xq, kq, s=None, packed=None: qconv_mod.qconv3x3_ref(xq, kq, s))
+        want = model(x)
+    assert qconv_mod.launches == before + 5 * 3
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)

@@ -198,8 +198,18 @@ def test_cuda_without_gpu_exits(tmp_path, monkeypatch):
     ["serve", "--stdio", "--cp-backend", "ulysses"],
     ["infer", "--inputs-path", "in.png", "--output-path", "o.png", "--data-shard"],
 ], ids=lambda a: a[0] + (a[-1] if a[-1].startswith("--") else a[-2]))
-def test_unported_flags_name_the_roadmap_item(argv):
+def test_unported_flags_name_the_roadmap_item(argv, monkeypatch):
+    """The A11 flags stay refused, naming the item; ``--quant-int8`` is
+    ported: the daemon builds the quantized model and answers over stdio."""
     main = port_serve.main if argv[0] == "serve" else port_infer.main
+    if "--quant-int8" in argv:
+        seen = []
+        real = port_infer.create_model
+        monkeypatch.setattr(port_infer, "create_model", lambda arch, **kw: seen.append(kw) or real(arch, **kw))
+        monkeypatch.setattr(sys, "stdin", io.StringIO('{"cmd": "shutdown"}\n'))
+        main(["--device-type", "cpu", "--model-arch", "bsrgan_x2", *argv[1:]])
+        assert seen and seen[0]["quant"] is True
+        return
     with pytest.raises(SystemExit, match=r"not ported .*ROADMAP\.md A\d+ \("):
         main(["--device-type", "cpu", *argv[1:]])
 

@@ -102,9 +102,16 @@ def test_adapter_eval_keeps_full_gt():
 
 @pytest.mark.parametrize("degradation", ["paired"])
 def test_adapter_names_the_roadmap_item_for_other_degradations(degradation):
+    """The last degradation the port lacked, ``paired``, is ported: GT and
+    LR reach the device as the loader read them; an unknown name raises."""
     cfg = configs.get_config("bsrnet").replace(degradation=degradation)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
-        DegradationAdapter(cfg)
+    rng = np.random.default_rng(6)
+    host = {"gt": rng.uniform(size=(2, 16, 16, 3)).astype(np.float32),
+            "lr": rng.uniform(size=(2, 8, 8, 3)).astype(np.float32)}
+    out = DegradationAdapter(cfg)(host, 0)
+    assert all(np.array_equal(out[k].numpy(), host[k]) for k in ("gt", "lr"))
+    with pytest.raises(ValueError, match="unknown degradation"):
+        DegradationAdapter(cfg.replace(degradation="jpeg_only"))
 
 
 # -- metrics ------------------------------------------------------------------------
