@@ -266,7 +266,40 @@ drives A-ESRGAN's generators ``gen_rrdb2x`` and ``gen_rpa2x``:
 31. the graft's sources: ``--pretrained-g`` from the paired run's
     ``ckpt_last.pth``, a ``.npz`` of it and a ``runs:/`` URI of it in a
     ``file:`` MLflow store: the same ``n_ok/n_all``, G's forwards bit for
-    bit equal.
+    bit equal;
+32. the parallel modes on ``torch.distributed``, every rank a subprocess
+    with a timeout (NCCL refuses two ranks of one communicator on one card,
+    so a world of one runs under NCCL and two ranks share cuda:0 under
+    gloo, joined by the launcher before it calls the CLI's ``main``):
+    ``dp1_phase``, ``cli.train --config bsrgan`` and ``esrgan`` (full
+    width, batch 2, 3 steps, deterministic algorithms) with torchrun's
+    variables for a world of one and without them: G, EMA-G and D (``u``,
+    BatchNorm's running statistics) max abs 0 apart, step p50 of each;
+33. ``dp2_phase``: both configs on 2 gloo ranks for one f32 step, the
+    ranks' synced first-step gradients against one process on both ranks'
+    degraded pairs with the ranks' config, within 10x that reference's own
+    spread between the two orders of the pairs, every update phase
+    (``esrgan``'s BatchNorm moments in f64 in the ranks and the reference,
+    or its f32 fast variance spreads 4e-3); ``esrgan`` again with per-rank
+    BatchNorm statistics and with per-rank relativistic means (planted
+    faults in the phase's own copy of the step) must each fail it;
+34. ``spatial_phase``: ``cli.infer --spatial-shard`` of ``bsrgan_x2`` on a
+    512x512 frame, a world of one under NCCL and 2 gloo ranks, each bit for
+    bit the one-process loop of the same shards (``spatial_sr_loop``), the
+    interior against the unsharded forward printed; ``--data-shard`` on 2
+    ranks, its files equal to the unsharded run's at the per-rank batch;
+35. ``cp_phase``: ``bsrgantrans_x2`` at 128x128 (4096 tokens) on 2 gloo
+    ranks with ``--cp-backend ring`` and ``ulysses``, each bit for bit its
+    one-process loop (``forward_shards``), ring against Ulysses 1e-4, the
+    unsharded model's max abs printed;
+36. ``serve_spatial_phase``: ``cli.serve --stdio --spatial-shard`` on 2
+    gloo ranks, 4 requests equal to the spatial phase's frame and the
+    loop's, both ranks exit 0 after the shutdown; the ranks try each
+    collective on a CUDA tensor under gloo (printed), and every phase
+    prints the collectives gloo ran through host memory.
+
+``python3 chip_smoke.py --parallel-only`` builds the kernels and runs
+32-36 alone, without the last two lines.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after.
@@ -4679,9 +4712,629 @@ def graft_sources_phase(work: str, ckpt_path: str, rdb) -> tuple[int, dict]:
     return calls, {"counts": out, "forwards_equal": all(same.values())}
 
 
+# -- the parallel modes (torch.distributed), one process per rank ----------------------
+
+# every rank of the parallel phases is a subprocess of this launcher: it
+# joins a gloo group itself when asked (two ranks share cuda:0, where NCCL
+# refuses two ranks of one communicator), installs the phase's own hooks,
+# sets the kernels' counts to 0, calls the CLI's main(argv) and prints its
+# counts and readings on a line of its own
+RANK_LAUNCHER = r'''
+import datetime, json, os, sys, time
+T_START = time.perf_counter()
+import torch
+torch.set_num_threads(1)  # a wave runs up to 12 ranks on the host's cores
+import torch
+import torch.distributed as dist
+spec = json.loads(sys.argv[1])
+if spec.get("deterministic"):
+    torch.use_deterministic_algorithms(True, warn_only=True)
+if spec.get("gloo"):
+    dist.init_process_group("gloo", init_method="env://", rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]),
+                            timeout=datetime.timedelta(seconds=spec["timeout"]))
+from srganfd_tpu_torch.models import blocks
+from srganfd_tpu_torch.ops.cuda import attention, filter2d, rdb
+from srganfd_tpu_torch.parallel import comm, spatial
+from srganfd_tpu_torch.train import loop
+rank = int(os.environ.get("RANK", "0"))
+record = {"step_ms": []}
+def bn64(moments):
+    return lambda xs: tuple(m.to(xs.dtype) for m in moments(xs.double()))
+sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+if spec.get("probe"):  # each collective of a CUDA tensor under gloo, its values checked
+    def gathered(t):
+        parts = [torch.empty_like(t) for _ in range(2)]
+        dist.all_gather(parts, t)
+        return torch.cat(parts)
+    def exchanged(t):
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t)
+        return out
+    def reduced(t):
+        dist.all_reduce(t)
+        return t
+    def broadcast(t):
+        dist.broadcast(t, 0)
+        return t
+    record["probe"] = {}
+    for name, fn, want in (("all_reduce", reduced, [3.0] * 4), ("broadcast", broadcast, [1.0] * 4),
+                           ("all_gather", gathered, [1.0] * 4 + [2.0] * 4),
+                           ("all_to_all", exchanged, [1.0, 1.0, 2.0, 2.0])):
+        try:
+            got = fn(torch.full((4,), float(rank + 1), device="cuda")).cpu().tolist()
+            record["probe"][name] = "ok" if got == want else f"wrong: {got}"
+        except Exception as e:
+            record["probe"][name] = type(e).__name__ + ": " + str(e)[:120]
+if spec.get("bn64"):  # BatchNorm's moments summed in f64: the step's own code on an f64 copy of its input
+    blocks.BatchNorm._batch_moments = staticmethod(bn64(blocks.BatchNorm._batch_moments))
+if spec.get("plant_bn"):  # a planted fault: the moments per rank (in f64 as well)
+    blocks.BatchNorm._batch_moments = staticmethod(
+        lambda xs: tuple(m.to(xs.dtype) for m in (xs.double().mean((0, 2, 3)), xs.double().square().mean((0, 2, 3)))))
+if spec.get("plant_rel"):  # a planted fault: the relativistic losses' means per rank
+    from srganfd_tpu_torch.losses import gan
+    gan.batch_mean = torch.mean
+real_step, real_update = loop.Trainer.train_step, loop.Trainer._apply_update
+grads = []
+def train_step(self, state, gt, lr_img, gt_pixel=None):
+    if spec.get("capture") and state.step == 0:
+        torch.save({"gt": gt.cpu(), "lr": lr_img.cpu()}, spec["capture"] + f"_inputs{rank}.pt")
+    sync()
+    t0 = time.perf_counter()
+    record.setdefault("first_step_at", t0 - T_MAIN)
+    m = real_step(self, state, gt, lr_img, gt_pixel)
+    sync()
+    record["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    record["last_step_end_at"] = time.perf_counter() - T_MAIN
+    return m
+def apply_update(self, opt, params):
+    out = real_update(self, opt, params)
+    if spec.get("capture") and len(record["step_ms"]) == 0:
+        grads.append([p.grad.detach().cpu() for p in params if p.grad is not None])
+    return out
+loop.Trainer.train_step, loop.Trainer._apply_update = train_step, apply_update
+real_sr = spatial.spatial_sharded_sr
+outs = []
+def spatial_sr(*a, **k):
+    out = real_sr(*a, **k)
+    outs.append(out)
+    return out
+spatial.spatial_sharded_sr = spatial_sr
+if spec.get("stdin") and rank == 0:
+    sys.stdin = open(spec["stdin"])
+import importlib
+mod = importlib.import_module("srganfd_tpu_torch.cli." + spec["cli"])
+rdb.launches = filter2d.launches = attention.launches = comm.staged = 0
+t0 = T_MAIN = time.perf_counter()
+record["imports_s"] = t0 - T_START
+try:
+    mod.main(spec["argv"])
+    rc = 0
+except SystemExit as e:
+    rc = e.code if isinstance(e.code, int) else 1
+sync()
+record.update(rdb=rdb.launches, filter2d=filter2d.launches, flash=attention.launches, staged=comm.staged,
+              seconds=time.perf_counter() - t0, rc=rc, world=comm.world(), backend=comm.backend())
+if spec.get("capture"):
+    torch.save(grads, spec["capture"] + f"_grads{rank}.pt")
+if spec.get("save_sr"):
+    import numpy as np
+    np.save(spec["save_sr"] + f"_rank{rank}.npy", np.stack(outs))
+if dist.is_initialized():
+    dist.barrier()
+    dist.destroy_process_group()
+print("RANK_RESULT " + json.dumps(record), flush=True)
+'''
+PAR_TIMEOUT = 240  # every rank process and every group initialisation has one
+DP_BATCH = 2  # frames a rank
+DP1_STEPS = 3
+DP_CONFIGS = ("bsrgan", "esrgan")
+# dp2's runs: tag -> the launcher's switches (``bn64``: BatchNorm's moments in
+# f64; ``plant_bn`` / ``plant_rel``: a global reduction taken per rank)
+DP2_RUNS = {"bsrgan": {}, "esrgan": {"bn64": True}, "esrgan_planted_bn": {"bn64": True, "plant_bn": True},
+            "esrgan_planted_rel": {"bn64": True, "plant_rel": True}}
+SP_FRAME = 512  # the spatial phase's frame edge, bsrgan_x2
+CP_FRAME = 128  # the context-parallel frame: 4096 tokens, 2048 a rank (3072 with the halo rows)
+SERVE_SHAPES = ((256, 256), (320, 192), (250, 190))  # the served frames after the spatial phase's
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _group_env(rank: int, world: int, port: int) -> dict:
+    """torchrun's variables for ``rank``; every rank on cuda:0 (one card)."""
+    return {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def _launch(jobs: list[tuple[dict, dict, str]], label: str) -> list[dict]:
+    """Run every (spec, env, cwd) job of RANK_LAUNCHER at once; each must
+    exit 0 within PAR_TIMEOUT and print its RANK_RESULT line. Returns the
+    records (with the job's stdout under "stdout"). A job past its time
+    fails the phase, and every job is ended before this returns."""
+    procs = []
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    for spec, env, cwd in jobs:
+        os.makedirs(cwd, exist_ok=True)
+        spec = {"timeout": PAR_TIMEOUT, **spec}
+        err = open(os.path.join(cwd, f"stderr_{len(procs)}.txt"), "w")
+        out = open(os.path.join(cwd, f"stdout_{len(procs)}.txt"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-u", "-c", RANK_LAUNCHER, json.dumps(spec)], cwd=cwd,
+            env={**base, **env, "PYTHONPATH": ROOT, "CUBLAS_WORKSPACE_CONFIG": ":4096:8", "OMP_NUM_THREADS": "1"},
+            stdout=out, stderr=err), out, err))
+    deadline = time.monotonic() + PAR_TIMEOUT
+    try:
+        while any(p.poll() is None for p, _, _ in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p, _, _ in procs):
+                break  # a failed rank: its peers would wait for it until their timeout
+            time.sleep(0.1)
+    finally:
+        for p, out, err in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            out.close()
+            err.close()
+    records = []
+    for i, ((p, out, err), (_, _, cwd)) in enumerate(zip(procs, jobs)):
+        text = open(out.name).read()
+        lines = [ln for ln in text.splitlines() if ln.startswith("RANK_RESULT ")]
+        check(p.returncode == 0 and len(lines) == 1,
+              f"{label}: job {i} exited {p.returncode}: {text[-1500:]} {open(err.name).read()[-3000:]}")
+        rec = json.loads(lines[0][len("RANK_RESULT "):])
+        rec["stdout"] = text
+        records.append(rec)
+    return records
+
+
+def _train_argv(name: str, train_dir: str, valid_dir: str, steps: int, extra=()) -> list[str]:
+    return ["--config", name, "--train-dir", train_dir, "--valid-dir", valid_dir, "--batch-size", str(DP_BATCH),
+            "--steps-per-epoch", str(steps), "--epochs", "1", *extra]
+
+
+def _ckpt(cwd: str) -> dict:
+    from srganfd_tpu_torch.train import checkpoint as ckpt
+
+    found = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(cwd, "results")) for f in fs
+             if f == "ckpt_last.pth"]
+    check(len(found) == 1, f"{cwd}: ckpt_last.pth {found}")
+    return ckpt.load_checkpoint(found[0])
+
+
+def _dp_dirs(work: str) -> tuple[str, str]:
+    """8 training frames and 2 validation frames (1 a rank under 2 ranks),
+    written once."""
+    train, valid = os.path.join(work, "dp_train"), os.path.join(work, "dp_valid")
+    if not os.path.isdir(train):
+        write_gt_frames(train, 8, TRAIN_FRAME, seed=60)
+        write_gt_frames(valid, 2, TRAIN_FRAME, seed=61)
+    return train, valid
+
+
+def dp1_phase(work: str, smi: str) -> dict:
+    """``cli.train --config bsrgan`` and ``--config esrgan`` (full width,
+    batch DP_BATCH, DP1_STEPS steps, deterministic algorithms) with
+    torchrun's variables for a world of one (NCCL) and without them, the
+    four runs at once: the final G, EMA-G and D (``u`` and BatchNorm's
+    running statistics included) max abs 0 apart; step p50 of each."""
+    train, valid = _dp_dirs(work)
+    jobs = []
+    for name in DP_CONFIGS:
+        for tag in ("group", "plain"):
+            env = _group_env(0, 1, _free_port()) if tag == "group" else {}
+            jobs.append(({"cli": "train", "deterministic": True, "argv": _train_argv(name, train, valid, DP1_STEPS)},
+                         env, os.path.join(work, f"dp1_{name}_{tag}")))
+    recs, seconds = yield jobs
+    out = {"seconds": seconds}
+    for i, name in enumerate(DP_CONFIGS):
+        group, plain = recs[2 * i], recs[2 * i + 1]
+        check(group["world"] == 1 and group["backend"] == "nccl" and plain["backend"] is None,
+              f"dp1 {name}: group {group['backend']}, plain {plain['backend']}")
+        a, b = _ckpt(jobs[2 * i][2]), _ckpt(jobs[2 * i + 1][2])
+        diffs = {f"{key}/{k}": (a[key][k].float() - v.float()).abs().max().item()
+                 for key in ("state_dict", "ema_state_dict", "d_state_dict") for k, v in b[key].items()
+                 if v.is_floating_point()}
+        worst = max(diffs.values())
+        stats = sum(1 for k in diffs if k.endswith(("running_mean", "running_var")))
+        check(worst == 0.0, f"dp1 {name}: the world-of-one run differs from the plain one by {worst}")
+        chains = group["filter2d"] >= 2 * DP1_STEPS if name == "bsrgan" else group["filter2d"] == 0
+        check(group["rdb"] > 0 and chains and (group["rdb"], group["filter2d"]) == (plain["rdb"], plain["filter2d"]),
+              f"dp1 {name}: launches {group['rdb']} rdb, {group['filter2d']} filter2d; without the group "
+              f"{plain['rdb']}, {plain['filter2d']}")
+        out[name] = {"max_abs": worst, "tensors": len(diffs), "batchnorm_stats": stats,
+                     "step_ms_p50_group": float(np.median(group["step_ms"])),
+                     "step_ms_p50_plain": float(np.median(plain["step_ms"])),
+                     "rdb_launches": group["rdb"] + plain["rdb"],
+                     "filter2d_launches": group["filter2d"] + plain["filter2d"]}
+        print(f"dp1_phase {name} ({smi}): NCCL world of one vs no group, {len(diffs)} tensors of G, EMA-G and D "
+              f"({stats} BatchNorm running statistics) max abs {worst}; step p50 {out[name]['step_ms_p50_group']:.2f} "
+              f"ms with the group, {out[name]['step_ms_p50_plain']:.2f} without (four runs at once on the card); "
+              f"{group['rdb']} rdb, {group['filter2d']} filter2d launches a run; wave {out['seconds']:.1f} s, "
+              f"job seconds in main {[round(r['seconds'], 1) for r in recs]} (imports, first step at, last step end "
+              f"at: {[(round(r['imports_s'], 1), round(r['first_step_at'], 1), round(r['last_step_end_at'], 1)) for r in recs]})",
+              flush=True)
+    return out
+
+
+def _phase_rel(a: list, b: list) -> list[float]:
+    """Per update phase of a step (in its order), ||a - b|| / ||b|| over
+    the phase's gradients flattened: a norm over every tensor, so that a
+    tensor whose gradient is roundoff of a sum that is 0 (the relativistic
+    losses' logit bias) does not set the reading."""
+    out = []
+    for xs, ys in zip(a, b):
+        diff = math.sqrt(sum(float((x.double() - y.double()).square().sum()) for x, y in zip(xs, ys)))
+        out.append(diff / math.sqrt(sum(float(y.double().square().sum()) for y in ys)))
+    return out
+
+
+def _bn64(moments):
+    """BatchNorm's batch moments taken by ``moments`` (the step's own code)
+    on an f64 copy of the input, rounded back: dp2's conditioning."""
+    return lambda xs: tuple(m.to(xs.dtype) for m in moments(xs.double()))
+
+
+def _dp_reference(name: str, train: str, valid: str, inputs: list[dict], bn64: bool) -> tuple[list, list]:
+    """The first step's gradients (per update phase, in the step's order) of
+    one process on the ranks' degraded pairs concatenated in rank order,
+    and in the other order, each from the same seeded state, f32, with the
+    config the ranks' ``cli.train`` ran (one epoch of one step: the
+    schedule's milestones, and so D's first learning rate in a D-first
+    step, follow the epochs). ``bn64``: BatchNorm's moments in f64, as the
+    ranks took them."""
+    from srganfd_tpu_torch import configs
+    from srganfd_tpu_torch.models import blocks
+    from srganfd_tpu_torch.train import loop
+
+    cfg = configs.get_config(name, train_gt_images_dir=train, valid_gt_images_dir=valid,
+                             batch_size=DP_BATCH * len(inputs), compute_dtype="float32", epochs=1)
+    real, moments = loop.Trainer._apply_update, blocks.BatchNorm.__dict__["_batch_moments"]
+    tr = loop.Trainer(cfg, steps_per_epoch=1, device="cuda")
+    out = []
+    for order in (inputs, inputs[::-1]):
+        grads = []
+
+        def apply_update(self, opt, params):
+            done = real(self, opt, params)
+            grads.append([p.grad.detach().cpu() for p in params if p.grad is not None])
+            return done
+
+        state = tr.init_state()
+        loop.Trainer._apply_update = apply_update
+        if bn64:
+            blocks.BatchNorm._batch_moments = staticmethod(_bn64(moments.__func__))
+        try:
+            tr.train_step(state, torch.cat([x["gt"] for x in order]).cuda(), torch.cat([x["lr"] for x in order]).cuda())
+        finally:
+            loop.Trainer._apply_update, blocks.BatchNorm._batch_moments = real, moments
+        out.append(grads)
+    return out[0], out[1]
+
+
+def dp2_phase(work: str, smi: str) -> dict:
+    """Two gloo ranks on cuda:0 (LOCAL_RANK 0 both), ``cli.train`` of
+    ``bsrgan`` and ``esrgan`` for one f32 step at DP_BATCH frames a rank,
+    deterministic algorithms; and ``esrgan`` again with each of two planted
+    faults in this phase's own copy of the step: BatchNorm's statistics per
+    rank, and the relativistic losses' means per rank. The ranks' synced
+    first-step gradients against one process on both ranks' degraded pairs
+    (rank 0's then rank 1's), from the same seeded state and config, per
+    update phase as ||a - b|| / ||b||; the tolerance is 10x that
+    reference's spread between the two orders of the pairs (floor 1e-6),
+    every phase held. ``esrgan``'s runs and its reference take BatchNorm's
+    moments in f64 (``_bn64``: the step's own code, all-reduce included, on
+    an f64 copy): in f32 the fast variance E[x^2] - E[x]^2 cancels, and a
+    reordered batch moves the gradients 4e-3 apart, which would hide any
+    fault below that. Each planted run must fail the tolerance."""
+    train, valid = _dp_dirs(work)
+    runs = DP2_RUNS
+    jobs = []
+    for tag, extra in runs.items():
+        port = _free_port()
+        name = tag.split("_")[0]
+        cwd = os.path.join(work, f"dp2_{tag}")
+        spec = {"cli": "train", "gloo": True, "deterministic": True, "capture": os.path.join(cwd, "step0"),
+                "argv": _train_argv(name, train, valid, 1, ("--compute-dtype", "float32")), **extra}
+        jobs += [(spec, _group_env(r, 2, port), cwd) for r in range(2)]
+    recs, seconds = yield jobs
+    out = {"seconds": seconds}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for i, tag in enumerate(runs):
+            cwd = jobs[2 * i][2]
+            r0, r1 = recs[2 * i], recs[2 * i + 1]
+            check(r0["world"] == 2 and r0["backend"] == "gloo", f"dp2 {tag}: {r0['world']} {r0['backend']}")
+            g0, g1 = (torch.load(os.path.join(cwd, f"step0_grads{r}.pt")) for r in range(2))
+            check(len(g0) == 2 and all(torch.equal(a, b) for xs, ys in zip(g0, g1) for a, b in zip(xs, ys)),
+                  f"dp2 {tag}: the ranks' synced gradients differ")
+            out[tag] = {"grads": g0, "rdb_launches": r0["rdb"] + r1["rdb"],
+                        "filter2d_launches": r0["filter2d"] + r1["filter2d"], "staged": r0["staged"] + r1["staged"],
+                        "inputs": [torch.load(os.path.join(cwd, f"step0_inputs{r}.pt")) for r in range(2)]}
+        readings = {}
+        t_ref = time.perf_counter()
+        for name in DP_CONFIGS:
+            ref, swapped = _dp_reference(name, train, valid, out[name]["inputs"], bool(runs[name].get("bn64")))
+            spread = _phase_rel(swapped, ref)
+            tol = [max(10 * v, 1e-6) for v in spread]
+            got = _phase_rel(out[name]["grads"], ref)
+            readings[name] = {"rel": got, "spread": spread, "tolerance": tol}
+            check(all(g <= t for g, t in zip(got, tol)),
+                  f"dp2 {name}: synced gradients {got} from one process's (per phase), tolerance {tol}")
+            for tag in (t for t in runs if t.startswith(name + "_planted")):
+                check(all(torch.equal(a["gt"], b["gt"]) for a, b in zip(out[tag]["inputs"], out[name]["inputs"])),
+                      f"dp2 {tag}: its pairs differ from the held run's")
+                planted = _phase_rel(out[tag]["grads"], ref)
+                readings[name][tag] = planted
+                check(any(p > t for p, t in zip(planted, tol)),
+                      f"dp2 {tag}: the planted fault reads {planted}, within the tolerance {tol}")
+        out["reference_seconds"] = time.perf_counter() - t_ref
+        for tag in runs:
+            for key in ("grads", "inputs"):
+                out[tag].pop(key)
+        out["readings"] = readings
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(out["bsrgan"]["filter2d_launches"] > 0 and all(out[t]["rdb_launches"] > 0 for t in runs),
+          "dp2: a rank launched no kernel")
+    print(f"dp2_phase ({smi}): 2 gloo ranks on cuda:0, first-step synced gradients vs one process on both ranks' "
+          f"pairs, ||a - b|| / ||b|| per update phase in the step's order, every phase held (esrgan's BatchNorm "
+          f"moments in f64 in the ranks and the reference): " + "; ".join(
+              f"{n} {r['rel']} (spread {r['spread']}, tolerance {r['tolerance']}"
+              + "".join(f", {k} {v}" for k, v in r.items() if "_planted" in k) + ")"
+              for n, r in readings.items())
+          + f"; launches { {t: (out[t]['rdb_launches'], out[t]['filter2d_launches']) for t in runs} } (rdb, filter2d);"
+          f" staged collectives { {t: out[t]['staged'] for t in runs} }; wave {seconds:.1f} s, job seconds in main "
+          f"{[round(r['seconds'], 1) for r in recs]} (imports, first step at, last step end at: "
+          f"{[(round(r['imports_s'], 1), round(r.get('first_step_at', 0), 1), round(r.get('last_step_end_at', 0), 1)) for r in recs]}), "
+          f"{out['reference_seconds']:.1f} s for the 4 reference steps", flush=True)
+    return out
+
+
+def _loop_sr(model, img: np.ndarray, n: int, halo: int, row_multiple: int = 1, shards: bool = False) -> np.ndarray:
+    from srganfd_tpu_torch.parallel.spatial import spatial_sr_loop
+
+    return spatial_sr_loop(model, img, model.upscale, n, halo=halo, row_multiple=row_multiple, device="cuda",
+                           shards_fn=model.forward_shards if shards else None)
+
+
+def _png_sr(sr: np.ndarray) -> np.ndarray:
+    """The 8-bit frame the CLIs write for ``sr`` (RGB)."""
+    return np.clip(sr * 255.0, 0, 255).astype(np.uint8)
+
+
+def spatial_phase(work: str, smi: str) -> dict:
+    """``cli.infer --spatial-shard`` of full-width ``bsrgan_x2`` (seeded,
+    f32) on one SP_FRAME^2 frame, halo 16: a world of one under NCCL and 2
+    gloo ranks on cuda:0, each bit for bit the one-process loop of the same
+    shards; the interior rows against the unsharded forward (printed);
+    ``--data-shard --batch 4`` on 2 ranks over 6 frames, its files equal to
+    the unsharded run's at the per-rank batch (2) and every frame written
+    once. All jobs at once."""
+    import cv2
+
+    from srganfd_tpu_torch.cli import infer
+
+    frame = write_frames(os.path.join(work, "sp_in"), 1, SP_FRAME, SP_FRAME, seed=71)[0]
+    seq = os.path.join(work, "sp_seq")
+    write_frames(seq, 6, 128, 128, seed=72)
+    base = ["--model-arch", "bsrgan_x2"]
+    one = [*base, "--spatial-shard", "--inputs-path", frame]
+    jobs = [({"cli": "infer", "argv": [*one, "--output-path", os.path.join(work, "sp_w1.png")],
+              "save_sr": os.path.join(work, "sp_w1")}, _group_env(0, 1, _free_port()), os.path.join(work, "sp_job_w1"))]
+    port = _free_port()
+    jobs += [({"cli": "infer", "gloo": True, "argv": [*one, "--output-path", os.path.join(work, "sp_w2.png")],
+               "save_sr": os.path.join(work, "sp_w2")}, _group_env(r, 2, port), os.path.join(work, "sp_job_w2"))
+             for r in range(2)]
+    port = _free_port()
+    jobs += [({"cli": "infer", "gloo": True, "argv": [*base, "--data-shard", "--batch", "4", "--inputs-path", seq,
+                                                      "--output-path", os.path.join(work, "sp_ds")]},
+              _group_env(r, 2, port), os.path.join(work, "sp_job_ds")) for r in range(2)]
+    jobs.append(({"cli": "infer", "argv": [*base, "--batch", "2", "--inputs-path", seq,
+                                           "--output-path", os.path.join(work, "sp_seq_out")]},
+                 {}, os.path.join(work, "sp_job_seq")))
+    recs, seconds = yield jobs
+    check(recs[0]["backend"] == "nccl" and recs[0]["world"] == 1 and recs[1]["world"] == 2, "spatial: groups")
+    model = infer.build_model("bsrgan_x2", torch.device("cuda"))
+    img = cv2.cvtColor(cv2.imread(frame), cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
+    out = {"seconds": seconds}
+    with torch.inference_mode():
+        full = model(torch.from_numpy(img)[None].cuda())[0].cpu().numpy()
+    for n, tag in ((1, "w1"), (2, "w2")):
+        want = _loop_sr(model, img, n, 16)
+        got = [np.load(os.path.join(work, f"sp_{tag}_rank{r}.npy"))[0] for r in range(n)]
+        check(all(np.array_equal(g, want) for g in got), f"spatial {tag}: not the one-process loop bit for bit: "
+              f"{max(float(np.abs(g - want).max()) for g in got)}")
+        png = cv2.cvtColor(cv2.imread(os.path.join(work, f"sp_{tag}.png")), cv2.COLOR_BGR2RGB)
+        check(np.array_equal(png, _png_sr(want)), f"spatial {tag}: the written frame is not the SR's")
+        interior = slice(2 * 16 * 2, -2 * 16 * 2)  # rows away from the frame's reflected edges
+        out[tag] = {"interior_max_abs_vs_unsharded": float(np.abs(got[0][interior] - full[interior]).max()),
+                    "edge_max_abs_vs_unsharded": float(np.abs(got[0] - full).max())}
+    names = sorted(os.listdir(seq))
+    check(sorted(os.listdir(os.path.join(work, "sp_ds"))) == names, "data-shard: files")
+    same = all(np.array_equal(cv2.imread(os.path.join(work, "sp_ds", f)), cv2.imread(os.path.join(work, "sp_seq_out", f)))
+               for f in names)
+    check(same, "--data-shard's files differ from the unsharded run's at the per-rank batch")
+    ds = recs[3:5]
+    check([r["rdb"] for r in ds] == [2 * RDB_PER_FORWARD, RDB_PER_FORWARD], f"data-shard launches {[r['rdb'] for r in ds]}")
+    out["rdb_launches"] = sum(r["rdb"] for r in recs[:5])
+    out["staged"] = [r["staged"] for r in recs[:5]]
+    out["data_shard_frames_per_rank"] = [r["stdout"].split("SR'd ")[1].split(" ")[0] for r in ds]
+    out["job_seconds"] = [round(r["seconds"], 3) for r in recs]
+    check(all(r["rdb"] == RDB_PER_FORWARD for r in recs[:3]), f"spatial launches {[r['rdb'] for r in recs[:3]]}")
+    print(f"spatial_phase ({smi}): bsrgan_x2 {SP_FRAME}x{SP_FRAME} f32 --spatial-shard, NCCL world of one and 2 gloo "
+          f"ranks each bit for bit its one-process loop; against the unsharded forward: interior max abs "
+          f"{ {t: out[t]['interior_max_abs_vs_unsharded'] for t in ('w1', 'w2')} }, with the edges "
+          f"{ {t: out[t]['edge_max_abs_vs_unsharded'] for t in ('w1', 'w2')} }; --data-shard on 2 ranks: 6 files equal "
+          f"to the unsharded run's, frames a rank {out['data_shard_frames_per_rank']}; rdb launches "
+          f"{[r['rdb'] for r in recs]}; staged collectives {out['staged']}; wave {seconds:.1f} s, job seconds "
+          f"{out['job_seconds']}", flush=True)
+    return out
+
+
+def cp_phase(work: str, weights: str, smi: str) -> dict:
+    """``cli.infer --spatial-shard`` of full-width ``bsrgantrans_x2`` (the
+    spread weights, f32) on a CP_FRAME^2 frame on 2 gloo ranks, with
+    ``--cp-backend ring`` and ``ulysses`` at once: each bit for bit the
+    one-process loop of the same algorithm (``forward_shards``); ring
+    against Ulysses held to 1e-4; the unsharded model's max abs printed."""
+    import cv2
+
+    from srganfd_tpu_torch.cli import infer
+    from srganfd_tpu_torch.parallel.spatial import spatial_sr_loop
+
+    frame = write_frames(os.path.join(work, "cp_in"), 1, CP_FRAME, CP_FRAME, seed=73)[0]
+    jobs = []
+    for backend in ("ring", "ulysses"):
+        port = _free_port()
+        argv = ["--model-arch", "bsrgantrans_x2", "--weights", weights, "--spatial-shard", "--cp-backend", backend,
+                "--inputs-path", frame, "--output-path", os.path.join(work, f"cp_{backend}.png")]
+        jobs += [({"cli": "infer", "gloo": True, "argv": argv, "save_sr": os.path.join(work, f"cp_{backend}")},
+                  _group_env(r, 2, port), os.path.join(work, f"cp_job_{backend}")) for r in range(2)]
+    recs, seconds = yield jobs
+    out = {"seconds": seconds}
+    img = cv2.cvtColor(cv2.imread(frame), cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
+    plain = infer.build_model("bsrgantrans_x2", torch.device("cuda"), weights)
+    with torch.inference_mode():
+        full = plain(torch.from_numpy(img)[None].cuda())[0].cpu().numpy()
+    got = {}
+    for i, backend in enumerate(("ring", "ulysses")):
+        kw = {"ring_axis": "data", "ring_halo": 16, "cp_backend": backend}
+        model = infer.build_model("bsrgantrans_x2", torch.device("cuda"), weights, model_kwargs=kw)
+        want = spatial_sr_loop(model, img, 2, 2, halo=16, row_multiple=2, device="cuda", shards_fn=model.forward_shards)
+        got[backend] = [np.load(os.path.join(work, f"cp_{backend}_rank{r}.npy"))[0] for r in range(2)]
+        check(all(np.array_equal(g, want) for g in got[backend]),
+              f"cp {backend}: not the one-process loop bit for bit: {max(float(np.abs(g - want).max()) for g in got[backend])}")
+        interior = slice(2 * 16 * 2, -2 * 16 * 2)
+        out[backend] = {"max_abs_vs_unsharded": float(np.abs(got[backend][0] - full).max()),
+                        "interior_max_abs_vs_unsharded": float(np.abs(got[backend][0][interior] - full[interior]).max()),
+                        "rdb_launches": recs[2 * i]["rdb"] + recs[2 * i + 1]["rdb"],
+                        "flash_launches": recs[2 * i]["flash"] + recs[2 * i + 1]["flash"],
+                        "staged": [recs[2 * i]["staged"], recs[2 * i + 1]["staged"]]}
+        check(out[backend]["rdb_launches"] == 2 * RDB_PER_FORWARD, f"cp {backend}: {out[backend]['rdb_launches']} rdb")
+    ring_vs_ulysses = float(np.abs(got["ring"][0] - got["ulysses"][0]).max())
+    check(ring_vs_ulysses <= 1e-4, f"cp: ring against ulysses {ring_vs_ulysses}")
+    out["ring_vs_ulysses"] = ring_vs_ulysses
+    out["spread"] = float(((full > 0.05) & (full < 0.95)).mean())
+    print(f"cp_phase ({smi}): bsrgantrans_x2 {CP_FRAME}x{CP_FRAME} f32 on 2 gloo ranks, ring and ulysses each bit for "
+          f"bit its one-process loop; ring vs ulysses max abs {ring_vs_ulysses:.3e}; vs the unsharded model "
+          f"{ {b: out[b]['max_abs_vs_unsharded'] for b in ('ring', 'ulysses')} }, interior "
+          f"{ {b: out[b]['interior_max_abs_vs_unsharded'] for b in ('ring', 'ulysses')} } (SR in (0.05, 0.95) at "
+          f"{out['spread']:.2f}); launches (rdb, flash) { {b: (out[b]['rdb_launches'], out[b]['flash_launches']) for b in ('ring', 'ulysses')} };"
+          f" staged collectives { {b: out[b]['staged'] for b in ('ring', 'ulysses')} }; wave {seconds:.1f} s, job "
+          f"seconds {[round(r['seconds'], 1) for r in recs]}", flush=True)
+    return out
+
+
+def serve_spatial_phase(work: str, smi: str) -> dict:
+    """``cli.serve --stdio --spatial-shard`` of full-width ``bsrgan_x2``
+    (seeded, f32) on 2 gloo ranks: 4 requests, the spatial phase's frame
+    and SERVE_SHAPES; every reply ok at 2x, the frames equal to the spatial
+    phase's output (the first) and to the one-process loop (all); the
+    shutdown ends both ranks with exit 0 within the timeout. The ranks also
+    try each collective on a CUDA tensor under gloo (printed)."""
+    import cv2
+
+    from srganfd_tpu_torch.cli import infer
+
+    frames = [os.path.join(work, "sp_in", "frame_000.png")]
+    for i, (h, w) in enumerate(SERVE_SHAPES):
+        frames += write_frames(os.path.join(work, f"ss_in{i}"), 1, h, w, seed=80 + i)
+    outs = [os.path.join(work, "ss_out", f"f{i}.png") for i in range(len(frames))]
+    req = os.path.join(work, "ss_requests.jsonl")
+    with open(req, "w") as f:
+        for i, (a, b) in enumerate(zip(frames, outs)):
+            f.write(json.dumps({"id": i, "input": a, "output": b}) + "\n")
+        f.write('{"cmd": "shutdown"}\n')
+    port = _free_port()
+    jobs = [({"cli": "serve", "gloo": True, "probe": True, "stdin": req,
+              "argv": ["--model-arch", "bsrgan_x2", "--stdio", "--spatial-shard"]},
+             _group_env(r, 2, port), os.path.join(work, "ss_job")) for r in range(2)]
+    recs, seconds = yield jobs
+    replies = [json.loads(ln) for ln in recs[0]["stdout"].splitlines() if ln.startswith("{")]
+    check([r.get("id") for r in replies] == list(range(len(frames))) and all(r["ok"] for r in replies),
+          f"serve_spatial replies {replies}")
+    check(not any(ln.startswith("{") for ln in recs[1]["stdout"].splitlines()), "rank 1 replied")
+    model = infer.build_model("bsrgan_x2", torch.device("cuda"))
+    for i, (frame, out_path) in enumerate(zip(frames, outs)):
+        img = cv2.cvtColor(cv2.imread(frame), cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
+        got = cv2.cvtColor(cv2.imread(out_path), cv2.COLOR_BGR2RGB)
+        check(replies[i]["out_hw"] == [2 * img.shape[0], 2 * img.shape[1]], f"serve_spatial {i}: {replies[i]}")
+        check(np.array_equal(got, _png_sr(_loop_sr(model, img, 2, 16))), f"serve_spatial {i}: not the loop's frame")
+    first = cv2.imread(os.path.join(work, "sp_w2.png"))
+    check(np.array_equal(cv2.imread(outs[0]), first), "serve_spatial: frame 0 is not the spatial phase's")
+    probe = recs[0]["probe"]
+    print(f"serve_spatial_phase ({smi}): cli.serve --stdio --spatial-shard on 2 gloo ranks, {len(frames)} replies "
+          f"equal to the spatial phase's frame and the one-process loop's, both ranks exit 0 after the shutdown in "
+          f"{max(r['seconds'] for r in recs):.1f} s of main (wave {seconds:.1f} s); rdb launches "
+          f"{[r['rdb'] for r in recs]}; staged collectives {[r['staged'] for r in recs]};"
+          f" gloo on CUDA tensors: {probe}", flush=True)
+    return {"seconds": seconds, "rdb_launches": sum(r["rdb"] for r in recs), "staged": [r["staged"] for r in recs],
+            "gloo_cuda": probe, "replies_ms": [r["ms"] for r in replies]}
+
+
+def _wave(phases: dict, label: str) -> dict:
+    """Run the phases' rank jobs all at once: each phase is a generator
+    that yields its jobs and gets back (its records, the wave's seconds),
+    then checks them and returns its result."""
+    jobs = {k: next(g) for k, g in phases.items()}
+    t0 = time.perf_counter()
+    recs = _launch([j for js in jobs.values() for j in js], label)
+    seconds = time.perf_counter() - t0
+    out, i = {}, 0
+    for k, g in phases.items():
+        try:
+            g.send((recs[i:i + len(jobs[k])], seconds))
+            fail(f"{k}: the phase asked for a second wave")
+        except StopIteration as stop:
+            out[k] = stop.value
+        i += len(jobs[k])
+    return out
+
+
+def parallel_phases(work: str, weights: str, smi: str) -> dict:
+    """The five phases of the parallel modes in two waves of concurrent
+    rank processes (inference, then training); their launches and seconds."""
+    t0 = time.perf_counter()
+    res = _wave({"spatial": spatial_phase(work, smi), "cp": cp_phase(work, weights, smi),
+                 "serve_spatial": serve_spatial_phase(work, smi)}, "parallel inference")
+    res.update(_wave({"dp1": dp1_phase(work, smi), "dp2": dp2_phase(work, smi)}, "parallel training"))
+    res["seconds"] = time.perf_counter() - t0
+    res["rdb_launches"] = (sum(res["dp1"][n]["rdb_launches"] for n in DP_CONFIGS)
+                           + sum(res["dp2"][t]["rdb_launches"] for t in DP2_RUNS)
+                           + res["spatial"]["rdb_launches"] + res["cp"]["ring"]["rdb_launches"]
+                           + res["cp"]["ulysses"]["rdb_launches"] + res["serve_spatial"]["rdb_launches"])
+    res["filter2d_launches"] = (sum(res["dp1"][n]["filter2d_launches"] for n in DP_CONFIGS)
+                                + sum(res["dp2"][t]["filter2d_launches"] for t in DP2_RUNS))
+    print(f"parallel phases ({smi}): {res['seconds']:.1f} s; {res['rdb_launches']} rdb and "
+          f"{res['filter2d_launches']} filter2d launches in their ranks", flush=True)
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
+    if sys.argv[1:] == ["--parallel-only"]:  # the parallel phases alone, without the contract's lines
+        sys.path.insert(0, ROOT)
+        from srganfd_tpu_torch.ops.cuda import build
+
+        build.build_all()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout.strip()
+        base = os.path.join(ROOT, "build")
+        os.makedirs(base, exist_ok=True)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_par_", dir=base) as work:
+            res = parallel_phases(work, spread_weights(work), smi)
+        print(json.dumps({"parallel": res}))
+        return
     sys.path.insert(0, ROOT)
     from srganfd_tpu_torch.models import blocks
     from srganfd_tpu_torch.ops import filters
@@ -4746,17 +5399,21 @@ def main() -> None:
         paired_launches, paired, paired_ckpt = paired_train_phase(work, rdb)
         export_launches, exported = export_phase(work, rdb)
         graft_launches, grafts = graft_sources_phase(work, paired_ckpt, rdb)
+        par = parallel_phases(work, weights, smi)
     launches += (trans_launches["rdb"] + trans_infer["rdb"] + train_launches["rdb"] + gan_launches["rdb"]
                  + re_launches + ren_launches["rdb"] + reg_launches["rdb"] + ae_launches["rdb"] + es_launches["rdb"]
                  + sa_launches["rdb"] + ev_launches["rdb"] + http_launches + gen_launches + opt_launches["rdb"]
                  + guard["rdb_launches"] + accum["rdb_launches"] + nans["rdb_launches"]
                  + flash_train["flash"]["rdb_launches"] + flash_train["chunked"]["rdb_launches"]
-                 + paired_launches + export_launches + graft_launches)
+                 + paired_launches + export_launches + graft_launches + par["rdb_launches"])
     check(quant_launches > 0, "the --quant-int8 serving path launched no qconv kernel")
     check(paired_launches > 0 and export_launches > 0, "the paired or exported path launched no rdb_forward kernel")
     qconv_entry["launches"] = quant_launches
     qconv_entry["launches_per_forward"] = QCONV_PER_FORWARD
     entry["paired_launches"] = paired_launches
+    entry["parallel_launches"] = par["rdb_launches"]
+    filter_entry["parallel_launches"] = par["filter2d_launches"]
+    check(par["rdb_launches"] > 0 and par["filter2d_launches"] > 0, "the parallel phases launched no kernel")
     entry["export_launches"] = export_launches
     check(http_launches > 0 and gen_launches > 0, "the HTTP or gen_rrdb2x path launched no rdb_forward kernel")
     flash_launches = trans_launches["flash"] + trans_infer["flash"] + flash_train["flash"]["flash_launches"]
@@ -4796,7 +5453,8 @@ def main() -> None:
     check(opt_launches["filter2d"] > 0 and deg_launches > 0, "the options or degradation CLI path launched no filter2d")
     filter_entry["launches"] = (train_launches["filter2d"] + gan_launches["filter2d"] + ren_launches["filter2d"]
                                 + reg_launches["filter2d"] + ae_launches["filter2d"] + sa_launches["filter2d"]
-                                + ev_launches["filter2d"] + opt_launches["filter2d"] + deg_launches)
+                                + ev_launches["filter2d"] + opt_launches["filter2d"] + deg_launches
+                                + par["filter2d_launches"])
     filter_entry["options_launches"] = opt_launches["filter2d"]
     filter_entry["test_degradations_launches"] = deg_launches
     entry["options_launches"] = opt_launches["rdb"]
@@ -4888,6 +5546,7 @@ def main() -> None:
     print(json.dumps({"options": opt, "preempt": pre, "guard": guard, "accum": accum, "debug_nans": nans,
                       "flash_train": flash_train, "test_degradations": deg}))
     print(json.dumps({"quant_serve": quant_serve, "paired": paired, "export": exported, "graft_sources": grafts}))
+    print(json.dumps({"parallel": par}))
     # rdb_forward_pallas_v2 (whole images per grid cell) computes row 1's
     # function: the port runs both through the one kernel, whose numbers these are
     entry_v2 = {**entry, "name": "rdb_forward (rdb_forward_pallas_v2)", "replaces": "srganfd_tpu/ops/pallas/rdb.py:255",

@@ -37,6 +37,7 @@ from srganfd_tpu_torch.ops.realesrgan_degrade import (
     plan_realesrgan_batch,
     usm_sharp,
 )
+from srganfd_tpu_torch.parallel import comm
 
 __all__ = ["DegradationAdapter"]
 
@@ -63,14 +64,18 @@ class DegradationAdapter:
         self.train = train
         self.device = torch.device(device)
         self.eval_codec = eval_codec
+        self.rank = comm.rank()
 
     def step_rng(self, step: int) -> np.random.Generator:
-        """Degradation randomness keyed by (seed, tag, host, step), as the JAX
-        adapter keys it: stateless, so a run resumed at step N draws the
-        plans the uninterrupted run drew. The tag keeps the key disjoint
-        from ``BatchLoader``'s per-record (seed, batch_no, j) keys. One
-        process, so host 0."""
-        return np.random.default_rng((self.seed, 0xDE64ADE, 0, step))
+        """Degradation randomness keyed by (seed, tag, rank, step), as the
+        JAX adapter keys it by ``jax.process_index()``: stateless, so a run
+        resumed at step N draws the plans the uninterrupted run drew. The
+        tag keeps the key disjoint from ``BatchLoader``'s per-record (seed,
+        batch_no, j) keys. Every draw of a step comes from it (the plans,
+        the crops, the flips and the Real-ESRGAN noise's seed), so under
+        data parallelism each rank degrades its shard with its own draws;
+        rank 0's are the single process's."""
+        return np.random.default_rng((self.seed, 0xDE64ADE, self.rank, step))
 
     def __call__(self, host_batch: dict[str, np.ndarray], step: int) -> dict[str, torch.Tensor]:
         if self.cfg.degradation == "paired":

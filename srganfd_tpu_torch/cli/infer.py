@@ -15,6 +15,20 @@ Usage:
     python -m srganfd_tpu_torch.cli.infer --model-arch bsrgan_x2 --quant-int8 \
         --inputs-path in.png --output-path out.png
 
+Across ranks (one process per GPU, ``torchrun`` or the JAX package's
+``JAX_COORDINATOR_ADDRESS``/``JAX_PROCESS_ID``/``JAX_NUM_PROCESSES``;
+NCCL on the card, gloo with ``--device-type cpu``):
+    torchrun --nproc-per-node 4 -m srganfd_tpu_torch.cli.infer \
+        --model-arch bsrgan_x2 --spatial-shard --inputs-path big.png --output-path sr.png
+    torchrun --nproc-per-node 4 -m srganfd_tpu_torch.cli.infer \
+        --model-arch bsrgantrans_x2 --spatial-shard --cp-backend ulysses ...
+    torchrun --nproc-per-node 4 -m srganfd_tpu_torch.cli.infer \
+        --model-arch bsrgan_x2 --data-shard --batch 8 --inputs-path frames/ --output-path sr/
+``--spatial-shard`` splits one frame's rows over the ranks
+(``parallel/spatial.py``); rank 0 writes the frame. ``--data-shard``
+splits each frame batch; each rank writes its own frames. Without a group
+both run as a world of one.
+
 Runs on ``cuda`` unless ``--device-type cpu`` is given; asking for cuda
 without a visible GPU exits with an error.
 """
@@ -35,28 +49,34 @@ import torch
 from srganfd_tpu_torch.convert import load_generator_weights
 from srganfd_tpu_torch.data.datasets import list_image_files, load_image_rgb
 from srganfd_tpu_torch.models import arch_accepts, create_model
-from srganfd_tpu_torch.models.blocks import ATTN_BACKENDS
-
-# flags of the JAX CLIs whose parts are not ported yet -> the ROADMAP.md
-# item that ports them; using one is an error, never a silent no-op
-UNPORTED_FLAGS = {
-    "spatial_shard": ("--spatial-shard", "A11 (parallel modes)"),
-    "data_shard": ("--data-shard", "A11 (parallel modes)"),
-    "cp_backend": ("--cp-backend", "A11 (parallel modes)"),
-}
+from srganfd_tpu_torch.models.blocks import ATTN_BACKENDS, CP_BACKENDS
+from srganfd_tpu_torch.parallel import comm
+from srganfd_tpu_torch.parallel.mesh import maybe_init_distributed
 
 
-def reject_unported(args: argparse.Namespace) -> None:
-    for dest, (flag, item) in UNPORTED_FLAGS.items():
-        if getattr(args, dest, None):
-            raise SystemExit(f"{flag} is not ported to srganfd_tpu_torch yet: see ROADMAP.md {item}")
+def add_parallel_flags(ap: argparse.ArgumentParser) -> None:
+    """``--spatial-shard`` and ``--cp-backend``, with the JAX CLIs' meaning."""
+    ap.add_argument("--spatial-shard", action="store_true",
+                    help="shard the frame's rows over the ranks of the process group (torchrun), with a "
+                    "halo exchange of --tile-overlap rows; transformer archs (bsrgantrans_x2) run their "
+                    "attention context-parallel over the ranks so every token still attends to the "
+                    "whole frame. One rank without a group")
+    ap.add_argument("--cp-backend", choices=list(CP_BACKENDS), default="ring",
+                    help="--spatial-shard transformer attention: 'ring' (K/V blocks rotate over the ranks, "
+                    "any rank count, O(T_loc^2) scores per hop) or 'ulysses' (head-sharded all-to-all, at "
+                    "most 4 ranks for 4 heads, O(T_glob^2) scores per rank; prefer ring on large frames)")
 
 
-def add_unported_flags(ap: argparse.ArgumentParser) -> None:
-    """The JAX CLIs' flags that this port rejects (see ``UNPORTED_FLAGS``)."""
-    ap.add_argument("--spatial-shard", action="store_true", help="not ported yet")
-    ap.add_argument("--cp-backend", choices=["ring", "ulysses"], default=None,
-                    help="not ported yet")
+def spatial_plan(arch: str, tile_overlap: int, cp_backend: str) -> tuple[int, int, dict]:
+    """(halo, row multiple, model kwargs) of ``--spatial-shard``, as the JAX
+    CLIs derive them: the halo is ``--tile-overlap``; an arch with a
+    transformer bottleneck (it takes ``ring_axis``) runs its attention over
+    the ranks, with the halo rounded up to even and even rows per rank for
+    its stride-2 token grid."""
+    if not arch_accepts(arch, "ring_axis"):
+        return tile_overlap, 1, {}
+    halo = tile_overlap + tile_overlap % 2
+    return halo, 2, {"ring_axis": "data", "ring_halo": halo, "cp_backend": cp_backend}
 
 
 def add_attention_flags(ap: argparse.ArgumentParser) -> None:
@@ -191,15 +211,23 @@ def run_sequence(
     out_dir: str,
     batch: int = 8,
     device: torch.device | str = "cuda",
+    data_shard: bool = False,
 ) -> dict:
     """SR a frame sequence: grouped by shape, batched.
 
     Ragged tails pad by repeating the last frame, so a group sees one
     batch shape. Batches run one after another: decode, forward, copy
     back, encode (the JAX CLI overlaps host and device work; here that
-    waits for a copy stream, ROADMAP.md A3). Returns
-    {"frames": n, "buckets": k}.
-    """
+    waits for a copy stream, ROADMAP.md A3). With ``data_shard``
+    (``--data-shard``) every batch is split over the ranks of the process
+    group: each rank decodes, SRs and writes its ``batch / world`` rows,
+    so the ranks together write the files of the unsharded run; ``batch``
+    must divide by the world. Returns {"frames": n, "buckets": k}, the
+    frames this rank wrote."""
+    n, r = (comm.world(), comm.rank()) if data_shard else (1, 0)
+    if batch % n:
+        raise SystemExit(f"--data-shard: --batch {batch} not divisible by the {n}-device data axis")
+    per_rank = batch // n
     os.makedirs(out_dir, exist_ok=True)
     by_shape: dict[tuple, list[str]] = collections.defaultdict(list)
     for p in paths:
@@ -210,13 +238,17 @@ def run_sequence(
         for _, group in sorted(by_shape.items()):
             for start in range(0, len(group), batch):
                 chunk = group[start : start + batch]
-                imgs = [load_image_rgb(p) for p in chunk]
-                while len(imgs) < batch:
-                    imgs.append(imgs[-1])
-                sr = model(torch.from_numpy(np.stack(imgs)).to(device))[: len(chunk)]
-                for out_img, path in zip(sr.cpu().numpy(), chunk):
+                padded = chunk + [chunk[-1]] * (batch - len(chunk))
+                mine = padded[r * per_rank:(r + 1) * per_rank]
+                # the padding repeats the last frame: write each file once
+                real = max(0, min(per_rank, len(group) - start - r * per_rank))
+                if not real:  # this rank's rows are all padding
+                    continue
+                imgs = [load_image_rgb(p) for p in mine]
+                sr = model(torch.from_numpy(np.stack(imgs)).to(device))
+                for out_img, path in zip(sr[:real].cpu().numpy(), mine[:real]):
                     _write_png(os.path.join(out_dir, os.path.basename(path)), out_img)
-                frames += len(chunk)
+                frames += real
     return {"frames": frames, "buckets": len(by_shape)}
 
 
@@ -249,16 +281,24 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--self-ensemble", action="store_true",
                     help="x8 geometric self-ensemble (4 rotations x flip, averaged "
                     "after inverse mapping), 8x the serving FLOPs")
-    ap.add_argument("--data-shard", action="store_true", help="not ported yet")
+    ap.add_argument("--data-shard", action="store_true",
+                    help="sequence mode: split each frame batch over the ranks of the process group "
+                    "(torchrun); --batch must divide by the rank count")
     add_attention_flags(ap)
     add_quant_flag(ap)
-    add_unported_flags(ap)
+    add_parallel_flags(ap)
     args = ap.parse_args(argv)
-    reject_unported(args)
 
     device = choice_device(args.device)
+    if args.data_shard or args.spatial_shard:
+        maybe_init_distributed(device)
     kwargs = {**quant_kwargs(args.arch, args.quant_int8),
               **attention_kwargs(args.arch, args.attn_chunk, args.attn_backend)}
+    halo, row_multiple = args.tile_overlap, 1
+    spatial = args.spatial_shard and not os.path.isdir(args.inputs)
+    if spatial:
+        halo, row_multiple, cp_kwargs = spatial_plan(args.arch, args.tile_overlap, args.cp_backend)
+        kwargs.update(cp_kwargs)
     model = build_model(args.arch, device, args.weights, args.use_ema, args.half, model_kwargs=kwargs)
     apply_fn = make_apply(model, device)
 
@@ -282,7 +322,8 @@ def main(argv: list[str] | None = None) -> None:
                 f"{args.output} in {dt:.1f}s ({len(frame_paths) / dt:.2f} frames/s)"
             )
             return
-        stats = run_sequence(model, frame_paths, args.output, batch=args.batch, device=device)
+        stats = run_sequence(model, frame_paths, args.output, batch=args.batch, device=device,
+                             data_shard=args.data_shard)
         dt = time.perf_counter() - t0
         print(
             f"SR'd {stats['frames']} frames ({stats['buckets']} shape bucket(s)) "
@@ -291,7 +332,16 @@ def main(argv: list[str] | None = None) -> None:
         return
 
     img = load_image_rgb(args.inputs)
-    if args.tile:
+    if spatial:
+        from srganfd_tpu_torch.parallel.spatial import spatial_sharded_sr
+
+        def run_one(im):
+            return spatial_sharded_sr(model, im, model.upscale, halo=halo, row_multiple=row_multiple, device=device)
+
+        sr = _maybe_ensemble(run_one, img, args.self_ensemble)
+        if comm.rank() != 0:  # every rank holds the whole frame; rank 0 writes it
+            return
+    elif args.tile:
         from srganfd_tpu_torch.parallel.tiled_inference import tiled_sr
 
         def run_one(im):

@@ -39,6 +39,17 @@ Behaviours:
     sizes, which ``--bucket 2`` (or any even bucket) gives.
   - request latency percentiles (p50/p95) are reported on shutdown, by
     ``{"cmd": "stats"}`` and at GET /stats.
+  - ``--spatial-shard [--cp-backend ring|ulysses]`` under ``torchrun``
+    (one process per GPU): each frame's rows shard over the ranks
+    (``parallel/spatial.py``), the transformer archs' attention running
+    over all of them. Rank 0 owns the transport and sends each frame's
+    shape and pixels to the others, which loop on them
+    (``ServingEngine.follow``). While no frame comes, rank 0 sends an empty
+    header every ``KEEPALIVE_S`` seconds, so that the others, waiting in a
+    collective, never reach the group's timeout. Its shutdown, or a
+    SIGTERM that reached any rank (sent to rank 0 with the next header),
+    releases every rank.
+    Exclusive with ``--tile``, as in JAX.
 
 Overload limits (HTTP transport):
   - POST bodies above ``--max-body-mb`` (default 64) get 413 before the
@@ -73,18 +84,25 @@ import torch
 
 from srganfd_tpu_torch.cli.infer import (
     add_attention_flags,
+    add_parallel_flags,
     add_quant_flag,
-    add_unported_flags,
     attention_kwargs,
     build_model,
     choice_device,
     make_apply,
     quant_kwargs,
-    reject_unported,
+    spatial_plan,
 )
 from srganfd_tpu_torch.data.datasets import list_image_files, load_image_rgb
+from srganfd_tpu_torch.parallel import comm
+from srganfd_tpu_torch.parallel.mesh import maybe_init_distributed
 
 __all__ = ["ServingEngine", "OverloadedError", "serve_stdio", "serve_watch", "serve_http", "main"]
+
+# --spatial-shard: seconds between rank 0's empty headers while the
+# transport is idle, well inside the group's timeout (parallel/mesh.py
+# INIT_TIMEOUT_S, 300 s), which ends a collective that waits longer
+KEEPALIVE_S = 30.0
 
 
 def _pad_to_multiple(img: np.ndarray, mult: int) -> tuple[np.ndarray, int, int]:
@@ -149,12 +167,33 @@ class ServingEngine:
         model_kwargs: dict | None = None,
         device: str = "cuda",
         seed: int = 0,
+        spatial_shard: bool = False,
+        cp_backend: str = "ring",
     ) -> None:
+        if spatial_shard and tile:
+            raise ValueError("--spatial-shard and --tile are mutually exclusive")
         self.device = choice_device(device)
+        self.spatial = bool(spatial_shard)
+        if self.spatial:
+            maybe_init_distributed(self.device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         kwargs = {**quant_kwargs(arch, quant_int8), **attention_kwargs(arch, attn_chunk, attn_backend),
                   **(model_kwargs or {})}
+        # each frame's rows shard over the ranks with a halo exchange
+        # (parallel/spatial.py), the serving form of infer --spatial-shard
+        self._halo, self._row_multiple, cp_kwargs = spatial_plan(arch, int(tile_overlap), cp_backend)
+        if self.spatial:
+            kwargs.update(cp_kwargs)
+        self.rank, self.world = comm.rank(), comm.world()
+        # the frames' header and pixels travel on the card under NCCL and
+        # through host memory under gloo, where they come from anyway
+        self._wire = self.device if comm.backend() == "nccl" else torch.device("cpu")
+        self.peer_stop = False  # a rank other than 0 asked to drain (its SIGTERM)
+        self.stop_flag = False  # this rank's own drain request, sent with the next header
+        # rank 0: one header and its frame at a time (the keep-alive thread sends headers too)
+        self._wire_lock = threading.Lock()
+        self._closed = threading.Event()
         self.model = build_model(
             arch, self.device, weights, use_ema, half, model_kwargs=kwargs, seed=seed
         )
@@ -173,6 +212,10 @@ class ServingEngine:
         self.latencies_ms: list[float] = []
         self._shapes: set[tuple[int, int]] = set()
         self.stats_lock = threading.Lock()
+        self._keepalive = None
+        if self.spatial and self.world > 1 and self.rank == 0:
+            self._keepalive = threading.Thread(target=self._keep_alive, daemon=True)
+            self._keepalive.start()
 
     # -- core -------------------------------------------------------------
     def use_device(self) -> None:
@@ -182,13 +225,89 @@ class ServingEngine:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
 
+    def _spatial_sr(self, padded: np.ndarray) -> np.ndarray:
+        """The sharded forward of one frame, which every rank runs."""
+        from srganfd_tpu_torch.parallel.spatial import spatial_sharded_sr
+
+        run_one = lambda im: spatial_sharded_sr(  # noqa: E731
+            self.model, im, self.upscale, halo=self._halo, row_multiple=self._row_multiple, device=self.device)
+        if self.self_ensemble:
+            from srganfd_tpu_torch.ops.self_ensemble import self_ensemble
+
+            return self_ensemble(run_one, padded)
+        return run_one(padded)
+
+    def _header(self, cmd: int, h: int = 0, w: int = 0) -> tuple[int, int, int]:
+        """One header over the ranks: rank 0 gives (cmd, h, w) with cmd 1
+        for a frame, 2 for none (the keep-alive) and 0 to stop, the others
+        zeros; every rank adds its drain request. An all-reduce of the max,
+        so a SIGTERM that reached any rank reaches rank 0 with the next
+        header."""
+        t = torch.tensor([cmd, h, w, int(self.stop_flag)], dtype=torch.int64, device=self._wire)
+        got = [int(v) for v in comm.all_reduce(t, "max").tolist()]
+        self.peer_stop = self.peer_stop or bool(got[3])
+        return got[0], got[1], got[2]
+
+    def _frame(self, padded: np.ndarray | None, h: int, w: int) -> np.ndarray:
+        """Rank 0's padded frame on every rank (a broadcast of its pixels)."""
+        buf = torch.empty((h, w, 3), dtype=torch.float32, device=self._wire)
+        if self.rank == 0:
+            buf.copy_(torch.from_numpy(np.ascontiguousarray(padded, np.float32)))
+        return comm.broadcast(buf, 0).cpu().numpy()
+
+    def _keep_alive(self) -> None:
+        """Rank 0's thread: an empty header every ``KEEPALIVE_S`` seconds
+        until :meth:`close`, so that the ranks in :meth:`follow` wait for
+        the next frame in collectives that each end within the group's
+        timeout."""
+        self.use_device()
+        while not self._closed.wait(KEEPALIVE_S):
+            with self._wire_lock:
+                if self._closed.is_set():
+                    return
+                self._header(2)
+
+    def follow(self) -> None:
+        """The serving loop of a rank other than 0 under ``--spatial-shard``:
+        take each frame rank 0 sends, run its shard, until rank 0 sends the
+        stop. A failed forward is rank 0's to answer; this rank goes on to
+        the next frame."""
+        self.use_device()
+        while True:
+            cmd, h, w = self._header(0)
+            if cmd == 0:
+                return
+            if cmd == 2:  # rank 0's keep-alive: no frame
+                continue
+            frame = self._frame(None, h, w)
+            try:
+                self._spatial_sr(frame)
+            except Exception as e:  # noqa: BLE001 - rank 0 answers the request
+                print(f"rank {self.rank}: frame failed: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
+
+    def close(self) -> None:
+        """Rank 0 stops its keep-alive and releases the ranks that
+        ``follow`` (a no-op otherwise, and when called again)."""
+        if self._keepalive is None or self._closed.is_set():
+            return
+        self._closed.set()
+        with self._wire_lock:
+            self._header(0)
+        self._keepalive.join()
+
     def sr_array(self, img: np.ndarray) -> np.ndarray:
         """float32 HWC [0,1] -> SR HWC [0,1]; pads to the bucket, crops
         back to ``upscale * true_size``."""
         padded, h, w = _pad_to_multiple(img, self.bucket)
         with self.stats_lock:
             self._shapes.add(padded.shape[:2])
-        if self.tile:
+        if self.spatial:
+            with self._wire_lock:
+                if self.world > 1:  # the other ranks wait in follow() for this frame
+                    self._header(1, *padded.shape[:2])
+                    padded = self._frame(padded, *padded.shape[:2])
+                sr = self._spatial_sr(padded)
+        elif self.tile:
             from srganfd_tpu_torch.parallel.tiled_inference import tiled_sr
 
             run_one = lambda im: tiled_sr(
@@ -216,7 +335,7 @@ class ServingEngine:
         ``self.batch`` rows. Per-frame modes (tile / self-ensemble) and
         ``batch <= 1`` go through ``sr_array``.
         """
-        per_frame = (self.batch != "auto" and self.batch <= 1) or self.tile or self.self_ensemble
+        per_frame = (self.batch != "auto" and self.batch <= 1) or self.tile or self.self_ensemble or self.spatial
         if per_frame:
             return [self.sr_array(im) for im in imgs]
         padded = [_pad_to_multiple(im, self.bucket) for im in imgs]
@@ -341,11 +460,15 @@ class ServingEngine:
 # -- transports -----------------------------------------------------------
 
 
-def serve_stdio(engine: ServingEngine, inp=None, out=None) -> None:
-    """JSONL request/reply loop; injectable streams for tests."""
+def serve_stdio(engine: ServingEngine, inp=None, out=None, should_stop=None) -> None:
+    """JSONL request/reply loop; injectable streams for tests.
+    ``should_stop``, asked before each line, ends the loop early (another
+    rank's drain under ``--spatial-shard``)."""
     inp = inp if inp is not None else sys.stdin
     out = out if out is not None else sys.stdout
     for line in inp:
+        if should_stop is not None and should_stop():
+            break
         line = line.strip()
         if not line:
             continue
@@ -669,9 +792,8 @@ def main(argv: list[str] | None = None) -> None:
                     "overflow requests get 503 + Retry-After")
     add_attention_flags(ap)
     add_quant_flag(ap)
-    add_unported_flags(ap)
+    add_parallel_flags(ap)
     args = ap.parse_args(argv)
-    reject_unported(args)
     if args.watch and not args.output:
         ap.error("--watch requires --output")
 
@@ -679,18 +801,18 @@ def main(argv: list[str] | None = None) -> None:
         args.arch, weights=args.weights, use_ema=args.use_ema, half=args.half,
         quant_int8=args.quant_int8, self_ensemble=args.self_ensemble, tile=args.tile, tile_overlap=args.tile_overlap,
         bucket=args.bucket, batch=args.batch, attn_chunk=args.attn_chunk,
-        attn_backend=args.attn_backend, device=args.device,
+        attn_backend=args.attn_backend, device=args.device, spatial_shard=args.spatial_shard,
+        cp_backend=args.cp_backend,
     )
-    if args.warmup:
-        shapes = [tuple(int(v) for v in s.split("x")) for s in args.warmup.split(",")]
-        engine.warmup(shapes)
 
     # graceful drain: SIGTERM finishes the in-flight frame, then the loop
-    # exits and final stats land on stderr
+    # exits and final stats land on stderr. Under --spatial-shard a rank
+    # other than 0 sends its request to rank 0 with the next frame, and
+    # rank 0's stop releases every rank
     stop = {"flag": False}
 
     def _stop(signum, frame):  # pragma: no cover - signal path
-        stop["flag"] = True
+        stop["flag"] = engine.stop_flag = True
         print(f"signal {signum}: draining", file=sys.stderr, flush=True)
 
     import signal as _signal
@@ -700,22 +822,30 @@ def main(argv: list[str] | None = None) -> None:
     except ValueError:  # not the main thread
         pass
 
+    if engine.spatial and engine.rank != 0:  # rank 0 owns the transport
+        engine.follow()
+        return
+    should_stop = lambda: stop["flag"] or engine.peer_stop  # noqa: E731
     try:
+        if args.warmup:
+            shapes = [tuple(int(v) for v in s.split("x")) for s in args.warmup.split(",")]
+            engine.warmup(shapes)
         if args.stdio:
-            serve_stdio(engine)
+            serve_stdio(engine, should_stop=lambda: engine.peer_stop)
         elif args.watch:
             serve_watch(
                 engine, args.watch, args.output, poll_s=args.poll_interval,
-                once=args.once, should_stop=lambda: stop["flag"],
+                once=args.once, should_stop=should_stop,
             )
         else:
             serve_http(
                 engine, args.port,
                 max_body_bytes=args.max_body_mb * 1024 * 1024,
                 max_queue=args.max_queue,
-                should_stop=lambda: stop["flag"],
+                should_stop=should_stop,
             )
     finally:
+        engine.close()
         print(json.dumps({"final_stats": engine.stats()}), file=sys.stderr, flush=True)
 
 

@@ -36,6 +36,20 @@ results/train_RRDBNet_x4/ckpt_last.pth``.
 Usage:
     python -m srganfd_tpu_torch.cli.train --config bsrgan \
         --train-dir data/train --valid-dir data/valid [--epochs N] [--device-type cpu]
+    torchrun --nproc-per-node 4 -m srganfd_tpu_torch.cli.train --config bsrgan ...
+
+Data parallelism: under ``torchrun`` (or the JAX package's coordinator
+triple, ``parallel/mesh.py``) every rank joins the group first (NCCL on
+the card, gloo with ``--device-type cpu``), reads its shard of the file
+lists, degrades it with its own rank-keyed draws and steps on
+``--batch-size`` frames, so the global batch is ``batch_size x world``;
+the trainer averages the gradients and takes BatchNorm's statistics and
+the relativistic means over the global batch (``train/loop.py``). Each
+rank validates its own shard; only rank 0 writes the tracker, the
+checkpoints and the best-model selection's files. ``--resume`` and the
+pretrained grafts load on every rank. A SIGTERM that reaches any rank
+preempts them all at the same step (``FlagConsensus``), after rank 0's
+snapshot.
 
 A run is step-exact: the loader is seekable, the degradation plans are
 keyed by the global step, and a checkpoint holds G, EMA-G, D (with its
@@ -82,6 +96,8 @@ from srganfd_tpu_torch.data.datasets import (
 from srganfd_tpu_torch.losses.lpips import Lpips
 from srganfd_tpu_torch.metrics.psnr_ssim import psnr_tensor, ssim_tensor
 from srganfd_tpu_torch.models import check_ported
+from srganfd_tpu_torch.parallel import comm
+from srganfd_tpu_torch.parallel.mesh import FlagConsensus, maybe_init_distributed
 from srganfd_tpu_torch.track.tracker import Tracker
 from srganfd_tpu_torch.train import checkpoint as ckpt
 from srganfd_tpu_torch.train.loop import Trainer
@@ -275,8 +291,19 @@ def _run_train_body(
 ) -> dict:
     _reject_unported_env()
     device = torch.device(device)
+    # first, as in JAX: the rank's card is made current before anything
+    # builds or launches a kernel
+    maybe_init_distributed(device)
+    world, is_main = comm.world(), comm.rank() == 0
+    if world > 1:
+        print(f"data parallel: rank {comm.rank()} of {world} ({comm.backend()}), {cfg.batch_size} frames a "
+              f"rank, global batch {cfg.batch_size * world}", flush=True)
     train_ds, valid_ds = build_datasets(cfg)
     spe = steps_per_epoch or cfg.steps_per_epoch or max(1, len(train_ds) // cfg.batch_size)
+    if world > 1 and not (steps_per_epoch or cfg.steps_per_epoch):
+        # each rank counts its own shard's files; every rank must take the
+        # same number of steps, or one waits forever in the next collective
+        spe = int(comm.all_reduce(torch.tensor([spe], device=device), "min").item())
 
     trainer = Trainer(cfg, steps_per_epoch=spe, device=device)
     train_adapter = DegradationAdapter(cfg, seed=cfg.seed, train=True, device=device)
@@ -321,24 +348,39 @@ def _run_train_body(
     global_step = start_step
     epoch = start_epoch
     last_metrics: dict[str, torch.Tensor] = {}
+    # every rank runs the steps and validates its own shard; only rank 0
+    # writes: the tracker, the checkpoints and the best-model selection's files
     tracker = Tracker(cfg.experience_name or cfg.exp_name or cfg.name, cfg.run_name, cfg.run_id,
-                      samples_dir=cfg.samples_dir, tags=cfg.tags or None, description=cfg.description)
-    writer = ckpt.AsyncCheckpointWriter() if async_ckpt else None
+                      samples_dir=cfg.samples_dir, tags=cfg.tags or None, description=cfg.description,
+                      enabled=is_main)
+    writer = ckpt.AsyncCheckpointWriter() if async_ckpt and is_main else None
 
     def save_snapshot(*args, **kw) -> None:
-        (writer.save if writer is not None else ckpt.save_checkpoint)(*args, **kw)
+        if is_main:
+            (writer.save if writer is not None else ckpt.save_checkpoint)(*args, **kw)
 
     def flush_snapshots() -> None:
         if writer is not None:
             writer.wait()
 
+    # a SIGTERM may reach some ranks only, and the step is a collective: the
+    # ranks agree on it through FlagConsensus (one poll late), polled by all
+    # at the same points, and wait for rank 0's snapshot before they exit
+    consensus = FlagConsensus() if world > 1 else None
+
+    def preempt_signum() -> int:
+        return consensus.poll(_PREEMPT["signum"]) if consensus is not None else _PREEMPT["signum"]
+
     def preempt_exit_if_requested() -> None:
-        sig = _PREEMPT["signum"]
+        sig = preempt_signum()
         if not sig:
             return
         save_snapshot(ckpt_dir, state, epoch, best, is_best=False, name="ckpt_preempt")
         flush_snapshots()  # about to exit: the snapshot must be on disk
-        print(f"preemption checkpoint written at step {state.step}; exiting", flush=True)
+        if is_main:
+            print(f"preemption checkpoint written at step {state.step}; exiting", flush=True)
+        if consensus is not None:
+            consensus.barrier()
         raise SystemExit(128 + sig)
 
     nan_check = contextlib.nullcontext()

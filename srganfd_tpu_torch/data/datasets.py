@@ -24,6 +24,7 @@ import numpy as np
 
 from srganfd_tpu_torch.ops.augment import center_crop_np, random_crop_np, random_rotate_flip_np
 from srganfd_tpu_torch.ops.realesrgan_degrade import sample_kernel_triple
+from srganfd_tpu_torch.parallel import comm
 
 __all__ = [
     "IMAGE_EXTS", "list_image_files", "load_image_rgb", "TrainValidImageDataset", "TestImageDataset",
@@ -45,11 +46,14 @@ def list_image_files(directory: str, shard: tuple[int, int] | None = None) -> li
 
 
 def _resolve_shard(shard: tuple[int, int] | str | None) -> tuple[int, int] | None:
-    """``"auto"``: this process's shard, the whole list in the port's one
-    process (the JAX package splits by ``jax.process_index()`` across
-    hosts, which the port does not run: ROADMAP.md A11); tuples and None
-    pass through."""
-    return None if shard == "auto" else shard
+    """``"auto"``: this rank's shard ``(rank, world)`` under data
+    parallelism, the whole list (None) in a world of one, as the JAX
+    package splits by ``(jax.process_index(), jax.process_count())``;
+    tuples and None pass through."""
+    if shard == "auto":
+        count = comm.world()
+        return (comm.rank(), count) if count > 1 else None
+    return shard
 
 
 def load_image_rgb(path: str) -> np.ndarray:
@@ -67,11 +71,12 @@ class TrainValidImageDataset:
     float32 records ``{"gt": (crop, crop, 3)}``."""
 
     def __init__(
-        self, gt_images_dir: str, gt_image_size: int, mode: str = "Train", crop_image_size: int = 0
+        self, gt_images_dir: str, gt_image_size: int, mode: str = "Train", crop_image_size: int = 0,
+        shard: tuple[int, int] | str | None = "auto",
     ) -> None:
         if mode not in ("Train", "Valid"):
             raise ValueError(f"mode must be 'Train' or 'Valid', got {mode!r}")
-        self.paths = list_image_files(gt_images_dir)
+        self.paths = list_image_files(gt_images_dir, _resolve_shard(shard))
         if not self.paths:
             raise FileNotFoundError(f"no images in {gt_images_dir}")
         self.gt_image_size = gt_image_size

@@ -31,12 +31,15 @@ from srganfd_tpu_torch.ops.cuda.attention import flash_attention, flash_attentio
 from srganfd_tpu_torch.ops.cuda.qconv import pack_qconv_weights
 from srganfd_tpu_torch.ops.cuda.rdb import lrelu, pack_rdb_weights, rdb_apply, rdb_forward_op
 from srganfd_tpu_torch.ops.quant import qconv2d_prequantized, quantize_symmetric
+from srganfd_tpu_torch.parallel import comm
+from srganfd_tpu_torch.parallel.ring_attention import ring_attention, ring_attention_loop
+from srganfd_tpu_torch.parallel.ulysses import ulysses_attention, ulysses_attention_loop
 
 __all__ = [
     "lrelu", "out_dtype", "Conv", "init_lecun_normal", "BatchNorm", "SNConv", "ResidualDenseBlock", "RRDB", "make_trunk", "init_kaiming_x01",
     "pixel_unshuffle",
     "ATTN_BACKENDS", "attention_backend", "chunked_attention", "large_attention",
-    "dot_product_attention", "TransformerEncoderLayer", "TokenSelfAttention",
+    "dot_product_attention", "CP_BACKENDS", "check_cp_backend", "TransformerEncoderLayer", "TokenSelfAttention",
 ]
 
 
@@ -113,7 +116,11 @@ class BatchNorm(nn.Module):
     ``nn.BatchNorm2d`` and ``F.batch_norm(training=True)`` differ: both
     write the unbiased running variance (n/(n-1) times the batch's), and on
     every training call. Parameters and buffers take the reference's names:
-    ``weight``, ``bias``, ``running_mean``, ``running_var``."""
+    ``weight``, ``bias``, ``running_mean``, ``running_var``.
+
+    Under data parallelism the batch statistics are the global batch's
+    (:meth:`_batch_moments`); the running variance is the biased one, so
+    there is no n/(n-1) to take over the global count."""
 
     momentum = 0.9
     eps = 1e-5
@@ -125,6 +132,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
+    @staticmethod
+    def _batch_moments(xs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """E[x] and E[x^2] per channel over the global batch. In a world of
+        one, the local means. Under data parallelism the JAX step's batch
+        is the global one, so the sums, sums of squares and counts of every
+        rank are all-reduced, differentiably: each rank's backward then
+        carries every rank's share of the statistics' gradient."""
+        if comm.world() == 1:
+            return xs.mean((0, 2, 3)), (xs * xs).mean((0, 2, 3))
+        count = torch.full((1,), xs.numel() // xs.shape[1], dtype=xs.dtype, device=xs.device)
+        total = comm.all_reduce_sum_grad(torch.cat([xs.sum((0, 2, 3)), (xs * xs).sum((0, 2, 3)), count]))
+        c = xs.shape[1]
+        return total[:c] / total[-1], total[c:2 * c] / total[-1]
+
     def forward(self, x: torch.Tensor, update_stats: bool = False, train: bool = True) -> torch.Tensor:
         acc = torch.promote_types(x.dtype, torch.float32)
         xs = x.to(acc)
@@ -133,9 +154,9 @@ class BatchNorm(nn.Module):
                 raise ValueError("BatchNorm: update_stats needs train=True (eval mode has no batch statistics)")
             mean, var = self.running_mean.to(acc), self.running_var.to(acc)
         else:
-            mean = xs.mean((0, 2, 3))
-                # max(0, .) as jnp.maximum: half the gradient at a tie (a constant channel)
-            var = torch.maximum((xs * xs).mean((0, 2, 3)) - mean * mean, torch.zeros((), dtype=acc))
+            mean, mean_sq = self._batch_moments(xs)
+            # max(0, .) as jnp.maximum: half the gradient at a tie (a constant channel)
+            var = torch.maximum(mean_sq - mean * mean, torch.zeros((), dtype=acc))
         if update_stats:
             with torch.no_grad():
                 for buf, batch in ((self.running_mean, mean), (self.running_var, var)):
@@ -441,37 +462,75 @@ class SelfAttention(nn.Module):
     (3C, C) stacks the q, k, v projections, each with its output features
     head-major (feature h * D + d), and ``out_proj`` maps the H * D features
     back to C. The attention itself is full softmax when ``attn_chunk`` is 0,
-    else ``large_attention`` through ``backend``."""
+    else ``large_attention`` through ``backend``. With ``cp_backend`` set
+    (``"ring"`` or ``"ulysses"``) the token axis is sharded over the ranks
+    and the attention is ``parallel/ring_attention.py`` or
+    ``parallel/ulysses.py`` over them, ``kv_valid`` masking this rank's keys;
+    ``attn_chunk`` and ``backend`` are then not read, as the JAX layer's
+    branch order has it."""
 
-    def __init__(self, d_model: int, nhead: int, attn_chunk: int, backend: str) -> None:
+    def __init__(self, d_model: int, nhead: int, attn_chunk: int, backend: str, cp_backend: str | None = None) -> None:
         super().__init__()
         if d_model % nhead:
             raise ValueError(f"d_model {d_model} is not divisible by {nhead} heads")
-        self.nhead, self.attn_chunk, self.backend = nhead, attn_chunk, backend
+        self.nhead, self.attn_chunk, self.backend, self.cp_backend = nhead, attn_chunk, backend, cp_backend
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
         self.out_proj = Linear(d_model, d_model)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, t, c = x.shape
+    def _qkv(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        n, t, _ = x.shape
         qkv = _linear(x, self.in_proj_weight, self.in_proj_bias).view(n, t, 3, self.nhead, -1)
-        q, k, v = qkv.unbind(2)  # strided (N, T, H, D) views, D contiguous
-        if self.attn_chunk:
+        return qkv.unbind(2)  # strided (N, T, H, D) views, D contiguous
+
+    def _out(self, out: torch.Tensor) -> torch.Tensor:
+        n, t = out.shape[:2]
+        return self.out_proj(out.reshape(n, t, -1))
+
+    def forward(self, x: torch.Tensor, kv_valid: torch.Tensor | None = None) -> torch.Tensor:
+        q, k, v = self._qkv(x)
+        if self.cp_backend == "ulysses":
+            out = ulysses_attention(q, k, v, kv_valid)
+        elif self.cp_backend == "ring":
+            out = ring_attention(q, k, v, kv_valid)
+        elif self.attn_chunk:
             out = large_attention(q, k, v, self.attn_chunk, self.backend)
         else:
             out = dot_product_attention(q, k, v)
-        return self.out_proj(out.reshape(n, t, c))
+        return self._out(out)
+
+    def forward_shards(self, xs: list[torch.Tensor], kv_valid: list[torch.Tensor]) -> list[torch.Tensor]:
+        """The context-parallel forward of every rank's tokens in one process
+        (``ring_attention_loop`` or ``ulysses_attention_loop``, no collective)."""
+        qkv = [self._qkv(x) for x in xs]
+        loop = ulysses_attention_loop if self.cp_backend == "ulysses" else ring_attention_loop
+        outs = loop([t[0] for t in qkv], [t[1] for t in qkv], [t[2] for t in qkv], kv_valid)
+        return [self._out(o) for o in outs]
+
+
+CP_BACKENDS = ("ring", "ulysses")
+
+
+def check_cp_backend(name: str) -> str:
+    """A typo must not run ring attention silently (the JAX layer's check)."""
+    if name not in CP_BACKENDS:
+        raise ValueError(f"unknown cp_backend {name!r}: expected 'ring' or 'ulysses'")
+    return name
 
 
 class TransformerEncoderLayer(nn.Module):
     """torch ``nn.TransformerEncoderLayer`` defaults as the JAX layer runs
-    them in eval and without ``ring_axis`` (``blocks.py:563-627``): post-LN,
-    multi-head self-attention, ReLU feed-forward of ``dim_feedforward``
-    units, dropout off. ``attn_chunk`` > 0 runs the attention exactly in
-    query chunks through ``attn_backend`` (``"chunked"`` or ``"flash"``;
-    None reads ``$SRGANFD_ATTN_BACKEND``, else ``"chunked"``). Takes and
-    returns (N, T, C) in the compute dtype; parameters are f32 and named as
-    torch's layer names them."""
+    them in eval (``blocks.py:563-627``): post-LN, multi-head
+    self-attention, ReLU feed-forward of ``dim_feedforward`` units, dropout
+    off. ``attn_chunk`` > 0 runs the attention exactly in query chunks
+    through ``attn_backend`` (``"chunked"`` or ``"flash"``; None reads
+    ``$SRGANFD_ATTN_BACKEND``, else ``"chunked"``). ``ring_axis="data"``
+    shards the token axis over the ranks, the attention running as
+    ``cp_backend`` (``"ring"`` or ``"ulysses"``; another name raises), with
+    ``kv_valid`` this rank's key mask; it then ignores ``attn_chunk`` and
+    ``attn_backend``, as the JAX layer does. Takes and returns (N, T, C) in
+    the compute dtype; parameters are f32 and named as torch's layer names
+    them."""
 
     def __init__(
         self,
@@ -480,9 +539,16 @@ class TransformerEncoderLayer(nn.Module):
         dim_feedforward: int = 2048,
         attn_chunk: int = 0,
         attn_backend: str | None = None,
+        ring_axis: str | None = None,
+        cp_backend: str = "ring",
     ) -> None:
         super().__init__()
-        self.self_attn = SelfAttention(d_model, nhead, attn_chunk, attention_backend(attn_backend))
+        cp = None
+        if ring_axis is not None:
+            if ring_axis != "data":
+                raise ValueError(f"ring_axis {ring_axis!r}: the port's one mesh axis is 'data' (ROADMAP.md A11)")
+            cp = check_cp_backend(cp_backend)
+        self.self_attn = SelfAttention(d_model, nhead, attn_chunk, attention_backend(attn_backend), cp)
         self.linear1 = Linear(d_model, dim_feedforward)
         self.linear2 = Linear(dim_feedforward, d_model)
         self.norm1 = LayerNorm(d_model)
@@ -501,10 +567,16 @@ class TransformerEncoderLayer(nn.Module):
             self.norm1.weight.fill_(1.0)
             self.norm2.weight.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(x + self.self_attn(x))
-        y = self.linear2(F.relu(self.linear1(x)))
-        return self.norm2(x + y)
+    def _rest(self, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+        x = self.norm1(x + attn)
+        return self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+
+    def forward(self, x: torch.Tensor, kv_valid: torch.Tensor | None = None) -> torch.Tensor:
+        return self._rest(x, self.self_attn(x, kv_valid))
+
+    def forward_shards(self, xs: list[torch.Tensor], kv_valid: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Every rank's ``forward`` of the context-parallel layer in one process."""
+        return [self._rest(x, a) for x, a in zip(xs, self.self_attn.forward_shards(xs, kv_valid))]
 
 
 class TokenSelfAttention(nn.Module):

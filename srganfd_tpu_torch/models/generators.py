@@ -98,9 +98,24 @@ class RRDBNet(nn.Module):
         return int(math.log2(upscale_factor)) if upscale_factor > 1 else 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out1 = self._head(x)
+        return self._tail(out1, self._bottleneck(self.trunk(out1)))
+
+    def forward_shards(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
+        """``forward`` of every rank's shard under ``--spatial-shard``, in one
+        process: the shards meet only in the bottleneck (the
+        context-parallel attention of ``BSRGANtrans``), run here by a loop
+        with no collective. The plain version of the sharded forward."""
+        out1 = [self._head(x) for x in xs]
+        mids = self._bottleneck_shards([self.trunk(o) for o in out1])
+        return [self._tail(o, m) for o, m in zip(out1, mids)]
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        out1 = self.conv1(x)
-        out = out1 + self.conv2(self._bottleneck(self.trunk(out1)))
+        return self.conv1(x)
+
+    def _tail(self, out1: torch.Tensor, mid: torch.Tensor) -> torch.Tensor:
+        out = out1 + self.conv2(mid)
         for i in range(self.num_upsample):
             out = lrelu(getattr(self, f"upsampling{i + 1}")(upsample_nearest(out, 2)))
         out = lrelu(self.conv3(out))
@@ -110,6 +125,9 @@ class RRDBNet(nn.Module):
     def _bottleneck(self, x: torch.Tensor) -> torch.Tensor:
         """What runs between the trunk and ``conv2``: nothing here."""
         return x
+
+    def _bottleneck_shards(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
+        return [self._bottleneck(x) for x in xs]
 
 
 class BSRGAN(RRDBNet):
@@ -124,6 +142,15 @@ class BSRGAN(RRDBNet):
         return 2 if upscale_factor == 4 else 1
 
 
+class _EncoderStack(nn.Sequential):
+    """The encoder layers in order, each given the same key mask."""
+
+    def forward(self, x: torch.Tensor, kv_valid: torch.Tensor | None = None) -> torch.Tensor:
+        for layer in self:
+            x = layer(x, kv_valid)
+        return x
+
+
 class BSRGANtrans(BSRGAN):
     """BSRGAN with a transformer bottleneck: after the trunk, lrelu(stride-2
     conv), 2 encoder layers (d_model = channels, 4 heads, FFN 2048) over the
@@ -132,13 +159,25 @@ class BSRGANtrans(BSRGAN):
     ``attn_chunk`` > 0 runs it exactly in query chunks through
     ``attn_backend`` (``"chunked"`` or ``"flash"``, the hand-written kernel).
     H and W must be even: the stride-2 conv and the x2 upsample must give
-    back conv1's size."""
+    back conv1's size.
+
+    ``ring_axis="data"`` / ``ring_halo`` / ``cp_backend``: context-parallel
+    serving under ``--spatial-shard``. Each rank holds a slice of the
+    frame's rows with ``ring_halo`` halo rows on each side; the attention
+    runs over every rank's tokens (``"ring"`` or ``"ulysses"``), and the
+    tokens of the ``ring_halo // 2`` halo rows of the stride-2 grid, copies
+    of a neighbour's interior tokens, are masked out of the keys
+    (``kv_valid``, JAX ``generators.py:186-197``). ``ring_halo`` and each
+    rank's row count must be even."""
 
     def __init__(
         self,
         *,
         attn_chunk: int = 0,
         attn_backend: str | None = None,
+        ring_axis: str | None = None,
+        ring_halo: int = 0,
+        cp_backend: str = "ring",
         quant: bool = False,
         device: Any = None,
         generator: torch.Generator | None = None,
@@ -146,9 +185,10 @@ class BSRGANtrans(BSRGAN):
     ) -> None:
         super().__init__(generator=generator, quant=quant, **kwargs)
         c = self.conv1.out_channels
+        self.ring_axis, self.ring_halo = ring_axis, int(ring_halo)
         self.down_conv = Conv(c, c, stride=2)
-        self.transformer = nn.Sequential(*[
-            TransformerEncoderLayer(c, 4, 2048, attn_chunk, attn_backend) for _ in range(2)
+        self.transformer = _EncoderStack(*[
+            TransformerEncoderLayer(c, 4, 2048, attn_chunk, attn_backend, ring_axis, cp_backend) for _ in range(2)
         ])
         self.up_conv = Conv(c, c)
         for conv in (self.down_conv, self.up_conv):
@@ -167,12 +207,37 @@ class BSRGANtrans(BSRGAN):
             )
         return super().forward(x)
 
-    def _bottleneck(self, x: torch.Tensor) -> torch.Tensor:
+    def _kv_valid(self, h2: int, w2: int, device: torch.device) -> torch.Tensor | None:
+        """The keys this rank contributes: every token but those of the halo
+        rows of the stride-2 grid (None without a ring axis)."""
+        if self.ring_axis is None:
+            return None
+        hf = self.ring_halo // 2
+        row = torch.arange(h2 * w2, device=device) // w2
+        return (row >= hf) & (row < h2 - hf)
+
+    def _to_tokens(self, x: torch.Tensor) -> torch.Tensor:
         y = lrelu(self.down_conv(x))
         n, c, h2, w2 = y.shape
-        tokens = self.transformer(y.permute(0, 2, 3, 1).reshape(n, h2 * w2, c))
-        y = tokens.reshape(n, h2, w2, c).permute(0, 3, 1, 2)
+        return y.permute(0, 2, 3, 1).reshape(n, h2 * w2, c)
+
+    def _from_tokens(self, tokens: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        n, c, h, w = like.shape
+        y = tokens.reshape(n, h // 2, w // 2, c).permute(0, 3, 1, 2)
         return lrelu(self.up_conv(upsample_nearest(y, 2)))
+
+    def _bottleneck(self, x: torch.Tensor) -> torch.Tensor:
+        kv_valid = self._kv_valid(x.shape[2] // 2, x.shape[3] // 2, x.device)
+        return self._from_tokens(self.transformer(self._to_tokens(x), kv_valid), x)
+
+    def _bottleneck_shards(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
+        if self.ring_axis is None:
+            return super()._bottleneck_shards(xs)
+        tokens = [self._to_tokens(x) for x in xs]
+        masks = [self._kv_valid(x.shape[2] // 2, x.shape[3] // 2, x.device) for x in xs]
+        for layer in self.transformer:
+            tokens = layer.forward_shards(tokens, masks)
+        return [self._from_tokens(t, x) for t, x in zip(tokens, xs)]
 
 
 class RealESRGANNet(RRDBNet):
@@ -199,8 +264,8 @@ class RealESRGANNet(RRDBNet):
     def _num_upsample(upscale_factor: int) -> int:
         return 2
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(pixel_unshuffle(x, self.unshuffle))
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        return super()._head(pixel_unshuffle(x, self.unshuffle))
 
 
 def _to_nchw(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

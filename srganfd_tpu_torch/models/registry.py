@@ -10,10 +10,6 @@ from typing import Any, Callable
 
 _REGISTRY: dict[str, Callable[..., Any]] = {}
 
-# archs of the JAX package that the port has not built yet -> the ROADMAP.md
-# item that ports them
-_NOT_PORTED: dict[str, str] = {}
-
 
 def register(name: str) -> Callable[[Callable[..., Any]], Callable[..., Any]]:
     def deco(fn: Callable[..., Any]) -> Callable[..., Any]:
@@ -26,12 +22,8 @@ def register(name: str) -> Callable[[Callable[..., Any]], Callable[..., Any]]:
 
 
 def check_ported(arch_name: str) -> None:
-    """Raise NotImplementedError, naming the ROADMAP.md item, for an arch of
-    the JAX package that the port has not built yet, and KeyError for an
-    unknown one."""
-    if arch_name in _NOT_PORTED:
-        raise NotImplementedError(f"arch {arch_name!r} is not ported to srganfd_tpu_torch yet: "
-                                  f"see ROADMAP.md {_NOT_PORTED[arch_name]}")
+    """Raise KeyError, listing the registered names, for an unknown arch.
+    Every arch of the JAX package is built by the port."""
     if arch_name not in _REGISTRY:
         raise KeyError(f"unknown arch {arch_name!r}; available: {sorted(_REGISTRY)}")
 

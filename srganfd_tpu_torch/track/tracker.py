@@ -54,11 +54,18 @@ class Tracker:
         samples_dir: str = "samples",
         tags: Any = None,
         description: str = "",
+        enabled: bool = True,
     ) -> None:
+        """``enabled=False`` makes every sink a no-op: under data
+        parallelism only rank 0 writes, as in the JAX trainer."""
         self.dir = os.path.join(samples_dir, "logs", experience_name or "default")
         self._tb = None
         self._mlflow = None
+        self._jsonl = None
         self.run_id = run_id
+        self.enabled = enabled
+        if not enabled:
+            return
         os.makedirs(self.dir, exist_ok=True)
         self._jsonl = open(os.path.join(self.dir, "events.jsonl"), "a")
         summary_writer = _optional_summary_writer()
@@ -119,6 +126,8 @@ class Tracker:
         """An HWC RGB image, float in [0, 1] (clipped, scaled to uint8) or
         uint8: a PNG ``<name>.png`` in the log directory, through cv2 (BGR),
         and its JSONL record."""
+        if not self.enabled:
+            return
         import cv2
 
         path = os.path.join(self.dir, name.replace("/", "_"))
@@ -132,6 +141,8 @@ class Tracker:
 
     def log_dict(self, payload: dict[str, Any], name: str) -> None:
         """``payload`` as the JSON file ``<name>.json`` in the log directory."""
+        if not self.enabled:
+            return
         path = os.path.join(self.dir, name if name.endswith(".json") else name + ".json")
         with open(path, "w") as f:
             json.dump({k: _plain(v) for k, v in payload.items()}, f, indent=2)

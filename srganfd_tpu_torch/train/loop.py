@@ -80,7 +80,36 @@ hand-written kernel on a CUDA tensor, its backward through the plain
 version, recomputed, as the JAX ``rdb_apply`` does. The step's parts are
 named for ``torch.profiler`` (``utils/profiling.py`` ``annotate``).
 
-Not ported yet: the pipe mesh (A11), rejected with its ROADMAP.md item.
+Data parallelism (a process group of more than one rank,
+``parallel/mesh.py``): each rank steps on its own shard of the global batch
+with the whole state. The JAX step is one program over the globally
+sharded batch, so each of its batch reductions is a global one; here:
+
+- the gradients are averaged over the ranks after each phase's backward,
+  by one explicit all-reduce of the flattened gradients
+  (``_apply_update``), before the guard, the clip and Adam, so every rank
+  takes the same decision and the same update. With equal per-rank
+  batches the mean of the ranks' local-mean gradients is the global
+  mean's. DDP is not used: the D-first step differentiates D on real and
+  fake in one backward and D's forward in the G loss takes no gradient,
+  which DDP's reducer takes for unused parameters without
+  ``static_graph``; ``SNConv``'s ``u`` and BatchNorm's running statistics
+  are buffers that each rank writes identically from identical
+  parameters and all-reduced statistics, where DDP would broadcast rank
+  0's; and accumulation would need ``no_sync`` on the micro-steps;
+- BatchNorm's batch statistics and the relativistic losses' means are
+  all-reduced inside the models and losses (``models/blocks.py``
+  ``BatchNorm._batch_moments``, ``losses/gan.py`` ``batch_mean``), with a
+  differentiable all-reduce;
+- the reported metrics are averaged over the ranks.
+
+With accumulation the JAX step cuts the *global* batch into contiguous
+chunks, so a chunk's BatchNorm statistics and relativistic means span
+other rows than any rank's chunk: that combination raises (ROADMAP.md
+A11). Plain BCE and L1 steps accumulate exactly.
+
+Not ported yet: the ``model`` and ``pipe`` mesh axes, ``pipeline_microbatches``
+and ``dcn_mesh_shape`` (A11), rejected with their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -92,6 +121,8 @@ from srganfd_tpu_torch.losses.content import ContentLoss
 from srganfd_tpu_torch.losses.gan import bce_with_logits, relativistic_d_loss, relativistic_g_loss
 from srganfd_tpu_torch.models import check_ported, create_model
 from srganfd_tpu_torch.models.blocks import BatchNorm
+from srganfd_tpu_torch.parallel import comm
+from srganfd_tpu_torch.parallel.mesh import make_hybrid_mesh, make_mesh
 from srganfd_tpu_torch.train.schedule import multistep_lr
 from srganfd_tpu_torch.train.state import TrainState, ema_update
 from srganfd_tpu_torch.utils.profiling import annotate
@@ -149,6 +180,9 @@ def _reject_unported(cfg: ExperimentConfig) -> None:
         raise NotImplementedError(
             "pipeline_microbatches is not ported to srganfd_tpu_torch yet: see ROADMAP.md A11"
         )
+    if cfg.dcn_mesh_shape is not None:
+        make_hybrid_mesh()  # raises, naming the item
+    make_mesh(cfg.mesh_shape, cfg.mesh_axes)  # raises for another axis or a shape that is not the world's
     if cfg.d_arch is not None:
         check_ported(cfg.d_arch)
         if not cfg.is_gan:
@@ -196,6 +230,16 @@ def _clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
+def _average_over_ranks(grads: list[torch.Tensor]) -> None:
+    """Every rank's gradients replaced, in place, by their mean over the
+    ranks: one all-reduce of the gradients flattened into one buffer."""
+    if not grads:
+        return
+    flat = comm.all_reduce(torch.cat([g.reshape(-1) for g in grads])) / comm.world()
+    for g, t in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(t.view_as(g))
+
+
 def _mean_of(per_chunk: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
     if len(per_chunk) == 1:
         return per_chunk[0]
@@ -223,6 +267,7 @@ class Trainer:
         self.has_d = cfg.is_gan
         self.accum = max(1, int(cfg.grad_accum_steps))
         self.guard = bool(cfg.skip_nonfinite_updates)
+        self.world = comm.world()
         self.content_loss = None
         if cfg.content_weight:
             self.content_loss = ContentLoss(
@@ -255,6 +300,13 @@ class Trainer:
             d = create_model(cfg.d_arch, dtype=self.dtype, generator=gen, **cfg.d_kwargs)
             if d_init is not None:
                 d.load_state_dict(d_init)
+            batchnorm = any(isinstance(m, BatchNorm) for m in d.modules())
+            if self.world > 1 and self.accum > 1 and (cfg.relativistic_gan or batchnorm):
+                raise NotImplementedError(
+                    "grad_accum_steps > 1 under data parallelism with a BatchNorm D or the relativistic loss: "
+                    "the JAX step takes each chunk's statistics over a slice of the global batch that no "
+                    "rank holds; not ported: see ROADMAP.md A11"
+                )
             d.to(self.device).train()
             state.d_model, state.d_opt = d, _adam(d, self.d_schedule(0), cfg)
         return state
@@ -297,6 +349,11 @@ class Trainer:
             parts, _ = self._g_update(state, target, lr_img)
         state.step += 1
         metrics.update(parts)
+        if self.world > 1:  # the global batch's metrics: the mean of the ranks' (equal batches)
+            keys = sorted(metrics)
+            dt = torch.float64 if any(v.dtype == torch.float64 for v in metrics.values()) else torch.float32
+            mean = comm.all_reduce(torch.stack([metrics[k].to(dt) for k in keys])) / self.world
+            metrics = {k: m.to(metrics[k].dtype) for k, m in zip(keys, mean.unbind(0))}
         return metrics
 
     def _chunks(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -312,6 +369,8 @@ class Trainer:
         grads = [p.grad for p in params if p.grad is not None]
         if self.accum > 1:
             torch._foreach_div_(grads, float(self.accum))
+        if self.world > 1:
+            _average_over_ranks(grads)
         if self.guard and not _all_finite(grads):
             return False
         if self.cfg.grad_clip_norm:

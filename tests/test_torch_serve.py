@@ -197,21 +197,57 @@ def test_cuda_without_gpu_exits(tmp_path, monkeypatch):
     ["serve", "--stdio", "--spatial-shard"],
     ["serve", "--stdio", "--cp-backend", "ulysses"],
     ["infer", "--inputs-path", "in.png", "--output-path", "o.png", "--data-shard"],
+    ["serve", "--stdio", "--spatial-shard", "--tile", "64"],
 ], ids=lambda a: a[0] + (a[-1] if a[-1].startswith("--") else a[-2]))
-def test_unported_flags_name_the_roadmap_item(argv, monkeypatch):
-    """The A11 flags stay refused, naming the item; ``--quant-int8`` is
-    ported: the daemon builds the quantized model and answers over stdio."""
+def test_unported_flags_name_the_roadmap_item(argv, monkeypatch, tmp_path):
+    """The JAX CLIs' flags are all ported: ``--quant-int8`` builds the
+    quantized model, ``--spatial-shard``, ``--cp-backend`` and
+    ``--data-shard`` run (a world of one without a process group), each
+    daemon answering over stdio and the one-shot CLI writing its frame.
+    What stays refused is refused as in JAX: ``--spatial-shard`` with
+    ``--tile``."""
     main = port_serve.main if argv[0] == "serve" else port_infer.main
-    if "--quant-int8" in argv:
-        seen = []
-        real = port_infer.create_model
-        monkeypatch.setattr(port_infer, "create_model", lambda arch, **kw: seen.append(kw) or real(arch, **kw))
-        monkeypatch.setattr(sys, "stdin", io.StringIO('{"cmd": "shutdown"}\n'))
-        main(["--device-type", "cpu", "--model-arch", "bsrgan_x2", *argv[1:]])
-        assert seen and seen[0]["quant"] is True
+    seen = []
+    real = port_infer.create_model
+    monkeypatch.setattr(port_infer, "create_model",
+                        lambda arch, **kw: seen.append(kw) or real(arch, **{**kw, **TINY}))
+    monkeypatch.setattr(sys, "stdin", io.StringIO('{"cmd": "shutdown"}\n'))
+    if "--tile" in argv:
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            main(["--device-type", "cpu", "--model-arch", "bsrgan_x2", *argv[1:]])
         return
-    with pytest.raises(SystemExit, match=r"not ported .*ROADMAP\.md A\d+ \("):
-        main(["--device-type", "cpu", *argv[1:]])
+    if argv[0] == "infer":
+        _write_png(tmp_path / "in.png", 8, 8, 0)
+        argv = [a if a not in ("in.png", "o.png") else str(tmp_path / a) for a in argv]
+    main(["--device-type", "cpu", "--model-arch", "bsrgan_x2", *argv[1:]])
+    assert len(seen) == 1
+    if "--quant-int8" in argv:
+        assert seen[0]["quant"] is True
+    if argv[0] == "infer":
+        assert cv2.imread(str(tmp_path / "o.png")).shape == (16, 16, 3)
+
+
+@pytest.mark.parametrize("what", ["model_axis", "pipe_axis", "dcn", "pipeline_microbatches"])
+def test_unported_parallel_modes_name_the_roadmap_item(what):
+    """Tensor and pipeline parallelism, the multi-slice mesh and the pipe
+    axis's microbatches stay refused, naming ROADMAP.md A11, in the mesh
+    and in the trainer that reads a config's mesh fields."""
+    from srganfd_tpu_torch import configs
+    from srganfd_tpu_torch.parallel import mesh
+    from srganfd_tpu_torch.train.loop import Trainer
+
+    over = {"model_axis": {"mesh_shape": (1, -1), "mesh_axes": ("data", "model")},
+            "pipe_axis": {"mesh_shape": (-1, 1), "mesh_axes": ("data", "pipe")},
+            "dcn": {"dcn_mesh_shape": (1,)},
+            "pipeline_microbatches": {"pipeline_microbatches": 2}}[what]
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A11"):
+        Trainer(configs.get_config("bsrnet", g_kwargs={"channels": 8, "growth_channels": 4, "num_rrdb": 1}, **over))
+    if "mesh_axes" in over:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A11"):
+            mesh.make_mesh(over["mesh_shape"], over["mesh_axes"])
+    if what == "dcn":
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A11"):
+            mesh.make_hybrid_mesh((-1,), (1,))
 
 
 @pytest.mark.parametrize("flags", [

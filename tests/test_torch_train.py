@@ -218,11 +218,19 @@ def test_bsrnet_lockstep_with_jax_trainer():
 
 
 def test_trainer_names_the_roadmap_item_for_unported_options():
-    """The pipe mesh's microbatches (A11) are the one option of the JAX
-    ``Trainer`` the port refuses."""
+    """The options of the JAX ``Trainer`` the port refuses, each naming
+    A11: the pipe mesh's microbatches, a mesh with a ``model`` or ``pipe``
+    axis, and the multi-slice ``dcn_mesh_shape``. The default mesh, the
+    ``data`` axis over every rank, builds (a world of one here); a ``data``
+    shape other than the world raises as JAX's ``make_mesh`` does."""
     cfg = configs.get_config("bsrnet", g_kwargs=TINY)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
-        Trainer(cfg.replace(pipeline_microbatches=2))
+    for over in ({"pipeline_microbatches": 2}, {"mesh_shape": (1, -1), "mesh_axes": ("data", "model")},
+                 {"mesh_shape": (-1, 1), "mesh_axes": ("data", "pipe")}, {"dcn_mesh_shape": (1,)}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
+            Trainer(cfg.replace(**over))
+    Trainer(cfg.replace(mesh_shape=(1,)))
+    with pytest.raises(ValueError, match=r"mesh shape \(2,\) != 1 ranks"):
+        Trainer(cfg.replace(mesh_shape=(2,)))
 
 
 def test_a_discriminator_without_an_adversarial_weight_is_refused():
