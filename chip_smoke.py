@@ -4774,6 +4774,18 @@ if spec.get("plant_bn"):  # a planted fault: the moments per rank (in f64 as wel
 if spec.get("plant_rel"):  # a planted fault: the relativistic losses' means per rank
     from srganfd_tpu_torch.losses import gan
     gan.batch_mean = torch.mean
+if spec.get("cfg"):  # config fields that no flag sets (the mesh), merged into cli.train's config
+    from srganfd_tpu_torch import configs
+    real_get = configs.get_config
+    def get_config(name, **kw):
+        over = dict(spec["cfg"])
+        if "g_kwargs" in over:
+            over["g_kwargs"] = {**real_get(name).g_kwargs, **over["g_kwargs"]}
+        return real_get(name, **{**kw, **over})
+    configs.get_config = get_config
+if spec.get("plant_pp"):  # a planted fault: the pipelined trunk's output cotangent not split over its stages
+    from srganfd_tpu_torch.parallel import pipeline
+    pipeline._SplitCotangent = type("Unsplit", (), {"apply": staticmethod(lambda t, n: t)})
 real_step, real_update = loop.Trainer.train_step, loop.Trainer._apply_update
 grads = []
 def train_step(self, state, gt, lr_img, gt_pixel=None):
@@ -4803,12 +4815,16 @@ spatial.spatial_sharded_sr = spatial_sr
 if spec.get("stdin") and rank == 0:
     sys.stdin = open(spec["stdin"])
 import importlib
-mod = importlib.import_module("srganfd_tpu_torch.cli." + spec["cli"])
+# a job runs a CLI's main(argv), or one of chip_smoke's rank functions (spec["call"])
+mod = importlib.import_module("chip_smoke" if spec.get("call") else "srganfd_tpu_torch.cli." + spec["cli"])
 rdb.launches = filter2d.launches = attention.launches = comm.staged = 0
 t0 = T_MAIN = time.perf_counter()
 record["imports_s"] = t0 - T_START
 try:
-    mod.main(spec["argv"])
+    if spec.get("call"):
+        record["call"] = getattr(mod, spec["call"])(spec)
+    else:
+        mod.main(spec["argv"])
     rc = 0
 except SystemExit as e:
     rc = e.code if isinstance(e.code, int) else 1
@@ -4835,7 +4851,16 @@ DP2_RUNS = {"bsrgan": {}, "esrgan": {"bn64": True}, "esrgan_planted_bn": {"bn64"
             "esrgan_planted_rel": {"bn64": True, "plant_rel": True}}
 SP_FRAME = 512  # the spatial phase's frame edge, bsrgan_x2
 CP_FRAME = 128  # the context-parallel frame: 4096 tokens, 2048 a rank (3072 with the halo rows)
+# cp_phase's gradients: q, k, v of that frame's attention (4 heads of 16), 2048 tokens a rank,
+# each rank's first and last 128 keys masked out as halo rows are
+CP_GRAD_SHAPE, CP_GRAD_HALO = (1, 4096, 4, 16), 128
 SERVE_SHAPES = ((256, 256), (320, 192), (250, 190))  # the served frames after the spatial phase's
+PP_STEPS = 2  # pp_phase: one epoch of two bsrnet steps
+# the config fields pp_phase's cli.train runs take: the scanned trunk on a (data, pipe) mesh of every rank
+PP_CFG = {"g_kwargs": {"scan_blocks": True}, "mesh_shape": [1, -1], "mesh_axes": ["data", "pipe"]}
+# pp_phase's runs: tag -> (ranks, the launcher's switches; ``plant_pp``: the output cotangent not split)
+PP_RUNS = {"pp1": (1, {}), "pp2": (2, {}), "pp2_planted": (2, {"plant_pp": True})}
+TP_FRAME = 256  # tp_phase's frame edge, bsrgan_x2
 
 
 def _free_port() -> int:
@@ -5197,8 +5222,19 @@ def cp_phase(work: str, weights: str, smi: str) -> dict:
                 "--inputs-path", frame, "--output-path", os.path.join(work, f"cp_{backend}.png")]
         jobs += [({"cli": "infer", "gloo": True, "argv": argv, "save_sr": os.path.join(work, f"cp_{backend}")},
                   _group_env(r, 2, port), os.path.join(work, f"cp_job_{backend}")) for r in range(2)]
+    qkv = os.path.join(work, "cp_grad_qkv.npz")
+    rng = np.random.default_rng(75)
+    t_loc = CP_GRAD_SHAPE[1] // 2
+    np.savez(qkv, **{k: rng.standard_normal(CP_GRAD_SHAPE).astype(np.float32) for k in ("q", "k", "v", "cot")},
+             mask=np.tile(np.arange(t_loc) >= CP_GRAD_HALO, 2) & np.tile(np.arange(t_loc) < t_loc - CP_GRAD_HALO, 2))
+    for backend in ("ring", "ulysses"):
+        port = _free_port()
+        jobs += [({"call": "cp_grad_rank", "gloo": True, "backend": backend, "qkv": qkv,
+                   "out": os.path.join(work, f"cp_grad_{backend}")}, _group_env(r, 2, port),
+                  os.path.join(work, f"cp_grad_job_{backend}")) for r in range(2)]
     recs, seconds = yield jobs
-    out = {"seconds": seconds}
+    out = {"seconds": seconds, "gradients": cp_grad_check(work, qkv)}
+    recs = recs[:4]
     img = cv2.cvtColor(cv2.imread(frame), cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
     plain = infer.build_model("bsrgantrans_x2", torch.device("cuda"), weights)
     with torch.inference_mode():
@@ -5228,7 +5264,204 @@ def cp_phase(work: str, weights: str, smi: str) -> dict:
           f"{ {b: out[b]['interior_max_abs_vs_unsharded'] for b in ('ring', 'ulysses')} } (SR in (0.05, 0.95) at "
           f"{out['spread']:.2f}); launches (rdb, flash) { {b: (out[b]['rdb_launches'], out[b]['flash_launches']) for b in ('ring', 'ulysses')} };"
           f" staged collectives { {b: out[b]['staged'] for b in ('ring', 'ulysses')} }; wave {seconds:.1f} s, job "
-          f"seconds {[round(r['seconds'], 1) for r in recs]}", flush=True)
+          f"seconds {[round(r['seconds'], 1) for r in recs]}; gradients {out['gradients']}", flush=True)
+    return out
+
+
+def cp_grad_rank(spec: dict) -> dict:
+    """One rank of ``cp_phase``'s gradient jobs: dq, dk and dv of
+    ``sum(attention(q, k, v) * cot)`` through ring or Ulysses attention
+    (``spec["backend"]``) on this rank's half of the token axis, on the
+    card; saved with the output."""
+    from srganfd_tpu_torch.parallel import comm
+    from srganfd_tpu_torch.parallel.ring_attention import ring_attention
+    from srganfd_tpu_torch.parallel.ulysses import ulysses_attention
+
+    d = np.load(spec["qkv"])
+    n, r = comm.world(), comm.rank()
+    t = d["q"].shape[1] // n
+    part = lambda a: torch.from_numpy(np.ascontiguousarray(a[:, r * t:(r + 1) * t])).cuda()  # noqa: E731
+    q, k, v = (part(d[x]).requires_grad_() for x in ("q", "k", "v"))
+    fn = ring_attention if spec["backend"] == "ring" else ulysses_attention
+    y = fn(q, k, v, torch.from_numpy(d["mask"][r * t:(r + 1) * t]).cuda())
+    (y * part(d["cot"])).sum().backward()
+    torch.cuda.synchronize()
+    np.savez(spec["out"] + f"_rank{r}.npz", y=y.detach().cpu().numpy(),
+             **{f"d{x}": g.grad.cpu().numpy() for x, g in zip("qkv", (q, k, v))})
+    return {"world": n}
+
+
+def cp_grad_check(work: str, qkv: str) -> dict:
+    """The ranks' outputs and gradients (``cp_grad_rank``) against the
+    one-process loops' (``ring_attention_loop``, ``ulysses_attention_loop``)
+    on the card, on the same halves: the outputs bit for bit, each of dq,
+    dk and dv to 1e-5 of its largest entry, the masked keys' dk and dv 0."""
+    from srganfd_tpu_torch.parallel.ring_attention import ring_attention_loop
+    from srganfd_tpu_torch.parallel.ulysses import ulysses_attention_loop
+
+    d = np.load(qkv)
+    t = d["q"].shape[1] // 2
+    out = {}
+    for backend, loop in (("ring", ring_attention_loop), ("ulysses", ulysses_attention_loop)):
+        shards = [[torch.from_numpy(np.ascontiguousarray(d[x][:, i * t:(i + 1) * t])).cuda().requires_grad_()
+                   for i in range(2)] for x in ("q", "k", "v")]
+        masks = [torch.from_numpy(d["mask"][i * t:(i + 1) * t]).cuda() for i in range(2)]
+        ys = loop(*shards, masks)
+        sum((y * torch.from_numpy(np.ascontiguousarray(d["cot"][:, i * t:(i + 1) * t])).cuda()).sum()
+            for i, y in enumerate(ys)).backward()
+        ranks = [np.load(os.path.join(work, f"cp_grad_{backend}_rank{i}.npz")) for i in range(2)]
+        check(all(np.array_equal(ranks[i]["y"], ys[i].detach().cpu().numpy()) for i in range(2)),
+              f"cp gradients {backend}: the ranks' outputs are not the loop's bit for bit")
+        rel = {}
+        for j, x in enumerate("qkv"):
+            want = torch.cat([g.grad for g in shards[j]], 1).cpu().numpy()
+            got = np.concatenate([rk[f"d{x}"] for rk in ranks], 1)
+            rel[f"d{x}"] = float(np.abs(got - want).max() / np.abs(want).max())
+            if x != "q":
+                check(not got[:, ~d["mask"]].any(), f"cp gradients {backend}: d{x} of a masked key is not 0")
+        check(all(v <= 1e-5 for v in rel.values()), f"cp gradients {backend}: {rel} from the loop's, limit 1e-5")
+        out[backend] = rel
+    return out
+
+
+def pp_phase(work: str, smi: str) -> dict:
+    """Pipeline parallelism: ``cli.train`` of ``bsrnet`` at full width
+    (64/32/23, ``scan_blocks``), f32, PP_STEPS steps at DP_BATCH frames,
+    deterministic algorithms, on a ``("data", "pipe")`` mesh: a world of one
+    under NCCL (1, 1), and 2 gloo ranks on cuda:0 (1, 2), the trunk in 2
+    microbatches, each rank running 12 and 11 of the 23 RRDBs; and those 2
+    ranks again with a planted fault, the output cotangent not divided over
+    the stages. The first step's gradients, after the sum of the trunk's
+    over the axis, against one process's plain step on the same batch, as
+    ``dp2_phase`` holds them: ||a - b|| / ||b||, within 10x the reference's
+    spread between two orders of the batch's frames (floor 1e-6); the
+    planted run must fail that. The ranks of the data row degrade the same
+    frames and end with the same gradients."""
+    train, valid = _dp_dirs(work)
+    jobs = []
+    for tag, (world, extra) in PP_RUNS.items():
+        port, cwd = _free_port(), os.path.join(work, f"pp_{tag}")
+        spec = {"cli": "train", "gloo": world > 1, "deterministic": True, "cfg": PP_CFG,
+                "capture": os.path.join(cwd, "step0"),
+                "argv": _train_argv("bsrnet", train, valid, PP_STEPS, ("--compute-dtype", "float32")), **extra}
+        jobs += [(spec, _group_env(r, world, port), cwd) for r in range(world)]
+    recs, seconds = yield jobs
+    out = {"seconds": seconds}
+    i = 0
+    for tag, (world, _) in PP_RUNS.items():
+        rs, cwd = recs[i:i + world], jobs[i][2]
+        i += world
+        check(all(r["world"] == world for r in rs) and rs[0]["backend"] == ("gloo" if world > 1 else "nccl"),
+              f"pp {tag}: world {[r['world'] for r in rs]}, backend {rs[0]['backend']}")
+        grads = [torch.load(os.path.join(cwd, f"step0_grads{r}.pt")) for r in range(world)]
+        inputs = [torch.load(os.path.join(cwd, f"step0_inputs{r}.pt")) for r in range(world)]
+        check(all(torch.equal(a, b) for g in grads for xs, ys in zip(g, grads[0]) for a, b in zip(xs, ys)),
+              f"pp {tag}: the ranks' synced gradients differ")
+        check(all(torch.equal(x[k], inputs[0][k]) for x in inputs for k in ("gt", "lr")),
+              f"pp {tag}: the ranks of one data row degraded different frames")
+        out[tag] = {"grads": grads[0], "inputs": inputs[0], "rdb_launches": [r["rdb"] for r in rs],
+                    "filter2d_launches": [r["filter2d"] for r in rs], "staged": [r["staged"] for r in rs],
+                    "step_ms_p50": [float(np.median(r["step_ms"])) for r in rs]}
+        check(all(r["rdb"] > 0 and r["filter2d"] > 0 for r in rs), f"pp {tag}: a rank launched no kernel")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        x = out["pp2"]["inputs"]
+        frames = [{"gt": x["gt"][j:j + 1], "lr": x["lr"][j:j + 1]} for j in range(x["gt"].shape[0])]
+        ref, swapped = _dp_reference("bsrnet", train, valid, frames, False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    spread = _phase_rel(swapped, ref)
+    tol = [max(10 * v, 1e-6) for v in spread]
+    readings = {}
+    for tag in PP_RUNS:
+        check(all(torch.equal(out[tag]["inputs"][k], x[k]) for k in ("gt", "lr")), f"pp {tag}: not pp2's batch")
+        readings[tag] = _phase_rel(out[tag].pop("grads"), ref)
+        out[tag].pop("inputs")
+        held = all(g <= t for g, t in zip(readings[tag], tol))
+        check(held if "planted" not in tag else not held,
+              f"pp {tag}: first-step gradients {readings[tag]} from one process's, tolerance {tol}")
+    out.update(readings=readings, spread=spread, tolerance=tol)
+    out["rdb_launches"] = sum(sum(out[t]["rdb_launches"]) for t in PP_RUNS)
+    out["filter2d_launches"] = sum(sum(out[t]["filter2d_launches"]) for t in PP_RUNS)
+    print(f"pp_phase ({smi}): bsrnet full width, scan_blocks, (data, pipe) = (1, 1) under NCCL and (1, 2) on 2 "
+          f"gloo ranks on cuda:0, first-step gradients vs one process on the same batch, ||a - b|| / ||b||: "
+          f"{ {t: readings[t] for t in PP_RUNS} } (spread {spread}, tolerance {tol}; the planted run must exceed it); "
+          f"launches (rdb, filter2d) a rank { {t: list(zip(out[t]['rdb_launches'], out[t]['filter2d_launches'])) for t in PP_RUNS} }; "
+          f"staged collectives { {t: out[t]['staged'] for t in PP_RUNS} }; step p50 ms "
+          f"{ {t: [round(v, 2) for v in out[t]['step_ms_p50']] for t in PP_RUNS} }; wave {seconds:.1f} s", flush=True)
+    return out
+
+
+def tp_rank(spec: dict) -> dict:
+    """One rank of ``tp_phase``: ``bsrgan_x2`` (f32, ``spec["weights"]``)
+    channel-sharded over the ``model`` axis of a ``("model", "data")`` mesh
+    of every rank, its forward of ``spec["frame"]`` saved; the parameters it
+    keeps sharded and whole."""
+    import cv2
+
+    from srganfd_tpu_torch.cli import infer
+    from srganfd_tpu_torch.parallel import comm
+    from srganfd_tpu_torch.parallel.mesh import make_mesh, maybe_init_distributed
+    from srganfd_tpu_torch.parallel.tensor import channel_sharded_params
+
+    # cuDNN as in the process that holds the ranks to the replicated forward
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    maybe_init_distributed("cuda")
+    mesh = make_mesh((-1, 1), ("model", "data"))
+    whole = infer.build_model("bsrgan_x2", torch.device("cuda"), spec["weights"])
+    shapes = {k: v.shape for k, v in whole.state_dict().items()}
+    model = channel_sharded_params(whole, mesh)
+    img = cv2.cvtColor(cv2.imread(spec["frame"]), cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
+    with torch.inference_mode():
+        sr = model(torch.from_numpy(img)[None].cuda())[0].cpu().numpy()
+    np.save(spec["out"] + f"_rank{comm.rank()}.npy", sr)
+    kept = {k: v.shape for k, v in model.state_dict().items()}
+    sharded = sorted(k for k in kept if kept[k] != shapes[k])
+    return {"model_axis": mesh.size("model"), "sharded": len(sharded),
+            "whole": sorted(k for k in kept if kept[k] == shapes[k]) if sharded else len(kept)}
+
+
+def tp_phase(work: str, weights: str, smi: str) -> dict:
+    """Tensor parallelism: ``channel_sharded_params`` on ``bsrgan_x2`` (full
+    width, spread weights, f32) over a ``("model", "data")`` mesh, a world of
+    one under NCCL (1, 1) and 2 gloo ranks on cuda:0 (2, 1), one TP_FRAME^2
+    frame: each rank's SR against the replicated forward, bit for bit or to
+    1e-3; on 2 ranks every conv of 64 or 32 output channels holds half of
+    them and the 3-channel head is whole; 69 RDB kernel calls a rank."""
+    import cv2
+
+    from srganfd_tpu_torch.cli import infer
+
+    frame = write_frames(os.path.join(work, "tp_in"), 1, TP_FRAME, TP_FRAME, seed=74)[0]
+    jobs = []
+    for world in (1, 2):
+        port = _free_port()
+        jobs += [({"call": "tp_rank", "gloo": world > 1, "weights": weights, "frame": frame,
+                   "out": os.path.join(work, f"tp_w{world}")}, _group_env(r, world, port),
+                  os.path.join(work, f"tp_job_w{world}")) for r in range(world)]
+    recs, seconds = yield jobs
+    img = cv2.cvtColor(cv2.imread(frame), cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
+    plain = infer.build_model("bsrgan_x2", torch.device("cuda"), weights)
+    with torch.inference_mode():
+        full = plain(torch.from_numpy(img)[None].cuda())[0].cpu().numpy()
+    out = {"seconds": seconds, "rdb_launches": sum(r["rdb"] for r in recs)}
+    for world, rs in ((1, recs[:1]), (2, recs[1:])):
+        srs = [np.load(os.path.join(work, f"tp_w{world}_rank{r}.npy")) for r in range(world)]
+        worst = max(float(np.abs(sr - full).max()) for sr in srs)
+        check(worst <= 1e-3, f"tp on {world} ranks: max abs {worst} from the replicated forward, limit 1e-3")
+        check(all(r["rdb"] == RDB_PER_FORWARD for r in rs), f"tp on {world} ranks: rdb {[r['rdb'] for r in rs]}")
+        call = rs[0]["call"]
+        if world == 2:
+            check(call["whole"] == ["conv4.bias", "conv4.weight"] and call["sharded"] == 2 * (5 * 3 * NUM_RRDB + 4),
+                  f"tp on 2 ranks: whole {call['whole']}, {call['sharded']} sharded")
+        out[f"w{world}"] = {"max_abs": worst, "bit_for_bit": all(np.array_equal(sr, full) for sr in srs),
+                            "sharded": call["sharded"], "whole": call["whole"]}
+    print(f"tp_phase ({smi}): bsrgan_x2 {TP_FRAME}x{TP_FRAME} f32, (model, data) = (1, 1) under NCCL and (2, 1) on 2 "
+          f"gloo ranks on cuda:0, against the replicated forward: "
+          f"{ {k: (v['max_abs'], v['bit_for_bit']) for k, v in out.items() if k.startswith('w')} } (max abs, bit for bit); "
+          f"{out['w2']['sharded']} tensors sharded, {out['w2']['whole']} whole; {out['rdb_launches']} rdb launches; "
+          f"wave {seconds:.1f} s, job seconds {[round(r['seconds'], 1) for r in recs]}", flush=True)
     return out
 
 
@@ -5299,21 +5532,27 @@ def _wave(phases: dict, label: str) -> dict:
 
 
 def parallel_phases(work: str, weights: str, smi: str) -> dict:
-    """The five phases of the parallel modes in two waves of concurrent
-    rank processes (inference, then training); their launches and seconds."""
+    """The eight phases of the parallel modes in three waves of concurrent
+    rank processes (inference, data-parallel training, then the pipeline
+    and tensor-parallel phases); their launches and seconds."""
     t0 = time.perf_counter()
     res = _wave({"spatial": spatial_phase(work, smi), "cp": cp_phase(work, weights, smi),
                  "serve_spatial": serve_spatial_phase(work, smi)}, "parallel inference")
     res.update(_wave({"dp1": dp1_phase(work, smi), "dp2": dp2_phase(work, smi)}, "parallel training"))
+    res.update(_wave({"pp": pp_phase(work, smi), "tp": tp_phase(work, spread_weights(work, "bsrgan_x2", 3.0), smi)},
+                     "pipeline and tensor parallelism"))
     res["seconds"] = time.perf_counter() - t0
     res["rdb_launches"] = (sum(res["dp1"][n]["rdb_launches"] for n in DP_CONFIGS)
                            + sum(res["dp2"][t]["rdb_launches"] for t in DP2_RUNS)
                            + res["spatial"]["rdb_launches"] + res["cp"]["ring"]["rdb_launches"]
-                           + res["cp"]["ulysses"]["rdb_launches"] + res["serve_spatial"]["rdb_launches"])
+                           + res["cp"]["ulysses"]["rdb_launches"] + res["serve_spatial"]["rdb_launches"]
+                           + res["pp"]["rdb_launches"] + res["tp"]["rdb_launches"])
     res["filter2d_launches"] = (sum(res["dp1"][n]["filter2d_launches"] for n in DP_CONFIGS)
-                                + sum(res["dp2"][t]["filter2d_launches"] for t in DP2_RUNS))
+                                + sum(res["dp2"][t]["filter2d_launches"] for t in DP2_RUNS)
+                                + res["pp"]["filter2d_launches"])
     print(f"parallel phases ({smi}): {res['seconds']:.1f} s; {res['rdb_launches']} rdb and "
-          f"{res['filter2d_launches']} filter2d launches in their ranks", flush=True)
+          f"{res['filter2d_launches']} filter2d launches in their ranks (pipeline {res['pp']['rdb_launches']} and "
+          f"{res['pp']['filter2d_launches']}, tensor parallel {res['tp']['rdb_launches']} rdb)", flush=True)
     return res
 
 

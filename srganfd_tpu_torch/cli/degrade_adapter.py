@@ -64,7 +64,7 @@ class DegradationAdapter:
         self.train = train
         self.device = torch.device(device)
         self.eval_codec = eval_codec
-        self.rank = comm.rank()
+        self.rank = comm.data_rank()  # the ranks of one data row draw alike
 
     def step_rng(self, step: int) -> np.random.Generator:
         """Degradation randomness keyed by (seed, tag, rank, step), as the

@@ -97,7 +97,7 @@ from srganfd_tpu_torch.losses.lpips import Lpips
 from srganfd_tpu_torch.metrics.psnr_ssim import psnr_tensor, ssim_tensor
 from srganfd_tpu_torch.models import check_ported
 from srganfd_tpu_torch.parallel import comm
-from srganfd_tpu_torch.parallel.mesh import FlagConsensus, maybe_init_distributed
+from srganfd_tpu_torch.parallel.mesh import FlagConsensus, make_mesh, maybe_init_distributed
 from srganfd_tpu_torch.track.tracker import Tracker
 from srganfd_tpu_torch.train import checkpoint as ckpt
 from srganfd_tpu_torch.train.loop import Trainer
@@ -295,9 +295,12 @@ def _run_train_body(
     # builds or launches a kernel
     maybe_init_distributed(device)
     world, is_main = comm.world(), comm.rank() == 0
+    # before the datasets: a data row's ranks read one shard with one key
+    mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes)
     if world > 1:
+        rows = comm.data_world()
         print(f"data parallel: rank {comm.rank()} of {world} ({comm.backend()}), {cfg.batch_size} frames a "
-              f"rank, global batch {cfg.batch_size * world}", flush=True)
+              f"rank, global batch {cfg.batch_size * rows}" + ("" if rows == world else f"; {mesh}"), flush=True)
     train_ds, valid_ds = build_datasets(cfg)
     spe = steps_per_epoch or cfg.steps_per_epoch or max(1, len(train_ds) // cfg.batch_size)
     if world > 1 and not (steps_per_epoch or cfg.steps_per_epoch):
@@ -305,7 +308,7 @@ def _run_train_body(
         # same number of steps, or one waits forever in the next collective
         spe = int(comm.all_reduce(torch.tensor([spe], device=device), "min").item())
 
-    trainer = Trainer(cfg, steps_per_epoch=spe, device=device)
+    trainer = Trainer(cfg, steps_per_epoch=spe, device=device, mesh=mesh)
     train_adapter = DegradationAdapter(cfg, seed=cfg.seed, train=True, device=device)
     valid_adapter = DegradationAdapter(cfg, seed=cfg.seed + 1, train=True, device=device)
     state = trainer.init_state()
@@ -431,8 +434,10 @@ def _run_train_body(
                 preempt_exit_if_requested()
                 # the reference validates the raw generator (train_bsrgan.py:166);
                 # the EMA generator is checkpointed beside it
+                # a pipe axis's ranks run each pipelined batch together: none
+                # may stop alone on its own signal (the consensus below stops them)
                 vm = validate(cfg, trainer, state, valid_loader, valid_adapter, lpips_fn=lpips_fn,
-                              should_stop=lambda: bool(_PREEMPT["signum"]))
+                              should_stop=None if trainer.microbatches else lambda: bool(_PREEMPT["signum"]))
                 preempt_exit_if_requested()
                 epoch_metrics = {"Valid/PSNR": vm["psnr"], "Valid/SSIM": vm["ssim"], "epoch": epoch}
                 lpips_str = ""

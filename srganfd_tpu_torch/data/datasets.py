@@ -49,10 +49,12 @@ def _resolve_shard(shard: tuple[int, int] | str | None) -> tuple[int, int] | Non
     """``"auto"``: this rank's shard ``(rank, world)`` under data
     parallelism, the whole list (None) in a world of one, as the JAX
     package splits by ``(jax.process_index(), jax.process_count())``;
-    tuples and None pass through."""
+    tuples and None pass through. On a mesh with other axes the shard is
+    the rank's ``data`` row's (``comm.data_rank``, ``comm.data_world``),
+    which the row's ranks share."""
     if shard == "auto":
-        count = comm.world()
-        return (comm.rank(), count) if count > 1 else None
+        count = comm.data_world()
+        return (comm.data_rank(), count) if count > 1 else None
     return shard
 
 

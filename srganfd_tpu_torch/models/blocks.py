@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import math
 import os
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -251,6 +252,9 @@ class ResidualDenseBlock(nn.Module):
             setattr(self, f"conv{k + 1}", Conv(channels + k * growth_channels, cout))
         self._packed: tuple | None = None  # (key, packed weights, packed biases)
         self._quantized: tuple | None = None  # (key, [(kq, ks, packed) per source])
+        # tensor parallelism (parallel/tensor.py): the convs hold output-channel
+        # shards, and this returns the five whole HWIO kernels and biases
+        self.gather_weights: Any = None
 
     def _convs(self) -> list[Conv]:
         return [getattr(self, f"conv{k + 1}") for k in range(5)]
@@ -341,6 +345,10 @@ class ResidualDenseBlock(nn.Module):
                 raise RuntimeError("export an RDB after its pack_for_export(dtype)")
             kernels, biases = self.kernels_biases()
             return rdb_forward_op(xh.contiguous(), kernels, biases, self.packed_w, self.packed_b).permute(0, 3, 1, 2)
+        if self.gather_weights is not None:  # the kernel runs whole on the gathered weights
+            kernels, biases = self.gather_weights()
+            packed = pack_rdb_weights(kernels, biases, x.dtype) if x.is_cuda else None
+            return rdb_apply(xh.contiguous(), kernels, biases, packed=packed).permute(0, 3, 1, 2)
         packed = self.packed(x.dtype) if x.is_cuda else None  # the CPU path takes HWIO
         y = rdb_apply(xh.contiguous(), *self.kernels_biases(), packed=packed)
         return y.permute(0, 3, 1, 2)
@@ -546,7 +554,8 @@ class TransformerEncoderLayer(nn.Module):
         cp = None
         if ring_axis is not None:
             if ring_axis != "data":
-                raise ValueError(f"ring_axis {ring_axis!r}: the port's one mesh axis is 'data' (ROADMAP.md A11)")
+                raise ValueError(f"ring_axis {ring_axis!r}: --spatial-shard splits the frame's rows over the 'data' "
+                                 "axis of every rank (parallel/spatial.py)")
             cp = check_cp_backend(cp_backend)
         self.self_attn = SelfAttention(d_model, nhead, attn_chunk, attention_backend(attn_backend), cp)
         self.linear1 = Linear(d_model, dim_feedforward)

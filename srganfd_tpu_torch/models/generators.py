@@ -26,7 +26,11 @@ in JAX; inside, the network runs NCHW channels-last in the compute
 ``quant=True`` (``RRDBNet``, ``BSRGAN``, ``BSRGANtrans`` and
 ``RealESRGANNet``, as in JAX) serves the trunk in int8
 (``ResidualDenseBlock``'s quant path); the other convs keep the compute
-dtype. State-dict names are the reference's: ``conv1``, ``trunk.{i}.rdb{j}.conv{k}``,
+dtype. ``scan_blocks=True`` (the same four) is the JAX layout flag that
+pipeline parallelism asks for (``parallel/pipeline.py``): the numerics and
+the state dict are the same, and ``forward(x, trunk_fn)`` hands the trunk
+to ``trunk_fn`` in either layout, as the JAX modules' hook does.
+State-dict names are the reference's: ``conv1``, ``trunk.{i}.rdb{j}.conv{k}``,
 ``conv2``, ``upsampling{n}.0``, ``conv3.0``, ``conv4`` (``RealESRGANNet``
 too: its conv1 takes the unshuffled channels); ``BSRGANtrans``
 adds ``down_conv``, ``transformer.{0,1}`` and ``up_conv``. The two
@@ -72,12 +76,14 @@ class RRDBNet(nn.Module):
         upscale_factor: int = 4,
         dtype: torch.dtype = torch.float32,
         quant: bool = False,
+        scan_blocks: bool = False,
         device: Any = None,
         generator: torch.Generator | None = None,
     ) -> None:
         super().__init__()
         self.dtype = dtype
         self.quant = quant
+        self.scan_blocks = scan_blocks
         self.num_upsample = self._num_upsample(upscale_factor)
         self.upscale = 2**self.num_upsample
         # built and initialised on the CPU (the generator is a CPU one),
@@ -97,9 +103,12 @@ class RRDBNet(nn.Module):
     def _num_upsample(upscale_factor: int) -> int:
         return int(math.log2(upscale_factor)) if upscale_factor > 1 else 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, trunk_fn: Any = None) -> torch.Tensor:
+        """``trunk_fn``: a trunk scheduled from outside (the pipelined trunk
+        of ``parallel/pipeline.py``) in place of ``self.trunk``, as the JAX
+        modules take it."""
         out1 = self._head(x)
-        return self._tail(out1, self._bottleneck(self.trunk(out1)))
+        return self._tail(out1, self._bottleneck((trunk_fn or self.trunk)(out1)))
 
     def forward_shards(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
         """``forward`` of every rank's shard under ``--spatial-shard``, in one
@@ -198,14 +207,14 @@ class BSRGANtrans(BSRGAN):
         if device is not None:
             self.to(device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, trunk_fn: Any = None) -> torch.Tensor:
         if x.shape[1] % 2 or x.shape[2] % 2:
             raise ValueError(
                 f"bsrgantrans needs even frame sizes, got {x.shape[1]}x{x.shape[2]}: the "
                 "stride-2 bottleneck would not give back the trunk's size (serve with "
                 "--bucket 2 to pad odd frames)"
             )
-        return super().forward(x)
+        return super().forward(x, trunk_fn)
 
     def _kv_valid(self, h2: int, w2: int, device: torch.device) -> torch.Tensor | None:
         """The keys this rank contributes: every token but those of the halo

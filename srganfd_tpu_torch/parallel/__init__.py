@@ -1,4 +1,5 @@
-"""Parallelism of the port: tiled inference, and the ``data`` axis on
+"""Parallelism of the port: tiled inference, and the mesh axes on
 ``torch.distributed`` (``mesh.py``, ``comm.py``): data-parallel training,
 ``--data-shard``, ``--spatial-shard`` (``spatial.py``) with ring and Ulysses
-attention (``ring_attention.py``, ``ulysses.py``)."""
+attention (``ring_attention.py``, ``ulysses.py``), pipeline parallelism over
+the trunk (``pipeline.py``) and tensor parallelism (``tensor.py``)."""

@@ -1,21 +1,24 @@
-"""Process group, the ``data`` axis and the cluster-wide flag of the port
+"""Process group, mesh axes and the cluster-wide flag of the port
 (counterpart of ``srganfd_tpu/parallel/mesh.py``).
 
-The JAX package runs data parallelism over a device mesh whose ``data``
-axis shards each batch, with the gradient psum inserted by XLA. The port
-runs one process per rank on ``torch.distributed``: every rank holds the
-whole state and its own shard of each batch (the global batch, which no
-rank holds whole, is the ranks' batches in rank order, as
-``jax.make_array_from_process_local_data`` assembles it), and the
-collectives are written out (``parallel/comm.py``). A world of one, without a group, is
-what ``make_mesh()`` over one device gives in JAX: nothing is sharded and
-no collective runs.
+The JAX package lays its devices out in a mesh whose named axes shard the
+work: ``data`` shards each batch (the gradient psum inserted by XLA),
+``pipe`` stages the RRDB trunk's depth (``parallel/pipeline.py``) and
+``model`` splits the convs' output channels (``parallel/tensor.py``). The
+port runs one process per rank on ``torch.distributed``: :func:`make_mesh`
+gives rank ``r`` the coordinates of device ``r`` in JAX's row-major
+device grid and one process group per axis line, over which the
+collectives are written out (``parallel/comm.py``). Every rank holds the
+whole state, and its ``data`` row's shard of each batch (the global batch,
+which no rank holds whole, is the rows' batches in row order, as
+``jax.make_array_from_process_local_data`` assembles it); the ranks of
+one row along the other axes hold the same shard. A world of one, without
+a group, is what ``make_mesh()`` over one device gives in JAX: nothing is
+sharded and no collective runs.
 
-Only the ``data`` axis is ported. The ``model`` and ``pipe`` axes (tensor
-and pipeline parallelism) and the multi-slice hybrid mesh raise, naming
-ROADMAP.md A11.
+The multi-slice hybrid mesh (``dcn_mesh_shape``) raises, naming ROADMAP.md
+A11.
 """
-
 from __future__ import annotations
 
 import datetime
@@ -29,7 +32,7 @@ import torch.distributed as dist
 from srganfd_tpu_torch.parallel import comm
 
 __all__ = [
-    "maybe_init_distributed", "make_mesh", "make_hybrid_mesh", "FlagConsensus", "INIT_TIMEOUT_S",
+    "maybe_init_distributed", "Mesh", "make_mesh", "make_hybrid_mesh", "FlagConsensus", "INIT_TIMEOUT_S",
 ]
 
 # a rank whose peer never comes fails after this long instead of hanging
@@ -86,25 +89,77 @@ def maybe_init_distributed(device: torch.device | str = "cuda", timeout_s: float
     return True
 
 
-def make_mesh(shape: tuple[int, ...] = (-1,), axes: tuple[str, ...] = ("data",)) -> int:
-    """Check a config's mesh against the port's one ``data`` axis over
-    every rank (``make_mesh()``'s default) and return that axis's length,
-    the world; a single ``-1`` absorbs the ranks as in JAX. Any other axis,
-    or a shape that does not cover the world, raises: tensor and pipeline
-    axes are not ported."""
+class Mesh:
+    """This rank's place in a mesh of named axes: for each axis its size,
+    this rank's index along it and the process group of the ranks that
+    differ from this one only along it (``comm.SELF`` for an axis of one
+    rank, the default group for an axis that spans the world). ``world``
+    is the number of ranks the mesh covers."""
+
+    def __init__(self, axes: tuple[str, ...], shape: tuple[int, ...], coords: tuple[int, ...],
+                 groups: tuple[comm.Group, ...]) -> None:
+        self.axes = axes
+        self.shape = dict(zip(axes, shape))
+        self.world = math.prod(shape)
+        self._coords = dict(zip(axes, coords))
+        self._groups = dict(zip(axes, groups))
+
+    def size(self, axis: str) -> int:
+        """The axis's length; 1 for an axis the mesh does not have."""
+        return self.shape.get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        """This rank's index along the axis; 0 for an axis the mesh does not have."""
+        return self._coords.get(axis, 0)
+
+    def group(self, axis: str) -> comm.Group:
+        """The process group of this rank's line along the axis."""
+        return self._groups.get(axis, comm.SELF)
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, rank at {self._coords})"
+
+
+def make_mesh(shape: tuple[int, ...] = (-1,), axes: tuple[str, ...] = ("data",)) -> Mesh:
+    """The mesh of a config's ``mesh_shape`` and ``mesh_axes`` over every
+    rank (the JAX ``make_mesh``; its default is the ``data`` axis over all
+    of them); a single ``-1`` absorbs the ranks as in JAX, and a shape
+    that does not cover the world raises. Rank ``r`` takes the coordinates
+    of device ``r`` in JAX's row-major reshape of the devices: on ``(2, 4)``
+    ``("data", "pipe")``, ``data = r // 4`` and ``pipe = r % 4``. It is a
+    collective: every rank must call it, with the same arguments, at the
+    same point, since each creates every axis line's group in one order.
+    The ``data`` coordinates become the process's data shard
+    (``comm.data_rank``, ``comm.data_world``)."""
     axes, shape = tuple(axes), list(shape)
-    if axes != ("data",):
-        raise NotImplementedError(
-            f"mesh axes {axes}: the port runs the 'data' axis only; the 'model' and 'pipe' axes "
-            "(tensor and pipeline parallelism) are not ported yet: see ROADMAP.md A11"
-        )
+    if len(set(axes)) != len(axes) or len(axes) != len(shape):
+        raise ValueError(f"mesh axes {axes} for shape {tuple(shape)}: one distinct name per dimension")
     n = comm.world()
     if -1 in shape:
         known = math.prod(s for s in shape if s != -1)
-        shape[shape.index(-1)] = n // known
-    if math.prod(shape) != n:
-        raise ValueError(f"mesh shape {tuple(shape)} != {n} ranks (see ROADMAP.md A11)")
-    return n
+        shape[shape.index(-1)] = n // known if known and n % known == 0 else -1
+    if math.prod(shape) != n or min(shape) < 1:
+        raise ValueError(f"mesh shape {tuple(shape)} != {n} ranks")
+    grid = torch.arange(n).reshape(shape)
+    r = comm.rank()
+    coords = tuple(int(c) for c in (grid == r).nonzero()[0])
+    groups = []
+    for d, size in enumerate(shape):
+        if size == 1:
+            groups.append(comm.SELF)
+        elif size == n:
+            groups.append(None)
+        else:
+            mine = None
+            # every rank creates every line's group, in the grid's order
+            for line in grid.movedim(d, -1).reshape(-1, size).tolist():
+                g = dist.new_group(line)
+                if r in line:
+                    mine = g
+            groups.append(mine)
+    mesh = Mesh(axes, tuple(shape), coords, tuple(groups))
+    comm.set_data_axis(mesh.index("data"), mesh.size("data"))
+    return mesh
 
 
 def make_hybrid_mesh(*args: Any, **kwargs: Any) -> None:

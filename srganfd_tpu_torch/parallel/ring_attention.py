@@ -14,8 +14,10 @@ its own) and are left out of the global key set.
 
 :func:`ring_attention_loop` is the same algorithm in one process over a
 list of shards, with no collective: the per-hop update is one function,
-so on one device the two agree bit for bit. Forward only: gradients
-through the ring are not ported (ROADMAP.md A11).
+so on one device the two agree bit for bit. Both are differentiable:
+the ring's backward is autograd through :func:`comm.ppermute`, whose
+transpose sends each block's cotangent back around the ring, as JAX's
+``jax.grad`` transposes the scan's ``ppermute``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ import math
 import torch
 
 from srganfd_tpu_torch.parallel import comm
-from srganfd_tpu_torch.parallel.comm import forward_only
 
 __all__ = ["ring_attention", "ring_attention_loop"]
 
@@ -44,11 +45,12 @@ def _hop(acc, m, l, q32, kb, vb, mask):
     A query that has seen no valid key keeps m = -inf and contributes 0."""
     scale = 1.0 / math.sqrt(q32.shape[-1])
     s = torch.einsum("nqhd,nkhd->nhqk", q32, kb) * scale
-    keep = mask[None, None, None, :]
-    blk_max = torch.where(keep, s, -math.inf).amax(-1)
-    m_new = torch.maximum(m, blk_max)
+    # the masked scores are -inf before the exp, so that no masked score
+    # can overflow it and turn the backward's 0 into a NaN
+    s = torch.where(mask[None, None, None, :], s, -math.inf)
+    m_new = torch.maximum(m, s.amax(-1))
     safe_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
-    p = torch.where(keep, torch.exp(s - safe_m[..., None]), 0.0)
+    p = torch.exp(s - safe_m[..., None])
     corr = torch.where(torch.isfinite(m), torch.exp(m - safe_m), 0.0)
     l = l * corr + p.sum(-1)
     acc = acc * corr[..., None] + torch.einsum("nhqk,nkhd->nhqd", p, vb)
@@ -63,27 +65,26 @@ def _mask(kv_valid: torch.Tensor | None, t: int, device: torch.device) -> torch.
     return torch.ones(t, dtype=torch.bool, device=device) if kv_valid is None else kv_valid.to(torch.bool)
 
 
-@forward_only
 def ring_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: torch.Tensor | None = None
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: torch.Tensor | None = None,
+    group: comm.Group = None,
 ) -> torch.Tensor:
-    """Exact attention across the ranks of the default group. q/k/v: this
-    rank's ``(N, T_loc, H, D)`` block of the sharded token axis;
-    ``kv_valid``: optional ``(T_loc,)`` bool mask of the keys this rank
-    contributes. Returns ``(N, T_loc, H, D)`` in q's dtype."""
-    n_ranks = comm.world()
+    """Exact attention across the ranks of ``group`` (the default group
+    when None). q/k/v: this rank's ``(N, T_loc, H, D)`` block of the
+    sharded token axis; ``kv_valid``: optional ``(T_loc,)`` bool mask of the
+    keys this rank contributes. Returns ``(N, T_loc, H, D)`` in q's dtype."""
+    n_ranks = comm.world(group)
     q32, kb, vb = q.float(), k.float(), v.float()
     mask = _mask(kv_valid, q.shape[1], q.device)
     acc, m, l = _carries(q)
     for hop in range(n_ranks):
         acc, m, l = _hop(acc, m, l, q32, kb, vb, mask)
         if hop + 1 < n_ranks:  # JAX rotates after the last hop too; nothing reads that block
-            kb, vb = comm.ppermute(kb, 1), comm.ppermute(vb, 1)
-            mask = comm.ppermute(mask.to(torch.uint8), 1).to(torch.bool)
+            kb, vb = comm.ppermute(kb, 1, group), comm.ppermute(vb, 1, group)
+            mask = comm.ppermute(mask.to(torch.uint8), 1, group).to(torch.bool)
     return _finish(acc, l, q.dtype)
 
 
-@forward_only
 def ring_attention_loop(
     qs: list[torch.Tensor], ks: list[torch.Tensor], vs: list[torch.Tensor],
     kv_valid: list[torch.Tensor | None] | None = None,

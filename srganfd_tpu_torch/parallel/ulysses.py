@@ -10,8 +10,9 @@ ring attention takes any count. Scores are O(T_glob^2) per rank: on large
 frames ring attention (O(T_loc^2) per hop) is the backend that fits.
 
 :func:`ulysses_attention_loop` computes the same head groups in one
-process over a list of shards, with no collective. Forward only:
-gradients are not ported (ROADMAP.md A11).
+process over a list of shards, with no collective. Both are
+differentiable: the backward is autograd through :func:`comm.all_to_all`,
+whose transpose is the all-to-all with the two axes swapped.
 """
 
 from __future__ import annotations
@@ -21,7 +22,6 @@ import math
 import torch
 
 from srganfd_tpu_torch.parallel import comm
-from srganfd_tpu_torch.parallel.comm import forward_only
 
 __all__ = ["ulysses_attention", "ulysses_attention_loop", "check_heads"]
 
@@ -44,26 +44,26 @@ def _attend(q32: torch.Tensor, k32: torch.Tensor, v32: torch.Tensor, mask: torch
     return torch.einsum("nhqk,nkhd->nqhd", s.softmax(-1), v32)
 
 
-@forward_only
 def ulysses_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: torch.Tensor | None = None
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: torch.Tensor | None = None,
+    group: comm.Group = None,
 ) -> torch.Tensor:
-    """Exact attention through head-sharded all-to-alls. q/k/v: this rank's
-    ``(N, T_loc, H, D)`` block of the sharded token axis, ``H`` a multiple
-    of the world; ``kv_valid`` as ring attention's. Returns
-    ``(N, T_loc, H, D)`` in q's dtype."""
-    n = comm.world()
+    """Exact attention through head-sharded all-to-alls over ``group`` (the
+    default group when None). q/k/v: this rank's ``(N, T_loc, H, D)`` block
+    of the sharded token axis, ``H`` a multiple of the group's size;
+    ``kv_valid`` as ring attention's. Returns ``(N, T_loc, H, D)`` in q's
+    dtype."""
+    n = comm.world(group)
     check_heads(q.shape[2], n)
     # (N, T_loc, H, D) -> (N, T_glob, H / n, D)
-    q32, k32, v32 = (comm.all_to_all(t.float(), 2, 1) for t in (q, k, v))
+    q32, k32, v32 = (comm.all_to_all(t.float(), 2, 1, group) for t in (q, k, v))
     mask = None
     if kv_valid is not None:
-        mask = comm.all_gather(kv_valid.to(torch.uint8), 0).to(torch.bool)
+        mask = comm.all_gather(kv_valid.to(torch.uint8), 0, group).to(torch.bool)
     out = _attend(q32, k32, v32, mask)
-    return comm.all_to_all(out, 1, 2).to(q.dtype)  # back to (N, T_loc, H, D)
+    return comm.all_to_all(out, 1, 2, group).to(q.dtype)  # back to (N, T_loc, H, D)
 
 
-@forward_only
 def ulysses_attention_loop(
     qs: list[torch.Tensor], ks: list[torch.Tensor], vs: list[torch.Tensor],
     kv_valid: list[torch.Tensor | None] | None = None,

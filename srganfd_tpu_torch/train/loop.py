@@ -106,10 +106,20 @@ sharded batch, so each of its batch reductions is a global one; here:
 With accumulation the JAX step cuts the *global* batch into contiguous
 chunks, so a chunk's BatchNorm statistics and relativistic means span
 other rows than any rank's chunk: that combination raises (ROADMAP.md
-A11). Plain BCE and L1 steps accumulate exactly.
+A11) when the ``data`` axis has more than one row. Plain BCE and L1 steps
+accumulate exactly.
 
-Not ported yet: the ``model`` and ``pipe`` mesh axes, ``pipeline_microbatches``
-and ``dcn_mesh_shape`` (A11), rejected with their ROADMAP.md item.
+The mesh (``cfg.mesh_shape``/``cfg.mesh_axes``, ``parallel/mesh.py``): the
+ranks of one ``data`` row hold the same shard. A ``pipe`` axis pipelines
+G's trunk (``parallel/pipeline.py``, the JAX ``pipelined_full_apply``) in
+``pipeline_microbatches`` microbatches (0: one a stage) whenever they
+divide the rank's batch, the sequential trunk otherwise (eval's batch of
+one), as the JAX ``_g_apply`` does; it needs ``g_kwargs`` with
+``scan_blocks``. Each block's gradient then lies on its owner rank: the
+trunk's gradients are summed over the ``pipe`` axis before the average
+over the ranks, which leaves every rank's whole G, Adam and EMA alike, as
+the JAX state stays one whole tree. The other axes replicate the step.
+The multi-slice ``dcn_mesh_shape`` raises, naming ROADMAP.md A11.
 """
 
 from __future__ import annotations
@@ -122,7 +132,8 @@ from srganfd_tpu_torch.losses.gan import bce_with_logits, relativistic_d_loss, r
 from srganfd_tpu_torch.models import check_ported, create_model
 from srganfd_tpu_torch.models.blocks import BatchNorm
 from srganfd_tpu_torch.parallel import comm
-from srganfd_tpu_torch.parallel.mesh import make_hybrid_mesh, make_mesh
+from srganfd_tpu_torch.parallel.mesh import Mesh, make_hybrid_mesh, make_mesh
+from srganfd_tpu_torch.parallel.pipeline import pipelined_full_apply
 from srganfd_tpu_torch.train.schedule import multistep_lr
 from srganfd_tpu_torch.train.state import TrainState, ema_update
 from srganfd_tpu_torch.utils.profiling import annotate
@@ -176,13 +187,8 @@ def _d_train_mode(d: torch.nn.Module, x: torch.Tensor, update_stats: bool) -> Lo
 
 
 def _reject_unported(cfg: ExperimentConfig) -> None:
-    if cfg.pipeline_microbatches > 0:
-        raise NotImplementedError(
-            "pipeline_microbatches is not ported to srganfd_tpu_torch yet: see ROADMAP.md A11"
-        )
     if cfg.dcn_mesh_shape is not None:
         make_hybrid_mesh()  # raises, naming the item
-    make_mesh(cfg.mesh_shape, cfg.mesh_axes)  # raises for another axis or a shape that is not the world's
     if cfg.d_arch is not None:
         check_ported(cfg.d_arch)
         if not cfg.is_gan:
@@ -230,14 +236,31 @@ def _clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
+def _all_reduce_in_place(tensors: list[torch.Tensor], group: comm.Group = None) -> None:
+    """Every tensor replaced, in place, by its sum over ``group`` (every
+    rank when None): one all-reduce of them flattened into one buffer."""
+    if not tensors:
+        return
+    flat = comm.all_reduce(torch.cat([t.reshape(-1) for t in tensors]), group=group)
+    for t, s in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(s.view_as(t))
+
+
+def _sum_over(params: list[torch.nn.Parameter], group: comm.Group) -> None:
+    """Every parameter's gradient summed over ``group``, a parameter without
+    one taken as zeros (a pipeline stage's blocks that another rank owns)."""
+    for q in params:
+        if q.grad is None:
+            q.grad = torch.zeros_like(q)
+    _all_reduce_in_place([q.grad for q in params], group)
+
+
 def _average_over_ranks(grads: list[torch.Tensor]) -> None:
     """Every rank's gradients replaced, in place, by their mean over the
-    ranks: one all-reduce of the gradients flattened into one buffer."""
-    if not grads:
-        return
-    flat = comm.all_reduce(torch.cat([g.reshape(-1) for g in grads])) / comm.world()
-    for g, t in zip(grads, flat.split([g.numel() for g in grads])):
-        g.copy_(t.view_as(g))
+    ranks."""
+    if grads:
+        _all_reduce_in_place(grads)
+        torch._foreach_div_(grads, float(comm.world()))
 
 
 def _mean_of(per_chunk: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
@@ -255,9 +278,22 @@ class Trainer:
         cfg: ExperimentConfig,
         steps_per_epoch: int = 1000,
         device: torch.device | str = "cpu",
+        mesh: Mesh | None = None,
     ) -> None:
+        """``mesh``: the one ``cli.train`` made of ``cfg``'s mesh fields
+        before its datasets (``make_mesh`` is a collective); made here when
+        None."""
         _reject_unported(cfg)
         self.cfg = cfg
+        self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh_shape, cfg.mesh_axes)
+        self.microbatches = 0  # the pipe axis's M; 0 without one
+        if "pipe" in self.mesh.axes:
+            if not cfg.g_kwargs.get("scan_blocks", False):
+                raise ValueError(
+                    "a 'pipe' mesh axis needs the scanned trunk layout: set "
+                    "g_kwargs={'scan_blocks': True} (RRDB-trunk generators only)"
+                )
+            self.microbatches = cfg.pipeline_microbatches or self.mesh.size("pipe")
         self.device = torch.device(device)
         self.dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         milestones = tuple(m * steps_per_epoch for m in cfg.milestones_epochs)
@@ -301,7 +337,7 @@ class Trainer:
             if d_init is not None:
                 d.load_state_dict(d_init)
             batchnorm = any(isinstance(m, BatchNorm) for m in d.modules())
-            if self.world > 1 and self.accum > 1 and (cfg.relativistic_gan or batchnorm):
+            if self.mesh.size("data") > 1 and self.accum > 1 and (cfg.relativistic_gan or batchnorm):
                 raise NotImplementedError(
                     "grad_accum_steps > 1 under data parallelism with a BatchNorm D or the relativistic loss: "
                     "the JAX step takes each chunk's statistics over a slice of the global batch that no "
@@ -336,7 +372,7 @@ class Trainer:
         elif self.accum == 1:
             # one generator forward, whose graph both updates share
             with annotate("g_forward"):
-                sr = state.g_model(lr_img)
+                sr = self._g_apply(state.g_model, lr_img)
             metrics = self._d_update(state, gt, sr.detach())
             parts, _ = self._g_update(state, target, lr_img, sr=sr)
         else:
@@ -344,7 +380,7 @@ class Trainer:
             # exist to free, so D takes a forward without one (the JAX step's
             # residual-free forward) and the G phase recomputes by chunk
             with annotate("g_forward"), torch.no_grad():
-                sr = state.g_model(lr_img)
+                sr = self._g_apply(state.g_model, lr_img)
             metrics = self._d_update(state, gt, sr)
             parts, _ = self._g_update(state, target, lr_img)
         state.step += 1
@@ -355,6 +391,18 @@ class Trainer:
             mean = comm.all_reduce(torch.stack([metrics[k].to(dt) for k in keys])) / self.world
             metrics = {k: m.to(metrics[k].dtype) for k, m in zip(keys, mean.unbind(0))}
         return metrics
+
+    def _pipelined(self, rows: int) -> bool:
+        """Whether G's trunk runs pipelined on a batch of ``rows`` frames:
+        on a pipe axis whose microbatches divide it."""
+        return self.microbatches > 0 and rows % self.microbatches == 0
+
+    def _g_apply(self, model: torch.nn.Module, lr_img: torch.Tensor) -> torch.Tensor:
+        """G's forward: the pipelined trunk where :meth:`_pipelined`, else
+        the module's own (the JAX ``_g_apply``)."""
+        if self._pipelined(lr_img.shape[0]):
+            return pipelined_full_apply(model, self.mesh, microbatches=self.microbatches)(lr_img)
+        return model(lr_img)
 
     def _chunks(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
         """The batch in ``grad_accum_steps`` chunks (the JAX ``_chunk``)."""
@@ -405,11 +453,13 @@ class Trainer:
             for sr_i, t_i, lr_i in pairs:
                 if sr_i is None:
                     with annotate("g_forward"):
-                        sr_i = state.g_model(lr_i)
+                        sr_i = self._g_apply(state.g_model, lr_i)
                 parts = self._g_losses(state, sr_i, t_i)
                 parts["g_loss"].backward(inputs=params)
                 per_chunk.append({k: v.detach() for k, v in parts.items()})
                 srs.append(sr_i.detach())
+            if self._pipelined(srs[0].shape[0]):  # each block's gradient lies on its owner rank
+                _sum_over(list(state.g_model.trunk.parameters()), self.mesh.group("pipe"))
             applied = self._apply_update(state.g_opt, params)
         if applied:
             with annotate("ema"):
@@ -497,5 +547,7 @@ class Trainer:
 
     @torch.inference_mode()
     def eval_sr(self, state: TrainState, lr_img: torch.Tensor) -> torch.Tensor:
-        """SR of ``lr_img`` by G (the reference validates the raw generator)."""
-        return state.g_model(lr_img)
+        """SR of ``lr_img`` by G (the reference validates the raw generator);
+        pipelined where the batch divides into the microbatches, so the
+        ranks of a pipe axis call it alike."""
+        return self._g_apply(state.g_model, lr_img)

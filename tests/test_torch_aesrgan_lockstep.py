@@ -61,6 +61,11 @@ def test_aesrgan_lockstep_with_jax_trainer():
 
     init = {k: _t(v) for k, v in flax_to_state_dict(jst.g_params).items()}
     d_init = {k: _t(v) for k, v in _d_state(jst.d_params, jst.d_vars).items()}
+    # the step gives the gates' running statistics back in the f64 compute
+    # dtype; starting from them in f64 (exactly the f32 values, which the
+    # update promotes anyway) lets the second step reuse the first's compile
+    jst = jst.replace(d_vars={**jst.d_vars, "batch_stats": jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.float64), jst.d_vars["batch_stats"])})
     tr = Trainer(cfg, steps_per_epoch=1)
     st = tr.init_state(init, d_init)
     keys = ("d_loss", "d_gt_probability", "d_sr_probability", "pixel_loss", "adversarial_loss", "g_loss")

@@ -60,9 +60,11 @@ def first_step(monkeypatch):
     real = Trainer.train_step
 
     def recorded(self, state, *a, **kw):
-        if not seen or seen[-1]["step_of_run"] != id(state):
+        # the state itself, not its id: a finished run's state may be freed
+        # and the next run's take its address
+        if not seen or seen[-1]["run_state"] is not state:
             seen.append({
-                "step_of_run": id(state), "step": state.step,
+                "run_state": state, "step": state.step,
                 "g": {k: v.detach().clone() for k, v in state.g_model.state_dict().items()},
                 "ema": {k: v.clone() for k, v in state.ema_g.items()},
                 "d": None if state.d_model is None else {k: v.clone() for k, v in state.d_model.state_dict().items()},

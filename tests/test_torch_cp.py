@@ -16,7 +16,10 @@ timeout; the JAX side runs here. Held at 1e-5:
 - a tiny ``bsrgantrans_x2`` (16 channels, growth 8, 2 RRDBs, 4 heads of
   4) sharded by rows on 2 ranks with ring attention and on 4 with Ulysses,
   against JAX's ``spatial_sharded_sr`` of the model with ``ring_axis``, and
-  its one-process loop (``forward_shards``) bit for bit.
+  its one-process loop (``forward_shards``) bit for bit;
+- the gradients through ring and Ulysses attention on 2 and 4 ranks, and
+  through the one-process loops, against ``jax.grad`` of masked full
+  attention.
 """
 
 import functools
@@ -38,7 +41,7 @@ from srganfd_tpu.parallel.ulysses import ulysses_attention as jax_ulysses
 from srganfd_tpu_torch.convert import flax_to_state_dict
 from srganfd_tpu_torch.models import create_model as create_port
 from test_torch_bsrgantrans import ARCH, TINY, trans_params
-from torch_dist_worker import run_ranks
+from torch_dist_worker import start_ranks
 from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 N, HEADS, D = 2, 4, 8
@@ -56,6 +59,10 @@ def _qkv(n):
     row = np.arange(t) % T_PER_RANK[n]
     mask = (row >= 2) & (row < T_PER_RANK[n] - 2)  # each shard's halo tokens left out
     return q, k, v, mask
+
+
+def _cot(n):
+    return np.random.default_rng(10 + n).normal(size=(N, T_PER_RANK[n] * n, HEADS, D)).astype(np.float32)
 
 
 def _reference(q, k, v, mask):
@@ -89,12 +96,15 @@ def ranks(tmp_path_factory):
     for n in (2, 3, 4):
         q, k, v, mask = _qkv(n)
         cases = [(b, "attention", {"backend": b, "q": q, "k": k, "v": v, "kv_valid": mask}) for b in BACKENDS]
+        if n != 3:
+            cases += [(f"{b}_grad", "attention_grad", {"backend": b, "q": q, "k": k, "v": v, "cot": _cot(n),
+                                                       "kv_valid": mask}) for b in BACKENDS]
         if n in TRANS:
             cases.append(("trans", "spatial", {"arch": ARCH, "kwargs": TINY, "state": _trans_state(),
                                                "image": _frame(), "halo": HALO, "row_multiple": 2,
                                                "cp": TRANS[n]}))
-        out[n] = run_ranks(n, cases, tmp_path_factory.mktemp(f"cp{n}"), timeout=150)
-    return out
+        out[n] = start_ranks(n, cases, tmp_path_factory.mktemp(f"cp{n}"), timeout=200)
+    return {n: handle.wait() for n, handle in out.items()}  # the three launches run at once
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -185,21 +195,28 @@ def test_ring_axis_names_the_data_axis_only():
         _port_trans(ring_axis="model", ring_halo=HALO)
 
 
+@pytest.mark.parametrize("n", [2, 4])
 @pytest.mark.parametrize("backend", BACKENDS)
-def test_gradients_through_cp_attention_are_refused_naming_the_item(backend):
-    """The context-parallel attentions are forward only: a call autograd
-    would differentiate raises, naming ROADMAP.md A11 (JAX differentiates
-    them, ``tests/test_ring_attention.py``, but no entry point does), while
-    a call without a graph runs."""
-    from srganfd_tpu_torch.parallel.ring_attention import ring_attention
-    from srganfd_tpu_torch.parallel.ulysses import ulysses_attention
+def test_gradients_through_cp_attention_match_jax(backend, n, ranks):
+    """dq, dk and dv of ``sum(attention * cot)`` through ring or Ulysses
+    attention on ``n`` ranks, and through the one-process loop, equal
+    ``jax.grad`` of masked full attention to 1e-5 (as
+    ``tests/test_ring_attention.py`` and ``tests/test_ulysses.py`` hold
+    JAX's); the masked keys' dk and dv are 0."""
+    q, k, v, mask = _qkv(n)
+    cot = _cot(n)
 
-    fn = ring_attention if backend == "ring" else ulysses_attention
-    q = torch.randn(1, 8, HEADS, D, requires_grad=True)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A11"):
-        fn(q, q, q)
-    with torch.no_grad():
-        assert fn(q, q, q).shape == q.shape
-    model = _port_trans(ring_axis="data", ring_halo=HALO, cp_backend=backend)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A11"):
-        model(torch.rand(1, 16, 12, 3))
+    def loss(q, k, v):
+        s = jnp.einsum("nqhd,nkhd->nhqk", q, k) / math.sqrt(D)
+        w = jax.nn.softmax(jnp.where(mask[None, None, None, :], s, -jnp.inf), -1)
+        return jnp.sum(jnp.einsum("nhqk,nkhd->nqhd", w, v) * cot)
+
+    want = [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))]
+    results = [r[f"{backend}_grad"] for r in ranks[n]]
+    assert all("error" not in r for r in results), results
+    for i, name in enumerate("qkv"):
+        got = np.concatenate([r["grads"][i] for r in results], 1)
+        np.testing.assert_allclose(got, want[i], atol=1e-5, rtol=0, err_msg=f"d{name}")
+        np.testing.assert_allclose(results[0]["loop"][i], want[i], atol=1e-5, rtol=0, err_msg=f"loop d{name}")
+        if name != "q":
+            assert not got[:, ~mask].any()

@@ -41,7 +41,7 @@ from srganfd_tpu.train.loop import Trainer as JaxTrainer
 from srganfd_tpu.train.state import GanTrainState
 from srganfd_tpu_torch.convert import discriminator_flax_to_state_dict, flax_to_state_dict
 from test_torch_esrgan_lockstep import KEYS, LOGIT_BIAS, ROUNDOFF_BOUND, _d_state, _jax_state_in_f64
-from torch_dist_worker import run_ranks
+from torch_dist_worker import start_ranks
 from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 WORLD = 2
@@ -122,39 +122,31 @@ def _pairs(name):
 
 
 @pytest.fixture(scope="module")
-def jax_runs():
-    """The JAX data-parallel steps of both configs and their initial states."""
+def jax_inits():
+    """Per config the JAX trainer, its initial state in f64, replicated on a
+    2-device ``data`` mesh, and that state as the port's state dicts."""
     mesh = make_mesh(devices=jax.devices()[:WORLD])
-    rep, batch = NamedSharding(mesh, P()), NamedSharding(mesh, P("data"))
-    runs = {}
+    inits = {}
     for name in CONFIGS:
         jtr = JaxTrainer(jax_configs.get_config(name, **OVER[name]), steps_per_epoch=1)
         jst = _jax_state_in_f64(jtr, _init_state(jtr, name))
-        gan = name != "bsrnet"
         init = {k: np.array(v) for k, v in flax_to_state_dict(jst.g_params).items()}
-        d_init = {k: np.array(v) for k, v in _d_tree(name, jst.d_params, jst.d_vars).items()} if gan else None
-        jst = jax.device_put(jst, rep)
-        gts, lrs = _pairs(name)
-        metrics = []
-        for i in range(N_STEPS):
-            jst, m = jtr.train_step(jst, jax.device_put(jnp.asarray(gts[i]), batch),
-                                    jax.device_put(jnp.asarray(lrs[i]), batch))
-            metrics.append([float(m[k]) for k in KEYS[name]])
-        trees = {"g": flax_to_state_dict(jst.g_params), "ema": flax_to_state_dict(jst.ema_g_params)}
-        if gan:
-            trees["d"] = _d_tree(name, jst.d_params, jst.d_vars)
-        runs[name] = {"init": init, "d_init": d_init, "metrics": metrics,
-                      "trees": {t: {k: np.asarray(v) for k, v in d.items()} for t, d in trees.items()}}
-    return runs
+        d_init = (None if name == "bsrnet" else
+                  {k: np.array(v) for k, v in _d_tree(name, jst.d_params, jst.d_vars).items()})
+        inits[name] = {"jtr": jtr, "jst": jax.device_put(jst, NamedSharding(mesh, P())), "init": init,
+                       "d_init": d_init}
+    return {"mesh": mesh, "inits": inits}
 
 
 @pytest.fixture(scope="module")
-def dp(jax_runs, tmp_path_factory):
+def launch(jax_inits, tmp_path_factory):
+    """The ranks, started before the JAX steps run here (they take the
+    converted initial states only), collected by ``dp``."""
     cases = []
     for name in CONFIGS:
         gts, lrs = _pairs(name)
-        run = jax_runs[name]
-        kw = dict(name=name, overrides=OVER[name], init=run["init"], d_init=run["d_init"], gts=gts, lrs=lrs)
+        init = jax_inits["inits"][name]
+        kw = dict(name=name, overrides=OVER[name], init=init["init"], d_init=init["d_init"], gts=gts, lrs=lrs)
         cases.append((name, "dp_train", kw))
         if name == "esrgan":
             cases += [(f"esrgan_{p}", "dp_train", {**kw, "plant": p}) for p in PLANTS]
@@ -172,7 +164,35 @@ def dp(jax_runs, tmp_path_factory):
         "--config", "bsrnet", "--device-type", "cpu", "--tiny", "--train-dir", str(frames),
         "--valid-dir", str(frames), "--gt-size", "24", "--batch-size", "1", "--epochs", "1"]}))
     run_dir = tmp_path_factory.mktemp("dp")  # the ranks' working directory
-    return {"ranks": run_ranks(WORLD, cases, run_dir, timeout=240), "run_dir": str(run_dir)}
+    return {"ranks": start_ranks(WORLD, cases, run_dir, timeout=300), "run_dir": str(run_dir)}
+
+
+@pytest.fixture(scope="module")
+def jax_runs(jax_inits, launch):
+    """The JAX data-parallel steps of every config (while the ranks run)
+    and their initial states."""
+    batch = NamedSharding(jax_inits["mesh"], P("data"))
+    runs = {}
+    for name in CONFIGS:
+        init = jax_inits["inits"][name]
+        jtr, jst = init["jtr"], init["jst"]
+        gts, lrs = _pairs(name)
+        metrics = []
+        for i in range(N_STEPS):
+            jst, m = jtr.train_step(jst, jax.device_put(jnp.asarray(gts[i]), batch),
+                                    jax.device_put(jnp.asarray(lrs[i]), batch))
+            metrics.append([float(m[k]) for k in KEYS[name]])
+        trees = {"g": flax_to_state_dict(jst.g_params), "ema": flax_to_state_dict(jst.ema_g_params)}
+        if name != "bsrnet":
+            trees["d"] = _d_tree(name, jst.d_params, jst.d_vars)
+        runs[name] = {"init": init["init"], "d_init": init["d_init"], "metrics": metrics,
+                      "trees": {t: {k: np.asarray(v) for k, v in d.items()} for t, d in trees.items()}}
+    return runs
+
+
+@pytest.fixture(scope="module")
+def dp(jax_runs, launch):
+    return {"ranks": launch["ranks"].wait(), "run_dir": launch["run_dir"]}
 
 
 def _offs(got: dict, want: dict) -> dict:

@@ -229,25 +229,37 @@ def test_unported_flags_name_the_roadmap_item(argv, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("what", ["model_axis", "pipe_axis", "dcn", "pipeline_microbatches"])
 def test_unported_parallel_modes_name_the_roadmap_item(what):
-    """Tensor and pipeline parallelism, the multi-slice mesh and the pipe
-    axis's microbatches stay refused, naming ROADMAP.md A11, in the mesh
-    and in the trainer that reads a config's mesh fields."""
+    """Of the JAX package's parallel modes only the multi-slice mesh
+    (``dcn_mesh_shape``) stays refused, naming ROADMAP.md A11, in the mesh
+    and in the trainer that reads a config's mesh fields. The ``model`` and
+    ``pipe`` axes build a mesh (one rank here), a ``pipe`` axis asks for the
+    scanned trunk with JAX's ValueError, and the microbatches without a
+    ``pipe`` axis go unused, as in JAX."""
     from srganfd_tpu_torch import configs
-    from srganfd_tpu_torch.parallel import mesh
+    from srganfd_tpu_torch.parallel import comm, mesh
     from srganfd_tpu_torch.train.loop import Trainer
 
+    tiny = {"channels": 8, "growth_channels": 4, "num_rrdb": 1}
     over = {"model_axis": {"mesh_shape": (1, -1), "mesh_axes": ("data", "model")},
             "pipe_axis": {"mesh_shape": (-1, 1), "mesh_axes": ("data", "pipe")},
             "dcn": {"dcn_mesh_shape": (1,)},
             "pipeline_microbatches": {"pipeline_microbatches": 2}}[what]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A11"):
-        Trainer(configs.get_config("bsrnet", g_kwargs={"channels": 8, "growth_channels": 4, "num_rrdb": 1}, **over))
-    if "mesh_axes" in over:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A11"):
-            mesh.make_mesh(over["mesh_shape"], over["mesh_axes"])
+    cfg = configs.get_config("bsrnet", g_kwargs=tiny, **over)
     if what == "dcn":
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A11"):
+            Trainer(cfg)
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A11"):
             mesh.make_hybrid_mesh((-1,), (1,))
+        return
+    if what == "pipe_axis":
+        with pytest.raises(ValueError, match="scan_blocks"):
+            Trainer(cfg)
+        cfg = cfg.replace(g_kwargs={**tiny, "scan_blocks": True})
+    trainer = Trainer(cfg)
+    assert trainer.mesh.world == 1 and trainer.microbatches == (1 if what == "pipe_axis" else 0)
+    if "mesh_axes" in over:
+        built = mesh.make_mesh(over["mesh_shape"], over["mesh_axes"])
+        assert built.shape == dict(zip(over["mesh_axes"], (1, 1))) and built.group(over["mesh_axes"][1]) is comm.SELF
 
 
 @pytest.mark.parametrize("flags", [

@@ -40,7 +40,7 @@ from srganfd_tpu.parallel.spatial import spatial_sharded_sr as jax_spatial_sr
 from srganfd_tpu_torch.convert import flax_to_state_dict
 from test_torch_generator import tiny_kwargs, tiny_params
 from test_torch_serve import _fixed_init_model, _write_png
-from torch_dist_worker import run_ranks
+from torch_dist_worker import run_ranks, start_ranks
 from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 ARCH = "bsrgan_x2"
@@ -103,8 +103,8 @@ def ranks(files, tmp_path_factory):
                                     "halo": HALO}) for name in FRAMES]
         if n == 2:
             cases += _cli_cases(files)
-        out[n] = run_ranks(n, cases, tmp_path_factory.mktemp(f"spatial{n}"), timeout=150)
-    return out
+        out[n] = start_ranks(n, cases, tmp_path_factory.mktemp(f"spatial{n}"), timeout=200)
+    return {n: handle.wait() for n, handle in out.items()}  # the launches run at once
 
 
 @pytest.mark.parametrize("n", WORLDS)
