@@ -298,8 +298,23 @@ drives A-ESRGAN's generators ``gen_rrdb2x`` and ``gen_rpa2x``:
     collective on a CUDA tensor under gloo (printed), and every phase
     prints the collectives gloo ran through host memory.
 
+37. ``dispatch_phase`` (run before 32-36, in one ``--dispatch-worker``
+    subprocess under deterministic algorithms): the native C++ loader
+    builds (or, where the host lacks libjpeg's or libpng's headers, its
+    reason is printed and ``cli.train``'s fallback line is held), its
+    batches of 16 x 320^2 equal for 2 and 8 threads and after a
+    ``start_batch`` seek; full-width ``bsrnet`` under ``SRGANFD_FUSE_STEP=1
+    SRGANFD_STEPS_PER_DISPATCH=2`` (8 steps) and ``bsrgan`` with its D and
+    ``--skip-nonfinite`` under ``SRGANFD_STEPS_PER_DISPATCH=2`` (6 steps),
+    each with CUDA graphs against the same run eager, max abs 0 over G,
+    EMA-G, D and the Adams; the graph run again with the RDB packing's
+    host check frozen in the capture, which must differ; graphs captured,
+    replays, the RDB and filter2d launches a replay, step p50 graph against
+    eager, and the ``Data`` meter before (``BatchLoader``, one step at a
+    time) and after.
+
 ``python3 chip_smoke.py --parallel-only`` builds the kernels and runs
-32-36 alone, without the last two lines.
+32-36 alone, without the last two lines; ``--dispatch-only`` runs 37 alone.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after.
@@ -4110,8 +4125,12 @@ def flash_backward_phase(attn) -> dict:
         def library():
             F.scaled_dot_product_attention(qt, kt, vt).backward(gt)
 
+        def plain():  # autograd through the plain version, what the gradients are held to
+            attn.flash_attention_ref(q, k, v, ATTN_CHUNK).backward(g)
+
         times[tag] = {"flash_fwd_bwd_ms": cuda_ms(ours, iters=5, warmup=1),
-                      "sdpa_fwd_bwd_ms": cuda_ms(library, iters=10, warmup=2)}
+                      "sdpa_fwd_bwd_ms": cuda_ms(library, iters=10, warmup=2),
+                      "plain_fwd_bwd_ms": cuda_ms(plain, iters=2, warmup=1)}
     # fwd: QK^T and PV; bwd: S again, dV, dP, dQ and dK: 14 N H T^2 D; the
     # softmax's exponentials twice; q, k, v, o, dO read, o, dq, dk, dv written
     flops = 14 * n * h * t * t * d
@@ -4121,15 +4140,18 @@ def flash_backward_phase(attn) -> dict:
     bound = max(flops / PEAK_BF16_FLOPS * 1e3, t_exp, 2 * elems / PEAK_HBM_BYTES * 1e3)
     bound_f32 = max(TF32_PRODUCTS * flops / PEAK_TF32_FLOPS * 1e3, t_exp, 4 * elems / PEAK_HBM_BYTES * 1e3)
     print(f"flash forward+backward at q {FLASH_SHAPE}: bf16 {times['bf16']['flash_fwd_bwd_ms']:.3f} ms "
-          f"(scaled_dot_product_attention {times['bf16']['sdpa_fwd_bwd_ms']:.3f} ms, bound {bound:.3f} ms), f32 "
+          f"(scaled_dot_product_attention {times['bf16']['sdpa_fwd_bwd_ms']:.3f} ms, the plain version "
+          f"{times['bf16']['plain_fwd_bwd_ms']:.3f} ms, bound {bound:.3f} ms), f32 "
           f"{times['f32']['flash_fwd_bwd_ms']:.3f} ms (scaled_dot_product_attention "
-          f"{times['f32']['sdpa_fwd_bwd_ms']:.3f} ms, bound {bound_f32:.3f} ms as 3 TF32 products)", flush=True)
+          f"{times['f32']['sdpa_fwd_bwd_ms']:.3f} ms, the plain version {times['f32']['plain_fwd_bwd_ms']:.3f} ms, "
+          f"bound {bound_f32:.3f} ms as 3 TF32 products)", flush=True)
     return {"route": "pytorch (the JAX backward is XLA): exact attention recomputed in f32 by query blocks, "
                      "autograd per block; the forward is the cuda kernel",
             "source": "srganfd_tpu_torch/ops/cuda/attention.py",
             "replaces": "srganfd_tpu/ops/pallas/attention.py:164-187",
             "block_q": block_q, "grad_rel_err": errs, "times": times, "fwd_bwd_ms": times["bf16"]["flash_fwd_bwd_ms"],
-            "library_fwd_bwd_ms": times["bf16"]["sdpa_fwd_bwd_ms"], "bound_fwd_bwd_ms": bound,
+            "library_fwd_bwd_ms": times["bf16"]["sdpa_fwd_bwd_ms"], "plain_fwd_bwd_ms": times["bf16"]["plain_fwd_bwd_ms"],
+            "bound_fwd_bwd_ms": bound,
             "bound_fwd_bwd_f32_ms": bound_f32, "bound_by": "operations"}
 
 
@@ -5556,9 +5578,300 @@ def parallel_phases(work: str, weights: str, smi: str) -> dict:
     return res
 
 
+DISPATCH_K = 2  # SRGANFD_STEPS_PER_DISPATCH of the dispatch phase
+DISPATCH_STEPS = {"bsrnet": 8, "bsrgan": 6}  # one epoch each: 1 eager dispatch, then replays
+LOADER_BATCHES = 6  # batches of 16 x 320^2 read for the loader's own checks
+
+
+def _dispatch_run(name: str, base: str, train_dir: str, valid_dir: str, env: dict, graphs: bool,
+                  plant: bool = False) -> dict:
+    """One full-width cli.train.run_train in its own directory (in the
+    worker process): the final state on the host, each dispatch's (or
+    step's) time on the card, the Data meter, the graphs' counts and the
+    run's standard output."""
+    import contextlib
+
+    from srganfd_tpu_torch import configs
+    from srganfd_tpu_torch.cli import train as cli_train
+    from srganfd_tpu_torch.models import blocks
+    from srganfd_tpu_torch.train import graphs as graphs_mod
+    from srganfd_tpu_torch.train.loop import Trainer
+    from srganfd_tpu_torch.utils.meters import AverageMeter
+
+    cfg_name = "bsrgan" if name.startswith("bsrgan") else "bsrnet"
+    cwd = os.path.join(base, name)
+    os.makedirs(cwd, exist_ok=True)
+    cfg = configs.get_config(cfg_name).replace(
+        train_gt_images_dir=train_dir, valid_gt_images_dir=valid_dir, results_dir=os.path.join(cwd, "results"),
+        epochs=1, skip_nonfinite_updates=cfg_name == "bsrgan")
+    rec = {"dispatch_ms": [], "step_ms": [], "data_s": []}
+    trainers = []
+    real = (Trainer.__init__, Trainer._dispatch, Trainer.train_step, AverageMeter.update,
+            blocks.ResidualDenseBlock.packed, graphs_mod.repack_always)
+
+    def init(self, *a, **kw):
+        real[0](self, *a, **kw)
+        self.cuda_graphs = graphs
+        trainers.append(self)
+
+    def dispatch(self, state, key, fn, inputs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = self.graph_stats().get("replays", 0)
+        m = real[1](self, state, key, fn, inputs)
+        torch.cuda.synchronize()
+        replayed = self.graph_stats().get("replays", 0) > before
+        rec["dispatch_ms"].append((int(inputs[0].shape[0]), (time.perf_counter() - t0) * 1e3, replayed))
+        return m
+
+    def train_step(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = real[2](self, *a, **kw)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        return m
+
+    def update(self, val, n=1):
+        if self.name == "Data":
+            rec["data_s"].append(float(val))
+        real[3](self, val, n)
+
+    frozen = [False]
+
+    def stale_packed(self, dtype):  # the planted fault: the cache's host check frozen in the capture
+        if frozen[0] and self._packed is not None and self._packed[0][0] == dtype:
+            return self._packed[1], self._packed[2]
+        return real[4](self, dtype)
+
+    @contextlib.contextmanager
+    def frozen_cache():
+        frozen[0] = True
+        try:
+            yield
+        finally:
+            frozen[0] = False
+
+    saved_env = {k: os.environ.get(k) for k in ("SRGANFD_NATIVE_LOADER", "SRGANFD_FUSE_STEP",
+                                                 "SRGANFD_STEPS_PER_DISPATCH")}
+    Trainer.__init__, Trainer._dispatch, Trainer.train_step, AverageMeter.update = init, dispatch, train_step, update
+    if plant:
+        blocks.ResidualDenseBlock.packed, graphs_mod.repack_always = stale_packed, frozen_cache
+    out = io.StringIO()
+    try:
+        for k in saved_env:
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        with contextlib.redirect_stdout(out):
+            state = cli_train.run_train(cfg, steps_per_epoch=DISPATCH_STEPS[cfg_name], device="cuda")["state"]
+    finally:
+        (Trainer.__init__, Trainer._dispatch, Trainer.train_step, AverageMeter.update,
+         blocks.ResidualDenseBlock.packed, graphs_mod.repack_always) = real
+        for k, v in saved_env.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    tensors = {f"g.{k}": v.detach().cpu() for k, v in state.g_model.state_dict().items()}
+    tensors.update({f"ema.{k}": v.detach().cpu() for k, v in state.ema_g.items()})
+    if state.d_model is not None:
+        tensors.update({f"d.{k}": v.detach().cpu() for k, v in state.d_model.state_dict().items()})
+    for tag, opt in (("g_opt", state.g_opt), ("d_opt", state.d_opt)):
+        for i, st in enumerate(opt.state.values() if opt is not None else ()):
+            tensors.update({f"{tag}.{i}.{k}": v.detach().cpu() for k, v in st.items()})
+    rec.update(stdout=out.getvalue(), tensors=tensors, stats=trainers[0].graph_stats() if trainers else {},
+               step=state.step, counts=(state.g_count, state.d_count))
+    return rec
+
+
+def dispatch_worker(spec_path: str) -> None:
+    """``chip_smoke.py --dispatch-worker SPEC``: the dispatch phase's runs in
+    one process started with deterministic algorithms and cuBLAS's fixed
+    workspace; writes its results beside SPEC."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, ROOT)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import warnings
+
+    from srganfd_tpu_torch.data import native_loader
+    from srganfd_tpu_torch.data.datasets import list_image_files
+
+    res: dict = {}
+    t0 = time.perf_counter()
+    res["native_available"] = native_loader.available()
+    res["native_build_s"] = time.perf_counter() - t0
+    res["native_reason"] = native_loader.unavailable_reason()
+    if res["native_available"]:
+        paths = list_image_files(spec["train_dir"])
+
+        def take(n, **kw):
+            ld = native_loader.NativeBatchLoader(paths, crop=320, batch_size=16, seed=0, uint8=True, pinned=True, **kw)
+            it = iter(ld)
+            t = time.perf_counter()
+            got = [next(it)["gt"].clone() for _ in range(n)]
+            ms = (time.perf_counter() - t) * 1e3 / n
+            ld.close()
+            return got, ms
+
+        two, ms2 = take(LOADER_BATCHES, num_threads=2)
+        eight, ms8 = take(LOADER_BATCHES, num_threads=8)
+        sought, _ = take(LOADER_BATCHES - 3, num_threads=8, start_batch=3)
+        res["loader"] = {
+            "threads_equal": all(torch.equal(a, b) for a, b in zip(two, eight)),
+            "seek_equal": all(torch.equal(a, b) for a, b in zip(two[3:], sought)),
+            "pinned": bool(two[0].is_pinned()), "shape": list(two[0].shape), "dtype": str(two[0].dtype),
+            "batch_ms_2_threads": ms2, "batch_ms_8_threads": ms8,
+        }
+    runs = {
+        # before this change: BatchLoader, one host-form step a step
+        "bsrnet_before": ({"SRGANFD_NATIVE_LOADER": "0"}, False, False),
+        "bsrnet_eager": ({"SRGANFD_FUSE_STEP": "1", "SRGANFD_STEPS_PER_DISPATCH": str(DISPATCH_K)}, False, False),
+        "bsrnet_graph": ({"SRGANFD_FUSE_STEP": "1", "SRGANFD_STEPS_PER_DISPATCH": str(DISPATCH_K)}, True, False),
+        "bsrnet_stale": ({"SRGANFD_FUSE_STEP": "1", "SRGANFD_STEPS_PER_DISPATCH": str(DISPATCH_K)}, True, True),
+        "bsrgan_eager": ({"SRGANFD_STEPS_PER_DISPATCH": str(DISPATCH_K)}, False, False),
+        "bsrgan_graph": ({"SRGANFD_STEPS_PER_DISPATCH": str(DISPATCH_K)}, True, False),
+    }
+    tensors = {}
+    for name, (env, graphs, plant) in runs.items():
+        t = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            r = _dispatch_run(name, spec["work"], spec["train_dir"], spec["valid_dir"], env, graphs, plant)
+        r["seconds"] = time.perf_counter() - t
+        r["nondeterministic_ops"] = sorted({str(w.message)[:120] for w in caught if "deterministic" in str(w.message)})
+        tensors[name] = r.pop("tensors")
+        res[name] = r
+        torch.cuda.empty_cache()
+
+    def max_abs(a: str, b: str) -> float:
+        ta, tb = tensors[a], tensors[b]
+        assert set(ta) == set(tb), (a, b)
+        return max(float((ta[k].double() - tb[k].double()).abs().max()) if ta[k].is_floating_point()
+                   else float((ta[k] != tb[k]).any()) for k in ta)
+
+    res["graph_vs_eager"] = {"bsrnet": max_abs("bsrnet_graph", "bsrnet_eager"),
+                             "bsrgan": max_abs("bsrgan_graph", "bsrgan_eager"),
+                             "bsrnet_planted_stale_packing": max_abs("bsrnet_stale", "bsrnet_eager")}
+    with open(os.path.join(os.path.dirname(spec_path), "dispatch_result.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _p50(xs: list) -> float:
+    return float(np.percentile(xs, 50)) if xs else float("nan")
+
+
+def dispatch_phase(work: str, smi: str) -> dict:
+    """The native loader, prefetch and both dispatch variables at full
+    width, in a fresh process (``--dispatch-worker``) under deterministic
+    algorithms: the loader's stream for 2 and 8 threads and after a
+    ``start_batch`` seek; ``bsrnet`` (batch 16, pre-crop 320, GT 144, bf16)
+    under ``SRGANFD_FUSE_STEP=1 SRGANFD_STEPS_PER_DISPATCH=2`` and
+    ``bsrgan`` (with its D and ``--skip-nonfinite``) under
+    ``SRGANFD_STEPS_PER_DISPATCH=2``, each with CUDA graphs against the same
+    run eager, bit for bit; the graph run with the RDB cache's host check
+    frozen in the capture (a planted fault) must differ; the Data meter
+    before (BatchLoader) and after (native loader and prefetch)."""
+    base = os.path.join(work, "dispatch")
+    train_dir, valid_dir = os.path.join(base, "train_gt"), os.path.join(base, "valid_gt")
+    write_gt_frames(train_dir, 32, TRAIN_FRAME, seed=30)
+    write_gt_frames(valid_dir, 4, TRAIN_FRAME, seed=31)
+    spec = os.path.join(base, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"work": base, "train_dir": train_dir, "valid_dir": valid_dir}, f)
+    env = dict(os.environ, PYTHONPATH=ROOT, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-u", os.path.join(ROOT, "chip_smoke.py"), "--dispatch-worker", spec],
+                          env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"dispatch worker exited {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    with open(os.path.join(base, "dispatch_result.json")) as f:
+        res = json.load(f)
+    res["seconds"] = seconds
+    if res["native_available"]:
+        lo = res["loader"]
+        print(f"native loader ({smi}): built and loaded in {res['native_build_s']:.2f} s; {LOADER_BATCHES} batches "
+              f"{lo['shape']} {lo['dtype']} pinned={lo['pinned']}: 2 threads equal 8 threads: {lo['threads_equal']}, "
+              f"start_batch=3 equal to skipping 3: {lo['seek_equal']}; {lo['batch_ms_2_threads']:.1f} ms a batch on 2 "
+              f"threads, {lo['batch_ms_8_threads']:.1f} on 8 (decode included: first pass)", flush=True)
+        check(lo["threads_equal"] and lo["seek_equal"] and lo["pinned"], "the native loader's stream is not its own")
+        for name in ("bsrnet_eager", "bsrnet_graph", "bsrgan_graph"):
+            check("using native C++ data loader" in res[name]["stdout"], f"{name} did not use the native loader")
+    else:
+        print(f"native loader unavailable on this host: {res['native_reason']}", flush=True)
+        check("native C++ data loader unavailable" in res["bsrnet_graph"]["stdout"],
+              "cli.train did not report the native loader's fallback")
+    check("native C++ data loader" not in res["bsrnet_before"]["stdout"], "SRGANFD_NATIVE_LOADER=0 was not obeyed")
+    for name, want in (("bsrnet_graph", "(fused chain)"), ("bsrgan_graph", "per device dispatch")):
+        check(want in res[name]["stdout"], f"{name}: cli.train did not announce the dispatch mode")
+    for name in ("bsrnet", "bsrgan"):
+        g, e = res[f"{name}_graph"], res[f"{name}_eager"]
+        st = g["stats"]
+        replay_ms = [ms / k for k, ms, replayed in g["dispatch_ms"] if replayed]
+        eager_ms = [ms / k for k, ms, _ in e["dispatch_ms"][1:]]  # the first dispatch warms cuDNN and cuBLAS
+        res[name] = {"graph_step_ms_p50": _p50(replay_ms), "eager_step_ms_p50": _p50(eager_ms),
+                     "first_dispatch_ms_graph": g["dispatch_ms"][0][1], "data_s_p50": _p50(g["data_s"]),
+                     "captured": st.get("captured", 0), "replays": st.get("replays", 0),
+                     "eager_dispatches": st.get("eager_dispatches", 0),
+                     "launches_per_replay": st.get("launches_per_replay", {}),
+                     "steps": g["step"], "max_abs_vs_eager": res["graph_vs_eager"][name],
+                     "nondeterministic_ops": sorted(set(g["nondeterministic_ops"]) | set(e["nondeterministic_ops"]))}
+        r = res[name]
+        print(f"{name} K-step dispatch ({smi}): {r['captured']} graph(s) captured, {r['eager_dispatches']} eager "
+              f"dispatch(es), {r['replays']} replays for {r['steps']} steps (1 replay a dispatch of {DISPATCH_K} "
+              f"steps); kernel launches a replay {r['launches_per_replay']}; step p50 on the host clock "
+              f"(synchronized): graph {r['graph_step_ms_p50']:.2f} ms, eager {r['eager_step_ms_p50']:.2f} ms; first "
+              f"dispatch with the capture {r['first_dispatch_ms_graph']:.1f} ms; graph against eager max abs "
+              f"{r['max_abs_vs_eager']:.3g}; ops without a deterministic implementation: "
+              f"{r['nondeterministic_ops']}", flush=True)
+        check(r["captured"] >= 1 and r["replays"] >= 1, f"{name}: no graph was replayed")
+        check(g["step"] == e["step"] == DISPATCH_STEPS[name], f"{name}: the runs took {g['step']} and {e['step']} steps")
+        check(r["max_abs_vs_eager"] == 0.0, f"{name}: the graph replays differ from the eager steps "
+              f"(max abs {r['max_abs_vs_eager']:.3g})")
+        launches = next(iter(r["launches_per_replay"].values()))
+        check(launches["rdb"] == DISPATCH_K * RDB_PER_FORWARD, f"{name}: {launches['rdb']} RDB launches a replay")
+    check(res["bsrnet"]["launches_per_replay"] and
+          next(iter(res["bsrnet"]["launches_per_replay"].values()))["filter2d"] == DISPATCH_K * FILTERS_PER_CHAIN,
+          "the fused bsrnet graph holds the wrong number of filter2d launches")
+    planted = res["graph_vs_eager"]["bsrnet_planted_stale_packing"]
+    print(f"planted fault (the RDB packing's host check frozen in the capture): graph against eager max abs "
+          f"{planted:.3g}", flush=True)
+    check(planted > 0.0, "stale packed RDB weights in the graph went unseen by the graph-against-eager check")
+    before, after = res["bsrnet_before"], res["bsrnet_graph"]
+    res["data_meter"] = {"before_s_p50": _p50(before["data_s"]), "after_s_p50": _p50(after["data_s"]),
+                         "before_step_ms_p50": _p50(before["step_ms"])}
+    loader = "native loader" if res["native_available"] else "BatchLoader (no native loader here)"
+    print(f"bsrnet Data meter p50 ({smi}; 16 x 320^2 crops, includes the chain before this change): before "
+          f"(BatchLoader, host-form steps) {res['data_meter']['before_s_p50'] * 1e3:.2f} ms, after ({loader}, "
+          f"prefetch, fused dispatch) {res['data_meter']['after_s_p50'] * 1e3:.2f} ms; the before run's step p50 "
+          f"{res['data_meter']['before_step_ms_p50']:.2f} ms; phase {seconds:.1f} s", flush=True)
+    for name in ("bsrnet_before", "bsrnet_eager", "bsrnet_graph", "bsrnet_stale", "bsrgan_eager", "bsrgan_graph"):
+        res[name].pop("stdout")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
+    if sys.argv[1:2] == ["--dispatch-worker"]:
+        dispatch_worker(sys.argv[2])
+        return
+    if sys.argv[1:] == ["--dispatch-only"]:  # the dispatch phase alone, without the contract's lines
+        sys.path.insert(0, ROOT)
+        from srganfd_tpu_torch.ops.cuda import build
+
+        build.build_all()
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout.strip()
+        base = os.path.join(ROOT, "build")
+        os.makedirs(base, exist_ok=True)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dispatch_", dir=base) as work:
+            res = dispatch_phase(work, smi)
+        print(json.dumps({"dispatch": res}))
+        return
     if sys.argv[1:] == ["--parallel-only"]:  # the parallel phases alone, without the contract's lines
         sys.path.insert(0, ROOT)
         from srganfd_tpu_torch.ops.cuda import build
@@ -5638,6 +5951,7 @@ def main() -> None:
         paired_launches, paired, paired_ckpt = paired_train_phase(work, rdb)
         export_launches, exported = export_phase(work, rdb)
         graft_launches, grafts = graft_sources_phase(work, paired_ckpt, rdb)
+        disp = dispatch_phase(work, smi)
         par = parallel_phases(work, weights, smi)
     launches += (trans_launches["rdb"] + trans_infer["rdb"] + train_launches["rdb"] + gan_launches["rdb"]
                  + re_launches + ren_launches["rdb"] + reg_launches["rdb"] + ae_launches["rdb"] + es_launches["rdb"]
@@ -5654,6 +5968,11 @@ def main() -> None:
     filter_entry["parallel_launches"] = par["filter2d_launches"]
     check(par["rdb_launches"] > 0 and par["filter2d_launches"] > 0, "the parallel phases launched no kernel")
     entry["export_launches"] = export_launches
+    # the dispatch phase's graphs (in its worker process): each replay makes these launches
+    entry["dispatch_launches_per_replay"] = {n: next(iter(disp[n]["launches_per_replay"].values()))["rdb"]
+                                             for n in ("bsrnet", "bsrgan")}
+    filter_entry["dispatch_launches_per_replay"] = {
+        n: next(iter(disp[n]["launches_per_replay"].values()))["filter2d"] for n in ("bsrnet", "bsrgan")}
     check(http_launches > 0 and gen_launches > 0, "the HTTP or gen_rrdb2x path launched no rdb_forward kernel")
     flash_launches = trans_launches["flash"] + trans_infer["flash"] + flash_train["flash"]["flash_launches"]
     check(launches > 0, "the main paths launched no rdb_forward kernel")
@@ -5785,6 +6104,7 @@ def main() -> None:
     print(json.dumps({"options": opt, "preempt": pre, "guard": guard, "accum": accum, "debug_nans": nans,
                       "flash_train": flash_train, "test_degradations": deg}))
     print(json.dumps({"quant_serve": quant_serve, "paired": paired, "export": exported, "graft_sources": grafts}))
+    print(json.dumps({"dispatch": disp}))
     print(json.dumps({"parallel": par}))
     # rdb_forward_pallas_v2 (whole images per grid cell) computes row 1's
     # function: the port runs both through the one kernel, whose numbers these are

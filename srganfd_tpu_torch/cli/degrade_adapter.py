@@ -42,6 +42,13 @@ from srganfd_tpu_torch.parallel import comm
 __all__ = ["DegradationAdapter"]
 
 
+def _tensor(x, device: torch.device) -> torch.Tensor:
+    """A host batch's array (numpy, or a tensor from ``prefetch_to_device``
+    or the native loader) on ``device``."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+    return t.to(device)
+
+
 class DegradationAdapter:
     def __init__(
         self,
@@ -77,9 +84,9 @@ class DegradationAdapter:
         rank 0's are the single process's."""
         return np.random.default_rng((self.seed, 0xDE64ADE, self.rank, step))
 
-    def __call__(self, host_batch: dict[str, np.ndarray], step: int) -> dict[str, torch.Tensor]:
+    def __call__(self, host_batch: dict[str, np.ndarray | torch.Tensor], step: int) -> dict[str, torch.Tensor]:
         if self.cfg.degradation == "paired":
-            return {k: torch.from_numpy(np.ascontiguousarray(host_batch[k])).to(self.device) for k in ("gt", "lr")}
+            return {k: _tensor(host_batch[k], self.device) for k in ("gt", "lr")}
         if self.cfg.degradation == "realesrgan":
             return self._realesrgan(host_batch, step)
         if self.cfg.degradation == "bicubic":
@@ -96,7 +103,7 @@ class DegradationAdapter:
             scale2_prob=params.get("scale2_prob", 0.25),
             per_sample_order=params.get("per_sample_order", True),
         )
-        gt = torch.from_numpy(np.ascontiguousarray(host_batch["gt"])).to(self.device)
+        gt = _tensor(host_batch["gt"], self.device)
         if not self.train:
             return {"gt": gt, "lr": apply_bsrgan_batch(gt, plan, codec=self.eval_codec)}
         # GT stays at full scale when the chain pre-halves internally: the
@@ -112,8 +119,9 @@ class DegradationAdapter:
     def _bicubic(self, gt_host: np.ndarray) -> dict[str, torch.Tensor]:
         """GT in f32 (uint8 scaled by 1/255) and its MATLAB-bicubic LR, as
         the JAX adapter's ``_bicubic_pair``; no randomness."""
-        gt = torch.from_numpy(np.ascontiguousarray(gt_host)).to(self.device)
-        gt = gt.to(torch.float32) / 255.0 if not gt.is_floating_point() else gt.to(torch.float32)
+        gt = _tensor(gt_host, self.device)
+        # uint8: the f32 reciprocal's product, as the jitted JAX pair computes it (ops/degrade.py _to_float)
+        gt = gt.to(torch.float32) * (1.0 / 255.0) if not gt.is_floating_point() else gt.to(torch.float32)
         return {"gt": gt, "lr": imresize(gt, 1.0 / self.cfg.upscale_factor).clamp(0.0, 1.0)}
 
     def _realesrgan(self, host_batch: dict[str, np.ndarray], step: int) -> dict[str, torch.Tensor]:
@@ -125,7 +133,7 @@ class DegradationAdapter:
         n, h, w = (int(v) for v in np.shape(host_batch["gt"])[:3])
         plan = plan_realesrgan_batch(rng, n, (h, w), cfg.upscale_factor, cfg.degradation_params["process"])
         generator = torch.Generator(device=self.device).manual_seed(int(rng.integers(0, 2**31)))
-        dev = lambda k: torch.from_numpy(np.ascontiguousarray(host_batch[k])).to(self.device)  # noqa: E731
+        dev = lambda k: _tensor(host_batch[k], self.device)  # noqa: E731
         k1, k2, sinc = dev("kernel1"), dev("kernel2"), dev("sinc_kernel")
         if not self.train:
             gt = dev("gt")

@@ -63,6 +63,25 @@ any setup, asks the loop to save at its next safe point (a step boundary,
 between validation batches, after the epoch-end saves) and exit with
 128 + the signal. ``--async-ckpt`` writes them on a thread.
 
+Data: for the GT-crop pipelines (``bicubic``, ``bsrgan``) the native C++
+loader (``data/native_loader.py``: decode, crop and augment in a thread
+pool, raw uint8 crops, the JAX loader's stream byte for byte), unless
+``SRGANFD_NATIVE_LOADER=0`` or its library cannot be built here (one line
+says why; the Python ``BatchLoader`` then), as the JAX CLI chooses; every
+batch reaches the adapter through ``parallel.prefetch_to_device``, which
+on the card keeps two copies in flight from page-locked memory.
+
+The JAX CLI's dispatch variables: ``SRGANFD_FUSE_STEP=1`` (``bsrgan``
+degradation) runs the chain, the aligned crop and the step as one dispatch
+(``Trainer.bsrgan_fused_train_step``), ``SRGANFD_STEPS_PER_DISPATCH=K``
+runs K steps as one (``bsrgan_fused_train_multi_step``, grouped by the
+chain's branch key, or ``make_train_multi_step`` on the adapter's batches
+in order). On the card a dispatch is one CUDA graph replay
+(``train/graphs.py``); the buffers are flushed before every snapshot,
+before validation and at an epoch's end, so a resume stays step-exact; the
+logged metrics are a dispatch's mean. Under data parallelism both are
+ignored, with JAX's messages, and the steps run one at a time.
+
 The trainer's options: ``--grad-accum N``, ``--skip-nonfinite``, and the
 config's ``grad_clip_norm`` and ``model_weight_decay`` (``train/loop.py``);
 ``--debug-nans`` raises at the first module whose output holds a NaN;
@@ -87,6 +106,7 @@ from srganfd_tpu_torch import configs
 from srganfd_tpu_torch.cli.degrade_adapter import DegradationAdapter
 from srganfd_tpu_torch.cli.infer import choice_device
 from srganfd_tpu_torch.configs.base import ExperimentConfig
+from srganfd_tpu_torch.data import native_loader
 from srganfd_tpu_torch.data.datasets import (
     BatchLoader,
     DegeneratedImageDataset,
@@ -96,7 +116,8 @@ from srganfd_tpu_torch.data.datasets import (
 from srganfd_tpu_torch.losses.lpips import Lpips
 from srganfd_tpu_torch.metrics.psnr_ssim import psnr_tensor, ssim_tensor
 from srganfd_tpu_torch.models import check_ported
-from srganfd_tpu_torch.parallel import comm
+from srganfd_tpu_torch.ops.degrade import bsrgan_lr_size, plan_bsrgan_batch
+from srganfd_tpu_torch.parallel import comm, prefetch_to_device
 from srganfd_tpu_torch.parallel.mesh import FlagConsensus, make_mesh, maybe_init_distributed
 from srganfd_tpu_torch.track.tracker import Tracker
 from srganfd_tpu_torch.train import checkpoint as ckpt
@@ -105,7 +126,9 @@ from srganfd_tpu_torch.train.state import TrainState
 from srganfd_tpu_torch.utils.meters import AverageMeter, ProgressMeter
 from srganfd_tpu_torch.utils.profiling import annotate, debug_nans, trace
 
-__all__ = ["build_datasets", "validate", "graft_pretrained", "run_train", "main"]
+__all__ = ["build_datasets", "build_train_loader", "validate", "graft_pretrained", "run_train", "main"]
+
+PREFETCH = 2  # batches whose copy to the card is in flight (below native_loader.RING)
 
 # cooperative preemption: the handler only sets the flag, and the loop
 # saves ckpt_preempt at its next safe point (a save from inside the handler
@@ -138,15 +161,26 @@ def _restore_sigterm(prev: Any) -> None:
         signal.signal(signal.SIGTERM, prev)
 
 
-def _reject_unported_env() -> None:
-    """The JAX trainer's dispatch variables: the fused degradation+step
-    program and K-step dispatch."""
-    if os.environ.get("SRGANFD_FUSE_STEP", "0") == "1":
-        raise NotImplementedError("SRGANFD_FUSE_STEP=1 is not ported to srganfd_tpu_torch yet: "
-                                  "see ROADMAP.md A4")
-    if int(os.environ.get("SRGANFD_STEPS_PER_DISPATCH", "1")) > 1:
-        raise NotImplementedError("SRGANFD_STEPS_PER_DISPATCH > 1 is not ported to "
-                                  "srganfd_tpu_torch yet: see ROADMAP.md A4")
+def build_train_loader(cfg: ExperimentConfig, train_ds: Any, start_batch: int, device: torch.device) -> Any:
+    """The training stream, sought to ``start_batch``: for the GT-crop
+    pipelines (``bicubic``, ``bsrgan``) the native C++ loader with raw uint8
+    crops, unless ``SRGANFD_NATIVE_LOADER=0`` or its library cannot be built
+    here (then one line says why), as the JAX CLI chooses it; else the
+    Python ``BatchLoader``. On the card the native loader writes into a ring
+    of page-locked buffers that ``prefetch_to_device`` copies from."""
+    if cfg.degradation in ("bicubic", "bsrgan") and os.environ.get("SRGANFD_NATIVE_LOADER", "1") != "0":
+        if native_loader.available():
+            print("using native C++ data loader")
+            return native_loader.NativeBatchLoader(
+                train_ds.paths, crop=cfg.crop_image_size or cfg.gt_image_size, batch_size=cfg.batch_size,
+                seed=cfg.seed, num_threads=max(cfg.num_workers, 2),
+                # the chains divide by 255 on the device: a quarter of the transfer
+                uint8=True, start_batch=start_batch, pinned=device.type == "cuda",
+            )
+        print(f"! native C++ data loader unavailable ({native_loader.unavailable_reason()}): "
+              "using the Python BatchLoader")
+    return BatchLoader(train_ds, cfg.batch_size, shuffle=True, seed=cfg.seed, num_workers=cfg.num_workers,
+                       start_batch=start_batch)
 
 
 def build_datasets(cfg: ExperimentConfig) -> tuple[Any, Any]:
@@ -289,7 +323,6 @@ def _run_train_body(
     ckpt_every_epochs: int,
     check_nans: bool,
 ) -> dict:
-    _reject_unported_env()
     device = torch.device(device)
     # first, as in JAX: the rank's card is made current before anything
     # builds or launches a kernel
@@ -336,10 +369,30 @@ def _run_train_body(
             print("! LPIPS weights unavailable: validation LPIPS is the deterministic surrogate")
 
     # built after the resume so the stream starts at the resume position
-    train_loader = BatchLoader(
-        train_ds, cfg.batch_size, shuffle=True, seed=cfg.seed, num_workers=cfg.num_workers,
-        start_batch=start_step,
-    )
+    train_loader = build_train_loader(cfg, train_ds, start_step, device)
+
+    # the dispatch modes (module docstring); the plan operands and the
+    # buffers are per rank, so under data parallelism they would desynchronize
+    # the ranks' collective steps, as JAX's multi-host does
+    needs_pixel_target = cfg.degradation == "realesrgan"
+    fuse_step = cfg.degradation == "bsrgan" and os.environ.get("SRGANFD_FUSE_STEP", "0") == "1"
+    if fuse_step and world > 1:
+        print("! SRGANFD_FUSE_STEP ignored under multi-host (plan operands are per-host)")
+        fuse_step = False
+    superstep = max(1, int(os.environ.get("SRGANFD_STEPS_PER_DISPATCH", "1")))
+    if superstep > 1 and world > 1:
+        print("! SRGANFD_STEPS_PER_DISPATCH ignored under multi-host")
+        superstep = 1
+    if (fuse_step or superstep > 1) and check_nans and device.type == "cuda":
+        raise ValueError("--debug-nans reads each module's output on the host, which a CUDA graph cannot hold: "
+                         "run it without SRGANFD_FUSE_STEP and SRGANFD_STEPS_PER_DISPATCH")
+    if fuse_step:
+        print("degradation fused into the train step (SRGANFD_FUSE_STEP=1)")
+    multi_step_fn = None
+    if superstep > 1:
+        print(f"K-step dispatch: {superstep} train steps per device dispatch" + (" (fused chain)" if fuse_step else ""))
+        if not fuse_step:
+            multi_step_fn = trainer.make_train_multi_step(separate_pixel_target=needs_pixel_target)
     batch_time = AverageMeter("Time", ":6.3f")
     data_time = AverageMeter("Data", ":6.3f")
     loss_meters = {"g_loss": AverageMeter("G loss", ":6.4f")}
@@ -374,10 +427,28 @@ def _run_train_body(
     def preempt_signum() -> int:
         return consensus.poll(_PREEMPT["signum"]) if consensus is not None else _PREEMPT["signum"]
 
+    fuse_buffers: dict[tuple, list] = {}
+    plain_buf: list = []
+
+    def flush_buffers() -> None:
+        """Run the buffered steps as single dispatches, so that the applied
+        steps are the prefix 0..global_step: before a snapshot (a resume
+        would apply some steps twice and skip others), before validating and
+        at an epoch's end; then the counts come back to the state."""
+        for buf in fuse_buffers.values():
+            for gt_b, plan_b, tops_b, lefts_b in buf:
+                trainer.bsrgan_fused_train_step(state, gt_b, plan_b, tops_b, lefts_b, cfg.gt_image_size)
+            buf.clear()
+        for batch_b in plain_buf:
+            multi_step_fn(state, [batch_b])
+        plain_buf.clear()
+        trainer.sync_counts(state)
+
     def preempt_exit_if_requested() -> None:
         sig = preempt_signum()
         if not sig:
             return
+        flush_buffers()
         save_snapshot(ckpt_dir, state, epoch, best, is_best=False, name="ckpt_preempt")
         flush_snapshots()  # about to exit: the snapshot must be on disk
         if is_main:
@@ -393,10 +464,12 @@ def _run_train_body(
     # the tracker's and the libraries' setup may have installed their own
     # handlers: install ours again, keeping a request that came meanwhile
     _install_preempt_handler(reset=False)
-    it = None
+    it = source = None
     try:
         tracker.log_params(dict(vars(cfg)))
-        it = iter(train_loader)
+        source = iter(train_loader)
+        it = prefetch_to_device(source, size=PREFETCH, device=device)
+        metrics: dict[str, torch.Tensor] = {}
         with nan_check:
             for epoch in range(start_epoch, cfg.epochs):
                 profiling = bool(profile_dir) and epoch == start_epoch
@@ -407,23 +480,62 @@ def _run_train_body(
                     end = time.time()
                     for i in range(max(first_slot, 0), spe):
                         preempt_exit_if_requested()
-                        with annotate("chain"):
-                            batch = train_adapter(next(it), global_step)
-                        data_time.update(time.time() - end)
-                        last_metrics = trainer.train_step(state, batch["gt"], batch["lr"], batch.get("gt_pixel"))
-                        # reading a loss waits for the card: only at print frequency
-                        if i % cfg.train_print_frequency == 0:
-                            values = {k: float(v) for k, v in last_metrics.items()}
+                        host_batch = next(it)
+                        if fuse_step:
+                            # the adapter's draws, in its order: the plan, then the crop
+                            gt_raw = host_batch["gt"]
+                            n = int(gt_raw.shape[0])
+                            step_rng = train_adapter.step_rng(global_step)
+                            plan = plan_bsrgan_batch(
+                                step_rng, n, cfg.upscale_factor,
+                                jpeg_prob=cfg.degradation_params.get("jpeg_prob", 0.9),
+                                scale2_prob=cfg.degradation_params.get("scale2_prob", 0.25),
+                                per_sample_order=True,
+                            )
+                            lim = bsrgan_lr_size(int(gt_raw.shape[1]), plan) - cfg.gt_image_size // cfg.upscale_factor
+                            tops = step_rng.integers(0, lim + 1, n)
+                            lefts = step_rng.integers(0, lim + 1, n)
+                            data_time.update(time.time() - end)
+                            if superstep == 1:
+                                metrics = trainer.bsrgan_fused_train_step(state, gt_raw, plan, tops, lefts,
+                                                                          cfg.gt_image_size)
+                            else:
+                                buf = fuse_buffers.setdefault((plan.scale2, plan.scale2_interp,
+                                                               plan.effective_upscale), [])
+                                buf.append((gt_raw, plan, tops, lefts))
+                                if len(buf) == superstep:
+                                    metrics = trainer.bsrgan_fused_train_multi_step(
+                                        state, *zip(*buf), cfg.gt_image_size)
+                                    buf.clear()
+                        else:
+                            with annotate("chain"):
+                                batch = train_adapter(host_batch, global_step)
+                            data_time.update(time.time() - end)
+                            if superstep > 1:
+                                plain_buf.append(batch)
+                                if len(plain_buf) == superstep:
+                                    metrics = multi_step_fn(state, list(plain_buf))
+                                    plain_buf.clear()
+                            else:
+                                metrics = trainer.train_step(state, batch["gt"], batch["lr"], batch.get("gt_pixel"))
+                        # reading a loss waits for the card: only at print
+                        # frequency (no metrics yet: the step is buffered)
+                        if metrics:
+                            last_metrics = metrics
+                        if metrics and i % cfg.train_print_frequency == 0:
+                            values = {k: float(v) for k, v in metrics.items()}
                             for k, meter in loss_meters.items():
                                 meter.update(values[k])
                             batch_time.update(time.time() - end)
                             progress.display(i)
                             tracker.log_metrics({f"Train/{k}": v for k, v in values.items()}, global_step)
+                            metrics = {}  # a dispatch's mean is logged once
                         end = time.time()
                         if save_every_steps and global_step and global_step % save_every_steps == 0:
-                            # the state holds global_step + 1 applied steps
+                            flush_buffers()  # the state then holds global_step + 1 applied steps
                             save_snapshot(ckpt_dir, state, epoch, best, is_best=False, name="ckpt_step")
                         global_step += 1
+                    flush_buffers()
                 if profiling:
                     print(f"profiler trace written to {profile_dir}", flush=True)
 
@@ -460,8 +572,11 @@ def _run_train_body(
         if writer is not None:
             writer.close()  # raises a failed write
     finally:
-        if it is not None:
-            it.close()  # stop the loader's threads, also when a step raised
+        for gen in (it, source):  # stop the loader's threads, also when a step raised
+            if gen is not None:
+                gen.close()
+        if isinstance(train_loader, native_loader.NativeBatchLoader):
+            train_loader.close()
         if writer is not None:
             with contextlib.suppress(RuntimeError):  # the body's error, if any, is the one to see
                 writer.close()

@@ -7,8 +7,9 @@ Datasets only decode, crop and augment on the host; LR generation (the
 degradation chain) runs on the device downstream. ``BatchLoader`` yields
 the same batches as the JAX package's for the same seed and
 ``start_batch``: the index order and each record's RNG are pure functions
-of (seed, batch number). The C++ loader of the JAX package
-(``native/loader.cc``) is not ported (ROADMAP.md A4).
+of (seed, batch number). ``cli.train`` takes the native C++ loader
+(``data/native_loader.py``) instead for the GT-crop pipelines, as the JAX
+CLI does.
 """
 
 from __future__ import annotations

@@ -19,9 +19,10 @@ biases (``blocks.py:26-28`` of the JAX package), drawn from an explicit
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
-from typing import Any
+from typing import Any, Iterator
 
 import torch
 import torch.nn.functional as F
@@ -37,7 +38,7 @@ from srganfd_tpu_torch.parallel.ring_attention import ring_attention, ring_atten
 from srganfd_tpu_torch.parallel.ulysses import ulysses_attention, ulysses_attention_loop
 
 __all__ = [
-    "lrelu", "out_dtype", "Conv", "init_lecun_normal", "BatchNorm", "SNConv", "ResidualDenseBlock", "RRDB", "make_trunk", "init_kaiming_x01",
+    "lrelu", "out_dtype", "Conv", "repack_always", "drop_packed", "init_lecun_normal", "BatchNorm", "SNConv", "ResidualDenseBlock", "RRDB", "make_trunk", "init_kaiming_x01",
     "pixel_unshuffle",
     "ATTN_BACKENDS", "attention_backend", "chunked_attention", "large_attention",
     "dot_product_attention", "CP_BACKENDS", "check_cp_backend", "TransformerEncoderLayer", "TokenSelfAttention",
@@ -223,6 +224,29 @@ class SNConv(nn.Module):
         return F.conv2d(x, w, None, stride=self.stride, padding=self.padding)
 
 
+_repack = [False]  # set inside repack_always()
+
+
+@contextlib.contextmanager
+def repack_always() -> Iterator[None]:
+    """Inside the block every RDB forward packs its weights anew instead of
+    reading its cache: the cache's check runs on the host, so a CUDA graph
+    captured here packs the weights on every replay, after each update."""
+    _repack[0] = True
+    try:
+        yield
+    finally:
+        _repack[0] = False
+
+
+def drop_packed(model: nn.Module) -> None:
+    """Forget every RDB's packed weights: a graph replay updates the
+    parameters without bumping the version counters the cache is keyed on."""
+    for m in model.modules():
+        if isinstance(m, ResidualDenseBlock):
+            m._packed = None
+
+
 class ResidualDenseBlock(nn.Module):
     """5-conv dense block, LeakyReLU(0.2), 0.2-scaled residual
     (ESRGAN/model.py:29-60), through ``ops/cuda/rdb.py`` ``rdb_apply``:
@@ -273,7 +297,7 @@ class ResidualDenseBlock(nn.Module):
         dtype, the device or a parameter (its version counter, which
         ``load_state_dict`` and optimisers bump) changed."""
         key = (dtype, *self._params_key())
-        if self._packed is None or self._packed[0] != key:
+        if _repack[0] or self._packed is None or self._packed[0] != key:
             self._packed = (key, *pack_rdb_weights(*self.kernels_biases(), dtype))
         return self._packed[1], self._packed[2]
 

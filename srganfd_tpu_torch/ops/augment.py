@@ -74,22 +74,24 @@ def paired_random_crop(
     gt_patch: int,
     upscale_factor: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Aligned (gt, lr) crop of NHWC batches: LR offsets (N,) given on the
-    host, GT offsets = LR offsets * sf. Returns (gt (N, P, P, C), lr (N,
-    P/sf, P/sf, C)). A start that would run past the edge is clamped, as
-    ``jax.lax.dynamic_slice`` clamps it."""
+    """Aligned (gt, lr) crop of NHWC batches: LR offsets (N,), host arrays
+    or integer tensors, GT offsets = LR offsets * sf. Returns (gt (N, P, P,
+    C), lr (N, P/sf, P/sf, C)). A start that would run past the edge is
+    clamped, as ``jax.lax.dynamic_slice`` clamps it. One gather a member and
+    no host read of an offset, so a CUDA graph can hold it."""
     lr_patch = gt_patch // upscale_factor
+    top_lr = torch.as_tensor(top_lr, dtype=torch.int64, device=lr.device)
+    left_lr = torch.as_tensor(left_lr, dtype=torch.int64, device=lr.device)
 
-    def crop(img: torch.Tensor, top: int, left: int, patch: int) -> torch.Tensor:
-        top = min(max(top, 0), img.shape[0] - patch)
-        left = min(max(left, 0), img.shape[1] - patch)
-        return img[top : top + patch, left : left + patch]
+    def crop(img: torch.Tensor, top: torch.Tensor, left: torch.Tensor, patch: int) -> torch.Tensor:
+        n, h, w = img.shape[:3]
+        span = torch.arange(patch, device=img.device)
+        rows = top.clamp(0, h - patch)[:, None] + span
+        cols = left.clamp(0, w - patch)[:, None] + span
+        return img[torch.arange(n, device=img.device)[:, None, None], rows[:, :, None], cols[:, None, :]]
 
-    gts, lrs = [], []
-    for i, (t, l) in enumerate(zip(np.asarray(top_lr).tolist(), np.asarray(left_lr).tolist())):
-        lrs.append(crop(lr[i], t, l, lr_patch))
-        gts.append(crop(gt[i], t * upscale_factor, l * upscale_factor, gt_patch))
-    return torch.stack(gts), torch.stack(lrs)
+    return (crop(gt, top_lr * upscale_factor, left_lr * upscale_factor, gt_patch),
+            crop(lr, top_lr, left_lr, lr_patch))
 
 
 def paired_flip_rotate(

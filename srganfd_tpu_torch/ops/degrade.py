@@ -40,6 +40,7 @@ import torch
 
 from srganfd_tpu_torch.ops import filters, kernels
 from srganfd_tpu_torch.ops.augment import paired_random_crop
+from srganfd_tpu_torch.ops.consts import device_const
 from srganfd_tpu_torch.ops.jpeg import diff_jpeg
 from srganfd_tpu_torch.ops.noise import (
     add_gaussian_noise,
@@ -55,6 +56,8 @@ __all__ = [
     "apply_bsrgan_batch",
     "bsrgan_lr_size",
     "apply_bsrgan_batch_cropped",
+    "plan_operands",
+    "apply_chain_cropped",
     "plan_bsrgan_plus",
     "apply_bsrgan_plus",
     "bsrgan_degradation_plus",
@@ -126,11 +129,9 @@ def _pad16(x: torch.Tensor) -> tuple[torch.Tensor, int, int]:
     h, w = x.shape[1], x.shape[2]
     ph, pw = (-h) % 16, (-w) % 16
     if ph:
-        idx = np.pad(np.arange(h), (0, ph), mode="reflect")
-        x = x.index_select(1, torch.from_numpy(idx).to(x.device))
+        x = x.index_select(1, device_const(np.pad(np.arange(h), (0, ph), mode="reflect"), x.device))
     if pw:
-        idx = np.pad(np.arange(w), (0, pw), mode="reflect")
-        x = x.index_select(2, torch.from_numpy(idx).to(x.device))
+        x = x.index_select(2, device_const(np.pad(np.arange(w), (0, pw), mode="reflect"), x.device))
     return x, h, w
 
 
@@ -144,11 +145,77 @@ def _masked_jpeg(x: torch.Tensor, quality: torch.Tensor, mask: torch.Tensor | No
 
 
 def _to_float(images: torch.Tensor) -> torch.Tensor:
-    """uint8 transport or float [0, 1] -> f32 [0, 1]."""
+    """uint8 transport or float [0, 1] -> f32 [0, 1]. uint8 is scaled by the
+    f32 reciprocal of 255: under jit XLA turns the JAX chain's ``/ 255.0``
+    into that product, which rounds apart from the division in 126 of the
+    256 values."""
     x = images.float()
     if not images.dtype.is_floating_point:
-        x = x / 255.0
+        x = x * (1.0 / 255.0)
     return x
+
+
+def _chain(
+    images: torch.Tensor,
+    kernels_a: torch.Tensor,
+    kernels_b: torch.Tensor,
+    quality: torch.Tensor,
+    apply: torch.Tensor,
+    final_q: torch.Tensor,
+    jpeg_pos: int | torch.Tensor,
+    scale2: bool,
+    scale2_interp: int,
+    effective_upscale: int,
+) -> torch.Tensor:
+    """The chain on operands already on the images' device (the JAX
+    ``_apply_chain``): ``jpeg_pos`` an int slot for the batch, or an (N,)
+    tensor of per-sample slots. Only the pre-downscale branch and the
+    per-batch slot are host decisions, so with a per-sample slot every
+    step of one branch runs the same device work, which a CUDA graph can
+    replay."""
+    x = _to_float(images)
+    if scale2:
+        h, w = x.shape[1], x.shape[2]
+        if scale2_interp == 0:
+            x = imresize(x, 0.5)
+        else:
+            x = cv2_style_resize(x, (int(0.5 * h), int(0.5 * w)), scale2_interp)
+        x = x.clamp(0.0, 1.0)
+
+    if isinstance(jpeg_pos, int):
+        # per-batch slot: one DiffJPEG pass
+        if jpeg_pos == 0:
+            x = _masked_jpeg(x, quality, apply)
+        x = filters.filter2d(x, kernels_a)
+        if jpeg_pos == 1:
+            x = _masked_jpeg(x, quality, apply)
+        x = filters.filter2d(x, kernels_b)
+        if jpeg_pos == 2:
+            x = _masked_jpeg(x, quality, apply)
+    else:
+        # per-sample slot (the reference's per-sample shuffle): a masked
+        # DiffJPEG pass at every slot, selected per sample
+        x = _masked_jpeg(x, quality, apply * (jpeg_pos == 0))
+        x = filters.filter2d(x, kernels_a)
+        x = _masked_jpeg(x, quality, apply * (jpeg_pos == 1))
+        x = filters.filter2d(x, kernels_b)
+        x = _masked_jpeg(x, quality, apply * (jpeg_pos == 2))
+
+    # final JPEG, always (``BSRGAN/imgproc.py:558``); a non-positive quality
+    # skips it for that sample (the chain goldens' JPEG-free scenarios)
+    x = _masked_jpeg(x, final_q.clamp_min(1.0), (final_q > 0.0).to(x.dtype))
+    return imresize(x, 1.0 / effective_upscale)
+
+
+def plan_operands(plan: BsrganPlan) -> dict[str, np.ndarray]:
+    """A per-sample-order plan's per-sample draws as host arrays, the
+    operands of :func:`apply_chain_cropped` (its branch key
+    ``(scale2, scale2_interp, effective_upscale)`` stays on the host)."""
+    if isinstance(plan.jpeg_pos, int):
+        raise ValueError("operand form needs a per-sample-order plan (plan_bsrgan_batch(..., per_sample_order=True))")
+    return {"kernels_a": plan.kernels_a, "kernels_b": plan.kernels_b, "jpeg_quality": plan.jpeg_quality,
+            "jpeg_apply": plan.jpeg_apply, "final_jpeg_quality": plan.final_jpeg_quality,
+            "jpeg_pos": np.asarray(plan.jpeg_pos, np.int64)}
 
 
 def _apply_chain(images: torch.Tensor, plan: BsrganPlan) -> torch.Tensor:
@@ -157,42 +224,9 @@ def _apply_chain(images: torch.Tensor, plan: BsrganPlan) -> torch.Tensor:
     def t(a) -> torch.Tensor:
         return torch.from_numpy(np.asarray(a)).to(dev)
 
-    x = _to_float(images)
-    if plan.scale2:
-        h, w = x.shape[1], x.shape[2]
-        if plan.scale2_interp == 0:
-            x = imresize(x, 0.5)
-        else:
-            x = cv2_style_resize(x, (int(0.5 * h), int(0.5 * w)), plan.scale2_interp)
-        x = x.clamp(0.0, 1.0)
-
-    ka, kb = t(plan.kernels_a), t(plan.kernels_b)
-    quality, apply = t(plan.jpeg_quality), t(plan.jpeg_apply)
-    if isinstance(plan.jpeg_pos, int):
-        # per-batch slot: one DiffJPEG pass
-        if plan.jpeg_pos == 0:
-            x = _masked_jpeg(x, quality, apply)
-        x = filters.filter2d(x, ka)
-        if plan.jpeg_pos == 1:
-            x = _masked_jpeg(x, quality, apply)
-        x = filters.filter2d(x, kb)
-        if plan.jpeg_pos == 2:
-            x = _masked_jpeg(x, quality, apply)
-    else:
-        # per-sample slot (the reference's per-sample shuffle): a masked
-        # DiffJPEG pass at every slot, selected per sample
-        pos = t(plan.jpeg_pos)
-        x = _masked_jpeg(x, quality, apply * (pos == 0))
-        x = filters.filter2d(x, ka)
-        x = _masked_jpeg(x, quality, apply * (pos == 1))
-        x = filters.filter2d(x, kb)
-        x = _masked_jpeg(x, quality, apply * (pos == 2))
-
-    # final JPEG, always (``BSRGAN/imgproc.py:558``); a non-positive quality
-    # skips it for that sample (the chain goldens' JPEG-free scenarios)
-    final_q = t(plan.final_jpeg_quality)
-    x = _masked_jpeg(x, final_q.clamp_min(1.0), (final_q > 0.0).to(x.dtype))
-    return imresize(x, 1.0 / plan.effective_upscale)
+    pos = plan.jpeg_pos if isinstance(plan.jpeg_pos, int) else t(plan.jpeg_pos)
+    return _chain(images, t(plan.kernels_a), t(plan.kernels_b), t(plan.jpeg_quality), t(plan.jpeg_apply),
+                  t(plan.final_jpeg_quality), pos, plan.scale2, plan.scale2_interp, plan.effective_upscale)
 
 
 def _cv2_jpeg(img_rgb: np.ndarray, quality: float) -> np.ndarray:
@@ -285,6 +319,35 @@ def apply_bsrgan_batch_cropped(
     gt = _to_float(images)
     lr = _apply_chain(gt, plan)
     return paired_random_crop(gt, lr, tops, lefts, gt_size, upscale_factor)
+
+
+def apply_chain_cropped(
+    images: torch.Tensor,
+    kernels_a: torch.Tensor,
+    kernels_b: torch.Tensor,
+    jpeg_quality: torch.Tensor,
+    jpeg_apply: torch.Tensor,
+    final_jpeg_quality: torch.Tensor,
+    jpeg_pos: torch.Tensor,
+    tops: torch.Tensor,
+    lefts: torch.Tensor,
+    scale2: bool,
+    scale2_interp: int,
+    effective_upscale: int,
+    gt_size: int,
+    crop_upscale: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The operand-driven chain and aligned crop (the JAX
+    ``_apply_chain_cropped``): every per-sample draw (:func:`plan_operands`,
+    the per-sample JPEG slots, the LR-space ``tops``/``lefts``) a tensor on
+    the images' device, the branch key and sizes static. No host copy and
+    no host branch on a value that changes from step to step: the
+    degradation-fused train step captures it in a CUDA graph. uint8 images
+    are divided by 255 here. Returns (gt (N, gt_size, gt_size, 3), lr)."""
+    gt = _to_float(images)
+    lr = _chain(gt, kernels_a, kernels_b, jpeg_quality, jpeg_apply, final_jpeg_quality, jpeg_pos, scale2,
+                scale2_interp, effective_upscale)
+    return paired_random_crop(gt, lr, tops, lefts, gt_size, crop_upscale)
 
 
 def plan_bsrgan_plus(

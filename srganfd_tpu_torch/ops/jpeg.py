@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from srganfd_tpu_torch.ops.consts import device_const
+
 __all__ = ["diff_jpeg", "jpeg_quality_to_factor"]
 
 # standard JPEG luminance / chrominance quantization tables
@@ -47,6 +49,7 @@ _RGB2YCBCR = np.array(
     ],
     dtype=np.float32,
 ).T
+_YCC_OFFSET = np.array([0.0, 128.0, 128.0], dtype=np.float32)
 _YCBCR2RGB = np.array(
     [[1.0, 0.0, 1.402], [1.0, -0.344136, -0.714136], [1.0, 1.772, 0.0]], dtype=np.float32
 ).T
@@ -66,7 +69,7 @@ _DCT = _dct_matrix()
 
 
 def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(a).to(like.device)
+    return device_const(a, like.device)
 
 
 def jpeg_quality_to_factor(quality: torch.Tensor) -> torch.Tensor:
@@ -127,7 +130,7 @@ def diff_jpeg(
     if h % 16 or w % 16:
         raise ValueError(f"pad to multiples of 16 before diff_jpeg, got {h}x{w}")
     x = images.float() * 255.0
-    ycc = x @ _const(_RGB2YCBCR, x) + torch.tensor([0.0, 128.0, 128.0], device=x.device)
+    ycc = x @ _const(_RGB2YCBCR, x) + _const(_YCC_OFFSET, x)
     y, cb, cr = ycc[..., 0], ycc[..., 1], ycc[..., 2]
 
     def down(c: torch.Tensor) -> torch.Tensor:  # 4:2:0 chroma, 2x2 mean

@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from srganfd_tpu_torch.ops.consts import device_const
+
 __all__ = [
     "upsample_nearest",
     "imresize",
@@ -101,9 +103,9 @@ def _apply_plan_axis(
     """Contract one axis with a plan: gather (out, P, ...) rows, then sum
     them against the weights in f32."""
     x = x.movedim(axis, 0)
-    idx = torch.from_numpy(np.asarray(indices, np.int64)).to(x.device)
+    idx = device_const(np.asarray(indices, np.int64), x.device)
     gathered = x.index_select(0, idx.reshape(-1)).reshape(*idx.shape, *x.shape[1:])
-    w = torch.from_numpy(np.asarray(weights)).to(device=x.device, dtype=x.dtype)
+    w = device_const(weights, x.device, x.dtype)
     return torch.einsum("op,op...->o...", w, gathered).movedim(0, axis)
 
 

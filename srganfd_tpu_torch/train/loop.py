@@ -124,16 +124,22 @@ The multi-slice ``dcn_mesh_shape`` raises, naming ROADMAP.md A11.
 
 from __future__ import annotations
 
+from typing import Callable
+
+import numpy as np
 import torch
 
 from srganfd_tpu_torch.configs.base import ExperimentConfig
 from srganfd_tpu_torch.losses.content import ContentLoss
 from srganfd_tpu_torch.losses.gan import bce_with_logits, relativistic_d_loss, relativistic_g_loss
 from srganfd_tpu_torch.models import check_ported, create_model
-from srganfd_tpu_torch.models.blocks import BatchNorm
+from srganfd_tpu_torch.models.blocks import BatchNorm, drop_packed
+from srganfd_tpu_torch.ops.consts import device_const
+from srganfd_tpu_torch.ops.degrade import BsrganPlan, apply_chain_cropped, plan_operands
 from srganfd_tpu_torch.parallel import comm
 from srganfd_tpu_torch.parallel.mesh import Mesh, make_hybrid_mesh, make_mesh
 from srganfd_tpu_torch.parallel.pipeline import pipelined_full_apply
+from srganfd_tpu_torch.train.graphs import StepGraphs
 from srganfd_tpu_torch.train.schedule import multistep_lr
 from srganfd_tpu_torch.train.state import TrainState, ema_update
 from srganfd_tpu_torch.utils.profiling import annotate
@@ -150,7 +156,7 @@ def _weighted(weights: tuple[float, ...], losses: torch.Tensor) -> torch.Tensor:
     """torch.sum(torch.mul(w, losses)) with broadcast semantics
     (``BSRGAN/train_bsrgan.py:450-453``): scalar weight lists scale the
     summed loss; per-node lists dot with per-node losses."""
-    w = torch.tensor(weights, dtype=torch.float32, device=losses.device)
+    w = device_const(np.asarray(weights, np.float32), losses.device)
     losses = losses.reshape(-1)
     if w.shape[0] == 1 or losses.shape[0] == 1 or w.shape[0] == losses.shape[0]:
         return torch.sum(w * losses)
@@ -269,6 +275,111 @@ def _mean_of(per_chunk: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor
     return {k: torch.stack([m[k] for m in per_chunk]).mean(0) for k in per_chunk[0]}
 
 
+# -- the device form of the update (the dispatch modes) ----------------------
+#
+# A captured CUDA graph replays device work only: no host read of a value and
+# no host branch on one. The device form of a step keeps on the card what the
+# host form decides on the host: the learning rate (a table indexed by the
+# applied-update count), the guard's decision (a 0-d bool that selects new or
+# old tensors), Adam's bias corrections, the EMA's first-step copy and the
+# counts. Its scalars are f64, as the host form's Python floats are.
+
+
+def _finite_device(grads: list[torch.Tensor]) -> torch.Tensor:
+    """0-d bool on the device: every gradient free of NaN and Inf."""
+    return torch.isfinite(torch.stack(torch._foreach_norm(grads, float("inf")))).all()
+
+
+@torch.no_grad()
+def _select(finite: torch.Tensor | None, tensors: list[torch.Tensor], old: list[torch.Tensor] | None) -> None:
+    """Where ``finite`` is False, put ``old`` back into ``tensors``, in place."""
+    if finite is not None:
+        for t, o in zip(tensors, old):
+            t.copy_(torch.where(finite, t, o))
+
+
+@torch.no_grad()
+def _adam_device(opt: torch.optim.Optimizer, lr: torch.Tensor, finite: torch.Tensor | None) -> None:
+    """``opt``'s Adam (or AdamW's decoupled decay) update with the learning
+    rate ``lr`` a 0-d f64 tensor on the device, on the optimizer's own state
+    (``step``, ``exp_avg``, ``exp_avg_sq``: its state dict stays
+    ``torch.optim.Adam``'s, with ``step`` on the parameters' device), in
+    torch's arithmetic: the moments by lerp and addcmul, then ``p -= lr /
+    (1 - b1^t) * m / (sqrt(v) / sqrt(1 - b2^t) + eps)``. With ``finite``
+    every tensor it writes keeps its old value where ``finite`` is False."""
+    group = opt.param_groups[0]
+    (b1, b2), eps, wd = group["betas"], group["eps"], group["weight_decay"]
+    params = [p for p in group["params"] if p.grad is not None]
+    grads = [p.grad for p in params]
+    for p in params:
+        s = opt.state[p]
+        if not s:
+            s["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+            s["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            s["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        elif s["step"].device != p.device:
+            s["step"] = s["step"].to(p.device)
+    steps = [opt.state[p]["step"] for p in params]
+    ms = [opt.state[p]["exp_avg"] for p in params]
+    vs = [opt.state[p]["exp_avg_sq"] for p in params]
+    written = params + ms + vs + steps
+    old = [t.clone() for t in written] if finite is not None else None
+    torch._foreach_add_(steps, 1.0)
+    t = steps[0].double()
+    if wd:
+        if isinstance(opt, torch.optim.AdamW):
+            torch._foreach_mul_(params, 1.0 - lr * wd)
+        else:
+            grads = torch._foreach_add(grads, params, alpha=wd)
+    torch._foreach_lerp_(ms, grads, 1.0 - b1)
+    torch._foreach_mul_(vs, b2)
+    torch._foreach_addcmul_(vs, grads, grads, value=1.0 - b2)
+    step_size = lr / (1.0 - torch.pow(b1, t))
+    denom = torch._foreach_sqrt(vs)
+    torch._foreach_div_(denom, torch.sqrt(1.0 - torch.pow(b2, t)))
+    torch._foreach_add_(denom, eps)
+    update = torch._foreach_div(ms, denom)
+    torch._foreach_mul_(update, -step_size)
+    torch._foreach_add_(params, update)
+    _select(finite, written, old)
+
+
+class DeviceCounts:
+    """The step and the applied-update counts of G and D as int64 tensors
+    on the device, and the schedules as tables of their values indexed by
+    the milestones passed: what a device-form step reads and advances. One
+    set a trainer, so that a captured graph holds them for good;
+    :meth:`Trainer.sync_counts` writes them back to the state."""
+
+    def __init__(self, trainer: "Trainer") -> None:
+        dev, ms = trainer.device, sorted(trainer.milestones)
+        self.milestones = torch.tensor(ms, dtype=torch.int64, device=dev)
+        self.tables = {
+            which: torch.tensor([sched(0)] + [sched(m) for m in ms], dtype=torch.float64, device=dev)
+            for which, sched in (("g", trainer.schedule), ("d", trainer.d_schedule))
+        }
+        self.step, self.g, self.d = (torch.zeros((), dtype=torch.int64, device=dev) for _ in range(3))
+        self.state: TrainState | None = None
+        self.host_step = -1  # state.step when the counts were last loaded or advanced
+
+    def load(self, state: TrainState) -> None:
+        """Take the counts from ``state`` (in place: graphs hold the tensors)."""
+        self.step.fill_(state.step)
+        self.g.fill_(state.g_count)
+        self.d.fill_(state.d_count)
+        self.state, self.host_step = state, state.step
+
+    def lr(self, which: str) -> torch.Tensor:
+        """The scheduled lr of ``which`` ("g" or "d") at its applied-update count."""
+        count = self.g if which == "g" else self.d
+        passed = (count >= self.milestones).sum().reshape(1)
+        return self.tables[which].index_select(0, passed).reshape(())  # a tensor index: no host read
+
+    def applied(self, which: str, finite: torch.Tensor | None) -> None:
+        count = self.g if which == "g" else self.d
+        count.add_(1 if finite is None else finite.to(torch.int64))
+
+
 class Trainer:
     """Builds the models, the losses and the optimizers from an
     ExperimentConfig and exposes ``train_step`` and ``eval_sr``."""
@@ -297,6 +408,7 @@ class Trainer:
         self.device = torch.device(device)
         self.dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         milestones = tuple(m * steps_per_epoch for m in cfg.milestones_epochs)
+        self.milestones = milestones
         self.schedule = multistep_lr(cfg.model_lr, milestones, cfg.lr_scheduler_gamma)
         self.d_schedule = multistep_lr(cfg.discriminator_lr or cfg.model_lr, milestones,
                                        cfg.lr_scheduler_gamma)
@@ -304,6 +416,12 @@ class Trainer:
         self.accum = max(1, int(cfg.grad_accum_steps))
         self.guard = bool(cfg.skip_nonfinite_updates)
         self.world = comm.world()
+        # the dispatch modes: on the card each dispatch replays a CUDA graph
+        # (train/graphs.py) unless this is False (the eager twin it is held to)
+        self.cuda_graphs = self.device.type == "cuda"
+        self._counts: DeviceCounts | None = None
+        self._graphs = None
+        self._graphs_state: TrainState | None = None
         self.content_loss = None
         if cfg.content_weight:
             self.content_loss = ContentLoss(
@@ -360,36 +478,52 @@ class Trainer:
         tensors on the device (reading one waits for the step). The pixel
         and content terms target ``gt_pixel`` when given, D's real input is
         ``gt``."""
+        metrics = self._step(state, gt, lr_img, gt_pixel)
+        state.step += 1
+        if self.world > 1:  # the global batch's metrics: the mean of the ranks' (equal batches)
+            keys = sorted(metrics)
+            dt = torch.float64 if any(v.dtype == torch.float64 for v in metrics.values()) else torch.float32
+            mean = comm.all_reduce(torch.stack([metrics[k].to(dt) for k in keys])) / self.world
+            metrics = {k: m.to(metrics[k].dtype) for k, m in zip(keys, mean.unbind(0))}
+        return metrics
+
+    def _step(
+        self,
+        state: TrainState,
+        gt: torch.Tensor,
+        lr_img: torch.Tensor,
+        gt_pixel: torch.Tensor | None,
+        dev: DeviceCounts | None = None,
+    ) -> dict[str, torch.Tensor]:
+        """One step's updates and metrics, without advancing ``state.step``:
+        the host form (``dev`` None), or the device form that reads and
+        advances ``dev``'s counts on the card."""
         target = gt if gt_pixel is None else gt_pixel
         metrics: dict[str, torch.Tensor] = {}
         if not self.has_d:
-            parts, _ = self._g_update(state, target, lr_img)
+            parts, _ = self._g_update(state, target, lr_img, dev=dev)
         elif self.cfg.g_step_first:
-            parts, sr = self._g_update(state, target, lr_img)
+            parts, sr = self._g_update(state, target, lr_img, dev=dev)
             # the same SR, from G before its update, against the old D's
             # update, as the JAX step's d_update(state, gt, sr) takes it
-            metrics = self._d_update(state, gt, sr)
+            metrics = self._d_update(state, gt, sr, dev=dev)
         elif self.accum == 1:
             # one generator forward, whose graph both updates share
             with annotate("g_forward"):
                 sr = self._g_apply(state.g_model, lr_img)
-            metrics = self._d_update(state, gt, sr.detach())
-            parts, _ = self._g_update(state, target, lr_img, sr=sr)
+            metrics = self._d_update(state, gt, sr.detach(), dev=dev)
+            parts, _ = self._g_update(state, target, lr_img, sr=sr, dev=dev)
         else:
             # accumulation: the full batch's graph would pin what the chunks
             # exist to free, so D takes a forward without one (the JAX step's
             # residual-free forward) and the G phase recomputes by chunk
             with annotate("g_forward"), torch.no_grad():
                 sr = self._g_apply(state.g_model, lr_img)
-            metrics = self._d_update(state, gt, sr)
-            parts, _ = self._g_update(state, target, lr_img)
-        state.step += 1
+            metrics = self._d_update(state, gt, sr, dev=dev)
+            parts, _ = self._g_update(state, target, lr_img, dev=dev)
+        if dev is not None:
+            dev.step.add_(1)
         metrics.update(parts)
-        if self.world > 1:  # the global batch's metrics: the mean of the ranks' (equal batches)
-            keys = sorted(metrics)
-            dt = torch.float64 if any(v.dtype == torch.float64 for v in metrics.values()) else torch.float32
-            mean = comm.all_reduce(torch.stack([metrics[k].to(dt) for k in keys])) / self.world
-            metrics = {k: m.to(metrics[k].dtype) for k, m in zip(keys, mean.unbind(0))}
         return metrics
 
     def _pipelined(self, rows: int) -> bool:
@@ -426,7 +560,23 @@ class Trainer:
         opt.step()
         return True
 
-    def _skipped(self, applied: bool, like: torch.Tensor) -> torch.Tensor:
+    def _apply_update_device(self, opt: torch.optim.Optimizer, params: list[torch.nn.Parameter],
+                             dev: DeviceCounts, which: str) -> torch.Tensor | None:
+        """:meth:`_apply_update` in the device form: the guard's decision a
+        0-d bool on the device (None without the guard) that the update
+        selects on, the lr from ``dev``'s table for ``which``'s count."""
+        grads = [p.grad for p in params if p.grad is not None]
+        if self.accum > 1:
+            torch._foreach_div_(grads, float(self.accum))
+        finite = _finite_device(grads) if self.guard else None
+        if self.cfg.grad_clip_norm:
+            _clip_by_global_norm(grads, self.cfg.grad_clip_norm)
+        _adam_device(opt, dev.lr(which), finite)
+        return finite
+
+    def _skipped(self, applied: bool | torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        if isinstance(applied, torch.Tensor):
+            return (~applied).to(torch.float32)
         return torch.tensor(0.0 if applied else 1.0, dtype=torch.float32, device=like.device)
 
     def _g_update(
@@ -435,13 +585,16 @@ class Trainer:
         target: torch.Tensor,
         lr_img: torch.Tensor,
         sr: torch.Tensor | None = None,
+        dev: DeviceCounts | None = None,
     ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
         """The G update: the losses against the current D, their backward
         into G only (D and the VGG are constants of it), Adam on G, then the
         EMA. ``sr`` is a forward with its graph to reuse (the D-first step's
         shared forward); else G runs here, by chunk under accumulation.
-        Returns the loss parts and the detached SR of the phase."""
-        _set_lr(state.g_opt, self.schedule(state.g_count))  # optax's count: updates applied before
+        Returns the loss parts and the detached SR of the phase. ``dev``:
+        the device form."""
+        if dev is None:
+            _set_lr(state.g_opt, self.schedule(state.g_count))  # optax's count: updates applied before
         params = list(state.g_model.parameters())
         state.g_opt.zero_grad(set_to_none=True)
         per_chunk, srs = [], []
@@ -460,8 +613,19 @@ class Trainer:
                 srs.append(sr_i.detach())
             if self._pipelined(srs[0].shape[0]):  # each block's gradient lies on its owner rank
                 _sum_over(list(state.g_model.trunk.parameters()), self.mesh.group("pipe"))
-            applied = self._apply_update(state.g_opt, params)
-        if applied:
+            if dev is not None:
+                applied = self._apply_update_device(state.g_opt, params, dev, "g")
+            else:
+                applied = self._apply_update(state.g_opt, params)
+        if dev is not None:
+            with annotate("ema"):
+                ema = list(state.ema_g.values())
+                old = [e.clone() for e in ema] if applied is not None else None
+                ema_update(state.ema_g, dict(state.g_model.named_parameters()), self.cfg.model_ema_decay,
+                           reference_semantics=self.cfg.ema_reference_semantics, step=dev.step)
+                _select(applied, ema, old)
+            dev.applied("g", applied)
+        elif applied:
             with annotate("ema"):
                 ema_update(
                     state.ema_g, dict(state.g_model.named_parameters()), self.cfg.model_ema_decay,
@@ -473,13 +637,15 @@ class Trainer:
             parts["g_update_skipped"] = self._skipped(applied, srs[0])
         return parts, srs[0] if len(srs) == 1 else torch.cat(srs)
 
-    def _d_update(self, state: TrainState, gt: torch.Tensor, sr: torch.Tensor) -> dict[str, torch.Tensor]:
+    def _d_update(self, state: TrainState, gt: torch.Tensor, sr: torch.Tensor,
+                  dev: DeviceCounts | None = None) -> dict[str, torch.Tensor]:
         """BCE(D(gt), 1) + BCE(D(sr), 0), or with ``relativistic_gan`` the
         relativistic average loss of the same two forwards, with ``u`` and
         the running statistics advanced by each train forward, then Adam on
         D; by chunk under accumulation."""
         d = state.d_model
-        _set_lr(state.d_opt, self.d_schedule(state.d_count))
+        if dev is None:
+            _set_lr(state.d_opt, self.d_schedule(state.d_count))
         # the train forwards write u and the running statistics in place:
         # the guard keeps a copy to restore on a skip
         saved = [b.detach().clone() for b in d.buffers()] if self.guard else None
@@ -495,8 +661,14 @@ class Trainer:
                     "d_gt_probability": _mean_sigmoid(gt_out),
                     "d_sr_probability": _mean_sigmoid(sr_out),
                 })
-            applied = self._apply_update(state.d_opt, params)
-        if applied:
+            if dev is not None:
+                applied = self._apply_update_device(state.d_opt, params, dev, "d")
+            else:
+                applied = self._apply_update(state.d_opt, params)
+        if dev is not None:
+            _select(applied, list(d.buffers()), saved)
+            dev.applied("d", applied)
+        elif applied:
             state.d_count += 1
         elif saved is not None:
             with torch.no_grad():
@@ -551,3 +723,109 @@ class Trainer:
         pipelined where the batch divides into the microbatches, so the
         ranks of a pipe axis call it alike."""
         return self._g_apply(state.g_model, lr_img)
+
+    # -- the dispatch modes: the degradation-fused step and K-step dispatch --
+
+    def sync_counts(self, state: TrainState) -> None:
+        """Write the device form's applied-update counts back to ``state``
+        (one read of the card): before a checkpoint or any host read of
+        ``state.g_count`` / ``state.d_count`` after dispatches."""
+        if self._counts is not None and self._counts.state is state:
+            state.g_count, state.d_count = int(self._counts.g), int(self._counts.d)
+
+    def _dispatch(self, state: TrainState, key: tuple, fn: Callable, inputs: list[torch.Tensor]
+                  ) -> dict[str, torch.Tensor]:
+        """Run one dispatch of ``len(inputs[0])`` device-form steps: a CUDA
+        graph's replay on the card (:mod:`train.graphs`), eagerly otherwise."""
+        if self.world > 1 or self.microbatches:
+            raise NotImplementedError("the dispatch modes run in a world of one rank (cli.train runs one step at "
+                                      "a time under data parallelism, as the JAX CLI does under multi-host)")
+        self._counts_for(state)
+        if self._counts.state is not state or self._counts.host_step != state.step:
+            self._counts.load(state)
+        if self.device.type == "cuda" and self.cuda_graphs:
+            if self._graphs is None or self._graphs_state is not state:
+                self._graphs = StepGraphs(self.device, after_replay=lambda: drop_packed(state.g_model))
+                self._graphs_state = state
+            metrics = self._graphs.run(key, fn, inputs)
+        else:
+            metrics = fn(inputs)
+        state.step += inputs[0].shape[0]
+        self._counts.host_step = state.step
+        return metrics
+
+    def graph_stats(self) -> dict:
+        """The dispatch graphs' counts (empty where none was captured)."""
+        return self._graphs.stats() if self._graphs is not None else {}
+
+    def _device_tensor(self, x) -> torch.Tensor:
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+        return t.to(self.device, non_blocking=True)
+
+    def bsrgan_fused_train_step(self, state: TrainState, gt_raw, plan: BsrganPlan, tops, lefts,
+                                gt_size: int) -> dict[str, torch.Tensor]:
+        """The BSRGAN chain, the aligned crop and the update as one dispatch
+        (the JAX ``bsrgan_fused_train_step``): one graph replay a step on the
+        card, one graph a branch key ``(scale2, scale2_interp,
+        effective_upscale)``. ``plan`` needs the per-sample JPEG slot
+        (``plan_bsrgan_batch(..., per_sample_order=True)``), ``gt_raw`` is
+        uint8 or float, ``tops``/``lefts`` LR-space offsets."""
+        return self.bsrgan_fused_train_multi_step(state, [gt_raw], [plan], [tops], [lefts], gt_size)
+
+    def bsrgan_fused_train_multi_step(self, state: TrainState, gt_raws, plans: list[BsrganPlan], tops_list,
+                                      lefts_list, gt_size: int) -> dict[str, torch.Tensor]:
+        """K fused steps, each with its own chain and crop, as one dispatch
+        (the JAX ``bsrgan_fused_train_multi_step``); the K plans share one
+        branch key (the caller groups steps by it). Each step's numerics are
+        K single fused steps'; the metrics returned are their mean."""
+        first = plans[0]
+        skey = (first.scale2, first.scale2_interp, first.effective_upscale)
+        if any((p.scale2, p.scale2_interp, p.effective_upscale) != skey for p in plans):
+            raise ValueError("all plans in a multi-step dispatch must share the static branch")
+        ops = [plan_operands(p) for p in plans]
+        names = ("kernels_a", "kernels_b", "jpeg_quality", "jpeg_apply", "final_jpeg_quality", "jpeg_pos")
+        gts = torch.stack([self._device_tensor(g) for g in gt_raws])
+        inputs = [gts, *(self._device_tensor(np.stack([o[n] for o in ops])) for n in names),
+                  *(self._device_tensor(np.stack([np.asarray(t, np.int64) for t in ts])) for ts in (tops_list,
+                                                                                                lefts_list))]
+        sf = self.cfg.upscale_factor
+        dev = self._counts_for(state)
+
+        def fused(xs: list[torch.Tensor]) -> dict[str, torch.Tensor]:
+            per_step = []
+            for k in range(xs[0].shape[0]):
+                gt_c, lr_c = apply_chain_cropped(*(x[k] for x in xs), *skey, gt_size, sf)
+                per_step.append(self._step(state, gt_c, lr_c, None, dev))
+            return _mean_of(per_step)
+
+        key = ("fused", skey, gt_size, tuple(gts.shape), gts.dtype)
+        return self._dispatch(state, key, fused, inputs)
+
+    def make_train_multi_step(self, separate_pixel_target: bool = False) -> Callable:
+        """K pre-degraded steps of any family as one dispatch (the JAX
+        ``make_train_multi_step``): ``(state, batches) -> metrics`` with
+        ``batches`` K dicts ``{"gt", "lr"[, "gt_pixel"]}`` (the adapter's);
+        each step's numerics are K single steps' in the device form; the
+        metrics returned are their mean. One graph per K and batch shape."""
+        names = ("gt", "lr", "gt_pixel") if separate_pixel_target else ("gt", "lr")
+
+        def multi(state: TrainState, batches) -> dict[str, torch.Tensor]:
+            inputs = [torch.stack([self._device_tensor(b[n]) for b in batches]) for n in names]
+            dev = self._counts_for(state)
+
+            def steps(xs: list[torch.Tensor]) -> dict[str, torch.Tensor]:
+                per_step = []
+                for k in range(xs[0].shape[0]):
+                    per_step.append(self._step(state, xs[0][k], xs[1][k],
+                                               xs[2][k] if separate_pixel_target else None, dev))
+                return _mean_of(per_step)
+
+            key = ("plain", names, *((tuple(x.shape), x.dtype) for x in inputs))
+            return self._dispatch(state, key, steps, inputs)
+
+        return multi
+
+    def _counts_for(self, state: TrainState) -> DeviceCounts:
+        if self._counts is None:
+            self._counts = DeviceCounts(self)
+        return self._counts

@@ -37,19 +37,24 @@ def ema_update(
     new_params: dict[str, torch.Tensor],
     decay: float,
     reference_semantics: bool = False,
-    step: int | None = None,
+    step: int | torch.Tensor | None = None,
 ) -> None:
     """EMA lerp, in place on ``ema_params`` (one multi-tensor op per term,
     not one launch per parameter). Default: the conventional
     ``decay*avg + (1-decay)*p``. ``reference_semantics`` reproduces the
     reference's ``AveragedModel`` as the JAX package does: the inverted
     ``(1-decay)*avg + decay*p`` (``ESRGAN/train_esrgan.py:249``) and, at
-    ``step == 0`` (the pre-update step counter), a copy of the model."""
+    ``step == 0`` (the pre-update step counter), a copy of the model. A
+    ``step`` tensor on the device selects the copy there (no host read)."""
     ema = list(ema_params.values())
     new = [new_params[name].detach() for name in ema_params]
-    if reference_semantics and step == 0:
+    first = reference_semantics and isinstance(step, torch.Tensor)
+    if reference_semantics and not first and step == 0:
         torch._foreach_copy_(ema, new)
         return
     keep, take = (1.0 - decay, decay) if reference_semantics else (decay, 1.0 - decay)
     torch._foreach_mul_(ema, keep)
     torch._foreach_add_(ema, new, alpha=take)
+    if first:
+        for e, n in zip(ema, new):
+            e.copy_(torch.where(step == 0, n, e))

@@ -112,13 +112,6 @@ def test_infer_serves_the_trained_ema_generator(frames, tmp_path, monkeypatch):
     assert cv2.imread(str(out)).shape == (96, 96, 3)
 
 
-@pytest.mark.parametrize("var,value", [("SRGANFD_FUSE_STEP", "1"), ("SRGANFD_STEPS_PER_DISPATCH", "4")])
-def test_unported_dispatch_variables_are_refused(frames, tmp_path, monkeypatch, var, value):
-    monkeypatch.setenv(var, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        _run(monkeypatch, tmp_path, _args(frames, "--tiny", "--epochs", "1"))
-
-
 def test_cuda_without_a_card_exits(frames, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = _args(frames, "--tiny")
