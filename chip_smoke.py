@@ -61,14 +61,26 @@ drives A-ESRGAN's generators ``gen_rrdb2x`` and ``gen_rpa2x``:
    and as three TF32 products on the tensor cores), on the plan's
    kernels beside the bound of their nonzero taps, and at (48, 8, 8, 3)
    with K = 21, below the pad;
-7. the RDB under autograd: ``rdb_apply``'s gradients against autograd
-   through ``rdb_forward_ref`` at the training shape x (16, 72, 72, 64),
-   f32 and bf16, and the time of one forward+backward;
+7. the RDB under autograd, f32 and bf16, at the training shape x (16, 72,
+   72, 64) and a ragged (2, 37, 45, 64): one forward and one backward
+   kernel call (``csrc/rdb_bwd.cu``, with ``rdb_forward_ref`` made to raise
+   during the backward), the gradients of x, the kernels and the biases
+   against ``rdb_backward_ref`` on the same saved ``feat`` (max |a - b| /
+   max |b| per tensor: f32 1e-5 against it in f64, bf16 1e-2), once with x
+   not requiring a gradient; autograd through the recomputed
+   ``rdb_forward_ref`` beside it (1e-4 / 1e-2 when no LeakyReLU slope
+   differs between the kernel's feat and the recompute, the count
+   printed); at the training shape CUDA-graph times of each conv's dgrad
+   and wgrad, the sums and the whole backward beside its bound, the plain
+   version, autograd through the five cuDNN convs (bf16, f32 with TF32 off
+   and on), and one forward and forward+backward of ``rdb_apply``;
 8. training: ``cli.train.run_train`` on the ``bsrnet`` config unchanged
    (full-width ``bsrgan_x2``, batch 16, pre-crop 320, GT 144, bf16) over
    seeded synthetic frames, 2 epochs of 6 steps, then ``--resume auto``
-   for a third; every forward must make 69 RDB kernel calls and every
-   chain 2 filter2d kernel calls. Both checkpoints load as weights and
+   for a third; every forward must make 69 RDB kernel calls, every step
+   69 RDB backward kernel calls (``launches_bwd``, in every training phase
+   below too) and every chain 2 filter2d kernel calls; one more step runs
+   with ``rdb_forward_ref`` raising on a CUDA tensor. Both checkpoints load as weights and
    ``cli.infer --use-ema`` serves a frame from one. One f32 step is run
    with the RDB kernel and again with ``rdb_forward_ref``, from the same
    state on one batch (the chain's, with the filter2d kernel, held to the
@@ -262,7 +274,8 @@ drives A-ESRGAN's generators ``gen_rrdb2x`` and ``gen_rpa2x``:
     a forward, the step p50 and peak memory;
 30. ``cli.export`` of full-width ``bsrgan_x2`` at 128x128 on the card: the
     ``.pt2`` reloaded and run, held to the module (max abs 1e-3), its 69
-    RDB kernel calls through the custom op ``srganfd::rdb_forward``;
+    RDB kernel calls through the custom op ``srganfd::rdb_forward``, the
+    RDBs' weights in it only packed (its size printed);
 31. the graft's sources: ``--pretrained-g`` from the paired run's
     ``ckpt_last.pth``, a ``.npz`` of it and a ``runs:/`` URI of it in a
     ``file:`` MLflow store: the same ``n_ok/n_all``, G's forwards bit for
@@ -801,7 +814,7 @@ def serve_phase(work: str, rdb, blocks) -> tuple[int, dict, int]:
                 for i, p in enumerate(frames)]
         lines = [json.dumps(r) for r in reqs] + ['{"cmd": "stats"}', '{"cmd": "shutdown"}']
         out = io.StringIO()
-        rdb.launches = 0
+        rdb.launches = rdb.launches_bwd = 0
         t0 = time.perf_counter()
         serve_stdio(engine, inp=io.StringIO("\n".join(lines)), out=out)
         torch.cuda.synchronize()
@@ -831,7 +844,7 @@ def serve_phase(work: str, rdb, blocks) -> tuple[int, dict, int]:
     engine = ServingEngine("bsrgan_x2", half=True, batch=2, device="cuda", seed=0)
     watch_in, watch_out = os.path.join(work, "watch_in"), os.path.join(work, "watch_out")
     write_frames(watch_in, 3, 256, 256, seed=1)
-    rdb.launches = 0
+    rdb.launches = rdb.launches_bwd = 0
     t0 = time.perf_counter()
     done = serve_watch(engine, watch_in, watch_out, once=True)
     wall = time.perf_counter() - t0
@@ -845,7 +858,7 @@ def serve_phase(work: str, rdb, blocks) -> tuple[int, dict, int]:
 
     # a frame with odd edges
     odd = write_frames(os.path.join(work, "odd"), 1, 250, 190, seed=2)[0]
-    rdb.launches = 0
+    rdb.launches = rdb.launches_bwd = 0
     reply = engine.sr_file(odd, os.path.join(work, "odd_sr.png"))
     calls = rdb.launches
     launches += calls
@@ -862,7 +875,7 @@ def infer_phase(work: str, rdb) -> int:
 
     frames_dir, out_dir = os.path.join(work, "seq"), os.path.join(work, "seq_sr")
     write_frames(frames_dir, 4, 256, 256, seed=3)
-    rdb.launches = 0
+    rdb.launches = rdb.launches_bwd = 0
     infer.main([
         "--model-arch", "bsrgan_x2", "--half", "--batch", "2",
         "--inputs-path", frames_dir, "--output-path", out_dir,
@@ -1063,7 +1076,7 @@ def re_serve_phase(work: str, rdb, blocks) -> tuple[int, dict, int]:
                 for i, p in enumerate(inputs)]
         lines = [json.dumps(r) for r in reqs] + ['{"cmd": "stats"}', '{"cmd": "shutdown"}']
         out = io.StringIO()
-        rdb.launches = 0
+        rdb.launches = rdb.launches_bwd = 0
         t0 = time.perf_counter()
         serve_stdio(engine, inp=io.StringIO("\n".join(lines)), out=out)
         torch.cuda.synchronize()
@@ -1092,7 +1105,7 @@ def re_serve_phase(work: str, rdb, blocks) -> tuple[int, dict, int]:
 
     frames_dir, out_dir = os.path.join(work, "re_seq"), os.path.join(work, "re_seq_sr")
     write_frames(frames_dir, 2, RE_SERVE, RE_SERVE, seed=9)
-    rdb.launches = 0
+    rdb.launches = rdb.launches_bwd = 0
     infer.main(["--model-arch", "realesrgan_x4", "--half", "--batch", "2", "--weights", weights["realesrgan_x4"],
                 "--inputs-path", frames_dir, "--output-path", out_dir])
     torch.cuda.synchronize()
@@ -1309,46 +1322,201 @@ def re_filter2d_phase(f2d) -> dict:
     return out
 
 
+BWD_RAGGED_SHAPE = (2, 37, 45, CH)  # 16x8 tiles ragged in both axes
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """CUDA-event time of one call of ``fn``, replayed from a CUDA graph of
+    ``iters`` calls: the card's time without the host's launch overhead
+    (a backward's Python wrapper takes ~0.14 ms, above its smaller kernels)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def rdb_bwd_bound(shape, dtype, packed) -> tuple[float, str]:
+    """The least time of one RDB backward: its operations (dgrad and wgrad,
+    each the forward's; as three TF32 products in f32) over the tensor
+    cores' peak, or its bytes (x, feat and g read once, the packed weights
+    read once, dx written once in x's dtype, dW and db written once in f32)
+    over HBM's; the larger, in ms, and which one it is."""
+    n, h, w, ch = shape
+    esize = 2 if dtype == torch.bfloat16 else 4
+    flops = 2 * rdb_flops(shape)
+    t_ops = flops / PEAK_BF16_FLOPS if dtype == torch.bfloat16 else TF32_PRODUCTS * flops / PEAK_TF32_FLOPS
+    out_elems = sum(9 * (ch + k * GC) * (GC if k < 4 else ch) + (GC if k < 4 else ch) for k in range(5))
+    moved = esize * n * h * w * (3 * ch + 4 * GC) + packed[0].numel() * esize + 4 * out_elems
+    t_bytes = moved / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def rdb_grad_phase(rdb) -> dict:
-    """rdb_apply (kernel forward, backward through the recomputed plain
-    version) against plain autograd through rdb_forward_ref at the training
-    shape; then one forward+backward timed."""
+    """rdb_apply under autograd at the training shape x (16, 72, 72, 64)
+    and a ragged (2, 37, 45, 64), f32 and bf16: one forward kernel and one
+    backward kernel call each; the gradients of x, the 5 kernels and the 5
+    biases held, as max |a - b| / max |b| per tensor, to rdb_backward_ref fed
+    the same saved feat (f32 to 1e-5 against it run in f64 on f64 copies:
+    the f32 cuDNN plain version misses exact sums by up to 3.9e-5 at the
+    training shape, printed; bf16 to 1e-2 against the bf16 plain version),
+    once with x not requiring a gradient; beside it the old comparison,
+    autograd through the recomputed rdb_forward_ref (1e-4 / 1e-2 when no
+    LeakyReLU slope differs between the kernel's feat and the recompute),
+    and the count of slopes that differ. Then times at the training shape:
+    each conv's dgrad and wgrad, the sums, the whole backward (CUDA graphs
+    of the calls), its bound, the plain version, autograd through the five
+    cuDNN convs (bf16, f32 with TF32 off and on), and rdb_apply's forward
+    and backward."""
+    import torch.nn.functional as F
+
     out = {}
     for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        x, ks, bs = rdb_inputs(TRAIN_RDB_SHAPE, seed=400)
-        cot = torch.randn(TRAIN_RDB_SHAPE, generator=torch.Generator().manual_seed(401)).cuda().to(dt)
-        leaves = [x.to(dt).requires_grad_(), *[t.requires_grad_() for t in ks + bs]]
-        plain = [t.detach().clone().requires_grad_() for t in leaves]
-        before = rdb.launches
-        y = rdb.rdb_apply(leaves[0], leaves[1:6], leaves[6:])
-        check(rdb.launches == before + 1, "rdb_apply did not launch the kernel")
-        got = torch.autograd.grad(y, leaves, cot)
-        want = torch.autograd.grad(rdb.rdb_forward_ref(plain[0], plain[1:6], plain[6:]), plain, cot)
-        rel = max(((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
-                  for g, w in zip(got, want))
-        print(f"rdb_apply {TRAIN_RDB_SHAPE} {name}: gradients vs autograd through the plain "
-              f"version, max relative {rel:.3g} (x, 5 kernels, 5 biases)", flush=True)
-        # both pull the cotangent through the same recomputed plain forward;
-        # only cuDNN's backward algorithms (their summation order) differ
-        check(rel <= (1e-4 if dt == torch.float32 else 1e-2), f"{name} rdb_apply gradients: {rel}")
-        out[f"grad_max_rel_err_{name}"] = rel
+        for shape, seed in ((TRAIN_RDB_SHAPE, 400), (BWD_RAGGED_SHAPE, 402)):
+            x, ks, bs = rdb_inputs(shape, seed=seed)
+            cot = torch.randn(shape, generator=torch.Generator().manual_seed(seed + 1)).cuda().to(dt)
+            for x_grad in (True, False) if shape == TRAIN_RDB_SHAPE else (True,):
+                tag = f"{name} {shape}" + ("" if x_grad else " x without a gradient")
+                leaves = [x.to(dt).requires_grad_(x_grad), *[t.clone().requires_grad_() for t in ks + bs]]
+                wanted = [t for t in leaves if t.requires_grad]
+                before = rdb.launches, rdb.launches_bwd
+                y = rdb.rdb_apply(leaves[0], leaves[1:6], leaves[6:])
+                feat = y.grad_fn.saved_tensors[1]
+                orig_ref = rdb.rdb_forward_ref
+
+                def refuse(*a, **k):
+                    raise AssertionError("the backward reached rdb_forward_ref")
+
+                rdb.rdb_forward_ref = refuse
+                try:
+                    got = torch.autograd.grad(y, wanted, cot)
+                finally:
+                    rdb.rdb_forward_ref = orig_ref
+                torch.cuda.synchronize()
+                check((rdb.launches, rdb.launches_bwd) == (before[0] + 1, before[1] + 1),
+                      f"{tag}: rdb_apply made {rdb.launches - before[0]} forward and "
+                      f"{rdb.launches_bwd - before[1]} backward kernel calls")
+                xs, kt, bt = leaves[0].detach(), [t.detach() for t in ks], [t.detach() for t in bs]
+                if dt == torch.float32:
+                    d = torch.float64
+                    want = rdb.rdb_backward_ref(xs.to(d), [t.to(d) for t in kt], [t.to(d) for t in bt], feat.to(d),
+                                                cot.to(d), x_grad)
+                    plain32 = rdb.rdb_backward_ref(xs, kt, bt, feat, cot, x_grad)
+                else:
+                    want = plain32 = rdb.rdb_backward_ref(xs, kt, bt, feat, cot, x_grad)
+                want = ([want[0]] if x_grad else []) + want[1] + want[2]
+                plain32 = ([plain32[0]] if x_grad else []) + plain32[1] + plain32[2]
+                names = (["x"] if x_grad else []) + [f"kernel{k}" for k in range(5)] + [f"bias{k}" for k in range(5)]
+                per = {n_: _rel_max(g, w) for n_, g, w in zip(names, got, want)}
+                rel = max(per.values())
+                out[f"bwd_max_abs_err_{name}"] = max(out.get(f"bwd_max_abs_err_{name}", 0.0), *(
+                    (g.double() - w.double()).abs().max().item() for g, w in zip(got, want)))
+                finite = all(torch.isfinite(g).all().item() for g in got)
+                print(f"rdb_apply {tag}: backward kernels vs rdb_backward_ref on the same feat"
+                      f"{' (in f64)' if dt == torch.float32 else ''}, max relative per tensor {rel:.3g} "
+                      f"{ {k: float(f'{v:.2g}') for k, v in per.items()} }", flush=True)
+                limit = 1e-5 if dt == torch.float32 else 1e-2
+                check(finite and rel <= limit, f"{tag} backward kernels vs rdb_backward_ref: {rel} > {limit}")
+                key = f"{name}_{shape[0]}x{shape[1]}x{shape[2]}" + ("" if x_grad else "_no_x_grad")
+                out[f"bwd_rel_{key}"] = rel
+                if dt == torch.float32:
+                    plain_rel = max(_rel_max(p, w) for p, w in zip(plain32, want))
+                    out[f"bwd_plain_f32_rel_{key}"] = plain_rel
+                    print(f"rdb_apply {tag}: the f32 plain version (cuDNN, TF32 off) vs in f64, max relative per "
+                          f"tensor {plain_rel:.3g}", flush=True)
+                if not x_grad:
+                    continue
+                # the old comparison: autograd through the recomputed plain forward
+                plain = [t.detach().clone().requires_grad_() for t in leaves]
+                y_ref, feat_ref = rdb.rdb_forward_ref(plain[0], plain[1:6], plain[6:], with_feat=True)
+                flips = int(((feat >= 0) != (feat_ref >= 0)).sum())
+                old = max(_rel_max(g, w) for g, w in zip(got, torch.autograd.grad(y_ref, plain, cot)))
+                old_limit = 1e-4 if dt == torch.float32 else 1e-2
+                print(f"rdb_apply {tag}: vs autograd through the recomputed rdb_forward_ref, max relative "
+                      f"{old:.3g} ({old_limit:g} held when no slope differs); LeakyReLU slopes that differ "
+                      f"between the kernel's feat and the recompute: {flips}", flush=True)
+                check(flips > 0 or old <= old_limit, f"{tag} vs autograd through the plain version: {old}")
+                out[f"grad_max_rel_err_{key}"] = old
+                out[f"slope_flips_{key}"] = flips
+                del plain, y_ref, feat_ref
+            del leaves, y, feat, got, want, plain32
+
+    # times at the training shape
+    x, ks, bs = rdb_inputs(TRAIN_RDB_SHAPE, seed=404)
+    for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        xd = x.to(dt)
+        packed = rdb.pack_rdb_weights(ks, bs, dt)
+        cot = torch.randn(TRAIN_RDB_SHAPE, generator=torch.Generator().manual_seed(405)).cuda().to(dt)
+        with torch.no_grad():
+            _, feat = rdb.rdb_forward_ref(xd, ks, bs, with_feat=True)
+        args = (xd, feat, cot, packed, GC)
+        pieces = {f"dgrad{k}": graph_ms(lambda k=k: rdb.rdb_backward(*args, only=k)) for k in range(5)}
+        pieces.update({f"wgrad{k}": graph_ms(lambda k=k: rdb.rdb_backward(*args, only=5 + k)) for k in range(5)})
+        pieces["sums"] = graph_ms(lambda: rdb.rdb_backward(*args, only=10))
+        ms = graph_ms(lambda: rdb.rdb_backward(*args))
+        bound, bound_by = rdb_bwd_bound(TRAIN_RDB_SHAPE, dt, packed)
+        plain_ms = cuda_ms(lambda: rdb.rdb_backward_ref(xd, ks, bs, feat, cot), iters=5, warmup=1)
+        library = {}
+        saved = torch.backends.cudnn.allow_tf32
+        for lib_tag, tf32 in ((("bf16", False),) if dt == torch.bfloat16 else (("f32", False), ("tf32", True))):
+            torch.backends.cudnn.allow_tf32 = tf32
+            try:
+                xl = xd.detach().requires_grad_()
+                kl = [t.detach().requires_grad_() for t in ks]
+                bl = [t.detach().requires_grad_() for t in bs]
+                xc = xl.permute(0, 3, 1, 2)
+                feats = [xc]
+                for k in range(4):
+                    wk = kl[k].to(dt).permute(3, 2, 0, 1)
+                    feats.append(F.leaky_relu(F.conv2d(torch.cat(feats, 1), wk, bl[k].to(dt), padding=1), 0.2))
+                yl = F.conv2d(torch.cat(feats, 1), kl[4].to(dt).permute(3, 2, 0, 1), bl[4].to(dt), padding=1) * 0.2 + xc
+                gl = cot.permute(0, 3, 1, 2)
+                library[lib_tag] = cuda_ms(lambda: torch.autograd.grad(yl, [xl, *kl, *bl], gl, retain_graph=True),
+                                           iters=5, warmup=1)
+                del yl, feats
+            finally:
+                torch.backends.cudnn.allow_tf32 = saved
+        leaves = [xd.detach().requires_grad_(), *[t.detach().requires_grad_() for t in ks + bs]]
 
         def fwd_bwd():
-            y = rdb.rdb_apply(leaves[0], leaves[1:6], leaves[6:])
-            torch.autograd.grad(y, leaves, cot)
+            torch.autograd.grad(rdb.rdb_apply(leaves[0], leaves[1:6], leaves[6:]), leaves, cot)
 
+        fwd_bwd_ms = cuda_ms(fwd_bwd, iters=10, warmup=2)
         with torch.no_grad():
             fwd_ms = cuda_ms(lambda: rdb.rdb_apply(leaves[0], leaves[1:6], leaves[6:]), iters=10)
-            # what the backward recomputes first
-            plain_ms = cuda_ms(lambda: rdb.rdb_forward_ref(leaves[0], leaves[1:6], leaves[6:]), iters=10)
+        out[f"bwd_ms_{name}"] = ms
+        out[f"bwd_pieces_ms_{name}"] = pieces
+        out[f"bwd_bound_ms_{name}"] = bound
+        out[f"bwd_bound_by_{name}"] = bound_by
+        out[f"bwd_plain_ms_{name}"] = plain_ms
+        out[f"bwd_library_ms_{name}"] = library
         out[f"train_fwd_ms_{name}"] = fwd_ms
-        out[f"train_plain_fwd_ms_{name}"] = plain_ms
-        out[f"train_fwd_bwd_ms_{name}"] = cuda_ms(fwd_bwd, iters=5, warmup=1)
-        print(f"rdb_apply {TRAIN_RDB_SHAPE} {name}: forward (packing the weights, then the kernel) "
-              f"{fwd_ms:.4f} ms, the plain forward "
-              f"the backward recomputes {plain_ms:.4f} ms, forward+backward "
-              f"{out[f'train_fwd_bwd_ms_{name}']:.4f} ms", flush=True)
+        out[f"train_fwd_bwd_ms_{name}"] = fwd_bwd_ms
+        print(f"rdb backward at x {TRAIN_RDB_SHAPE} {name} (CUDA graphs of the calls): {ms:.4f} ms, "
+              f"{100 * bound / ms:.1f}% of its {bound:.4f} ms bound ({bound_by}); pieces "
+              f"{ {k: round(v, 4) for k, v in pieces.items()} } ms (each conv's wgrad alone, the whole launch "
+              f"holds all five); plain version {plain_ms:.4f} ms; autograd through the five cuDNN convs "
+              f"{ {k: round(v, 4) for k, v in library.items()} } ms; rdb_apply forward {fwd_ms:.4f} ms, forward+"
+              f"backward {fwd_bwd_ms:.4f} ms (host clock of the eager calls, CUDA events)", flush=True)
     return out
+
+
+def _rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b| in f64."""
+    return ((a.double() - b.double()).abs().max() / b.double().abs().max().clamp_min(1e-30)).item()
 
 
 def write_gt_frames(d: str, n: int, size: int, seed: int) -> None:
@@ -1518,7 +1686,7 @@ def train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
 
     Trainer.train_step = recorded_step
     torch.cuda.reset_peak_memory_stats()
-    rdb.launches = f2d.launches = 0
+    rdb.launches = rdb.launches_bwd = f2d.launches = 0
     try:
         run_s = []
         for epochs, resume in ((TRAIN_EPOCHS, ""), (TRAIN_EPOCHS + 1, "auto")):
@@ -1529,13 +1697,13 @@ def train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
             run_s.append(time.perf_counter() - t0)
     finally:
         Trainer.train_step = real_step
-    calls = {"rdb": rdb.launches, "filter2d": f2d.launches}
+    calls = {"rdb": rdb.launches, "rdb_bwd": rdb.launches_bwd, "filter2d": f2d.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_steps = TRAIN_STEPS_PER_EPOCH * (TRAIN_EPOCHS + 1)
     n_valid = TRAIN_EPOCHS + 1  # one batch of the 4 valid frames per epoch
     check(len(losses) == n_steps, f"{len(losses)} train steps, expected {n_steps}")
     check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
-    check(calls == {"rdb": RDB_PER_FORWARD * (n_steps + n_valid),
+    check(calls == {"rdb": RDB_PER_FORWARD * (n_steps + n_valid), "rdb_bwd": RDB_PER_FORWARD * n_steps,
                     "filter2d": FILTERS_PER_CHAIN * (n_steps + n_valid)},
           f"training made {calls} kernel calls for {n_steps} steps and {n_valid} validation batches")
     state = result["state"]
@@ -1614,6 +1782,25 @@ def train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
         breakdown["train_step_ms"] = cuda_ms(lambda: real_step(trainer, state, gt_c, lr_c), iters=3, warmup=1)
     finally:
         blocks.pack_rdb_weights = real_pack
+    # one step with the plain RDB raising on the card: no RDB of the step,
+    # forward or backward, runs the plain version
+    real_ref = rdb.rdb_forward_ref
+
+    def refuse_on_card(x, *a, **k):
+        check(not x.is_cuda, "a training step ran rdb_forward_ref on a CUDA tensor")
+        return real_ref(x, *a, **k)
+
+    rdb.rdb_forward_ref = refuse_on_card
+    rdb.launches = rdb.launches_bwd = 0
+    try:
+        real_step(trainer, state, gt_c, lr_c)
+        torch.cuda.synchronize()
+    finally:
+        rdb.rdb_forward_ref = real_ref
+    check((rdb.launches, rdb.launches_bwd) == (RDB_PER_FORWARD, RDB_PER_FORWARD),
+          f"the step with the plain RDB refused made {rdb.launches} forward and {rdb.launches_bwd} backward calls")
+    print(f"bsrnet step with rdb_forward_ref raising on a CUDA tensor: {rdb.launches} forward and "
+          f"{rdb.launches_bwd} backward RDB kernel calls, no plain RDB", flush=True)
     check(set(packs) == {str(trainer.dtype)}, f"4 {trainer.dtype} steps packed {packs}")
     rdbs = [m for m in model.modules() if isinstance(m, blocks.ResidualDenseBlock)]
     with torch.no_grad():
@@ -1653,7 +1840,7 @@ def train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
           f"{f32['channel_rule_failures'] or 'passes'}", flush=True)
 
     out_png = os.path.join(work, "train_sr.png")
-    rdb.launches = 0
+    rdb.launches = rdb.launches_bwd = 0
     infer.main(["--model-arch", cfg.g_arch, "--weights", os.path.join(ckpt_dir, "ckpt_best.pth"),
                 "--use-ema", "--inputs-path", os.path.join(valid_dir, "gt_000.png"),
                 "--output-path", out_png])
@@ -1768,7 +1955,7 @@ def gan_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
 
     Trainer.train_step, ckpt.restore_state = recorded_step, recorded_restore
     torch.cuda.reset_peak_memory_stats()
-    rdb.launches = f2d.launches = 0
+    rdb.launches = rdb.launches_bwd = f2d.launches = 0
     try:
         run_s = []
         for epochs, resume in ((GAN_EPOCHS, ""), (GAN_EPOCHS + 1, "auto")):
@@ -1779,7 +1966,7 @@ def gan_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
             run_s.append(time.perf_counter() - t0)
     finally:
         Trainer.train_step, ckpt.restore_state = real_step, real_restore
-    calls = {"rdb": rdb.launches, "filter2d": f2d.launches}
+    calls = {"rdb": rdb.launches, "rdb_bwd": rdb.launches_bwd, "filter2d": f2d.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_steps = GAN_STEPS_PER_EPOCH * (GAN_EPOCHS + 1)
     n_valid = GAN_EPOCHS + 1  # one batch of the 4 valid frames per epoch
@@ -1788,7 +1975,7 @@ def gan_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
     check(all(0 < m[k] < 1 for m in metrics_seen for k in ("d_gt_probability", "d_sr_probability")),
           "a D probability outside (0, 1): " + str([(m["d_gt_probability"], m["d_sr_probability"])
                                                     for m in metrics_seen]))
-    check(calls == {"rdb": RDB_PER_FORWARD * (n_steps + n_valid),
+    check(calls == {"rdb": RDB_PER_FORWARD * (n_steps + n_valid), "rdb_bwd": RDB_PER_FORWARD * n_steps,
                     "filter2d": FILTERS_PER_CHAIN * (n_steps + n_valid)},
           f"bsrgan training made {calls} kernel calls for {n_steps} steps and {n_valid} validation batches")
     state = result["state"]
@@ -2018,7 +2205,7 @@ def re_train_phase(work: str, name: str, rdb, f2d, blocks, filters) -> tuple[dic
     Trainer.train_step, ckpt.restore_state = recorded_step, recorded_restore
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    rdb.launches = f2d.launches = 0
+    rdb.launches = rdb.launches_bwd = f2d.launches = 0
     try:
         run_s = []
         for epochs, resume in ((RE_EPOCHS, ""), (RE_EPOCHS + 1, "auto")):
@@ -2029,7 +2216,7 @@ def re_train_phase(work: str, name: str, rdb, f2d, blocks, filters) -> tuple[dic
             run_s.append(time.perf_counter() - t0)
     finally:
         Trainer.train_step, ckpt.restore_state = real_step, real_restore
-    calls = {"rdb": rdb.launches, "filter2d": f2d.launches}
+    calls = {"rdb": rdb.launches, "rdb_bwd": rdb.launches_bwd, "filter2d": f2d.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_steps = RE_STEPS_PER_EPOCH * (RE_EPOCHS + 1)
     n_valid = RE_EPOCHS + 1  # one batch of the 4 valid frames per epoch, adapter step 0
@@ -2040,7 +2227,8 @@ def re_train_phase(work: str, name: str, rdb, f2d, blocks, filters) -> tuple[dic
     if gan:
         check(all(0 < m[k] < 1 for m in metrics_seen for k in ("d_gt_probability", "d_sr_probability")),
               f"a D probability outside (0, 1): {metrics_seen}")
-    check(calls == {"rdb": RDB_PER_FORWARD * (n_steps + n_valid), "filter2d": want_filters},
+    check(calls == {"rdb": RDB_PER_FORWARD * (n_steps + n_valid), "rdb_bwd": RDB_PER_FORWARD * n_steps,
+                    "filter2d": want_filters},
           f"{name} made {calls} kernel calls for {n_steps} steps and {n_valid} validation batches "
           f"(expected {RDB_PER_FORWARD * (n_steps + n_valid)} rdb, {want_filters} filter2d)")
     state = result["state"]
@@ -2326,7 +2514,7 @@ def ae_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
     Trainer.train_step, ckpt.restore_state = recorded_step, recorded_restore
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    rdb.launches = f2d.launches = 0
+    rdb.launches = rdb.launches_bwd = f2d.launches = 0
     try:
         run_s = []
         for epochs, resume in ((AE_EPOCHS, ""), (AE_EPOCHS + 1, "auto")):
@@ -2337,7 +2525,7 @@ def ae_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
             run_s.append(time.perf_counter() - t0)
     finally:
         Trainer.train_step, ckpt.restore_state = real_step, real_restore
-    calls = {"rdb": rdb.launches, "filter2d": f2d.launches}
+    calls = {"rdb": rdb.launches, "rdb_bwd": rdb.launches_bwd, "filter2d": f2d.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_steps = AE_STEPS_PER_EPOCH * (AE_EPOCHS + 1)
     n_valid = AE_EPOCHS + 1  # one batch of the 4 valid frames per epoch
@@ -2345,7 +2533,7 @@ def ae_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
     check(all(math.isfinite(v) for m in metrics_seen for v in m.values()), f"non-finite aesrgan metrics: {metrics_seen}")
     check(all(0 < m[k] < 1 for m in metrics_seen for k in ("d_gt_probability", "d_sr_probability")),
           f"a D probability outside (0, 1): {metrics_seen}")
-    check(calls == {"rdb": RDB_PER_FORWARD * (n_steps + n_valid),
+    check(calls == {"rdb": RDB_PER_FORWARD * (n_steps + n_valid), "rdb_bwd": RDB_PER_FORWARD * n_steps,
                     "filter2d": FILTERS_PER_CHAIN * (n_steps + n_valid)},
           f"aesrgan training made {calls} kernel calls for {n_steps} steps and {n_valid} validation batches")
     state = result["state"]
@@ -2459,7 +2647,7 @@ def ae_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
         return m
 
     Trainer.train_step = ms_step
-    rdb.launches = f2d.launches = 0
+    rdb.launches = rdb.launches_bwd = f2d.launches = 0
     try:
         t0 = time.perf_counter()
         ms_result = cli_train.run_train(ms_cfg, 1, device="cuda")
@@ -2467,14 +2655,14 @@ def ae_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
         ms_s = time.perf_counter() - t0
     finally:
         Trainer.train_step = real_step
-    ms_calls = {"rdb": rdb.launches, "filter2d": f2d.launches}
+    ms_calls = {"rdb": rdb.launches, "rdb_bwd": rdb.launches_bwd, "filter2d": f2d.launches}
     ms_d = ms_result["state"].d_model
     check(len(ms_metrics) == 1 and all(math.isfinite(v) for v in ms_metrics[0].values())
           and all(0 < ms_metrics[0][k] < 1 for k in ("d_gt_probability", "d_sr_probability")),
           f"the ensemble step's metrics {ms_metrics}")
     check(type(ms_d).__name__ == "MultiScaleAttentionDiscriminator" and hasattr(ms_d, "D1"),
           f"the ensemble run trained {type(ms_d).__name__}")
-    check(ms_calls == {"rdb": 2 * RDB_PER_FORWARD, "filter2d": 2 * FILTERS_PER_CHAIN},
+    check(ms_calls == {"rdb": 2 * RDB_PER_FORWARD, "rdb_bwd": RDB_PER_FORWARD, "filter2d": 2 * FILTERS_PER_CHAIN},
           f"the ensemble run made {ms_calls} kernel calls for 1 step and 1 validation batch")
     print(f"aesrgan with --d-arch discriminator_attention_unet_ms (GT {AE_MS_GT}): 1 step + 1 validation batch in "
           f"{ms_s:.2f} s, metrics { {k: round(v, 5) for k, v in ms_metrics[0].items()} }, {ms_calls} kernel calls",
@@ -2560,7 +2748,7 @@ def ae_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
     cv2.imwrite(frame, cv2.imread(os.path.join(cfg.valid_gt_images_dir, "gt_000.png"))[:cfg.gt_image_size,
                                                                                        :cfg.gt_image_size])
     out_png = os.path.join(work, "ae_sr.png")
-    rdb.launches = 0
+    rdb.launches = rdb.launches_bwd = 0
     infer.main(["--model-arch", cfg.g_arch, "--weights", os.path.join(ckpt_dir, "ckpt_best.pth"), "--use-ema",
                 "--inputs-path", frame, "--output-path", out_png])
     img = cv2.imread(out_png)
@@ -2622,7 +2810,7 @@ def es_run(cfg, rdb, f2d, steps_per_epoch: int, runs, check_first=None) -> dict:
     Trainer.train_step, ckpt.restore_state = recorded_step, recorded_restore
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    rdb.launches = f2d.launches = 0
+    rdb.launches = rdb.launches_bwd = f2d.launches = 0
     try:
         for epochs, resume in runs:
             t0 = time.perf_counter()
@@ -2632,7 +2820,7 @@ def es_run(cfg, rdb, f2d, steps_per_epoch: int, runs, check_first=None) -> dict:
             out["run_s"].append(time.perf_counter() - t0)
     finally:
         Trainer.train_step, ckpt.restore_state = real_step, real_restore
-    out["calls"] = {"rdb": rdb.launches, "filter2d": f2d.launches}
+    out["calls"] = {"rdb": rdb.launches, "rdb_bwd": rdb.launches_bwd, "filter2d": f2d.launches}
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
 
@@ -2667,7 +2855,7 @@ def es_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
     n_steps = ES_STEPS_PER_EPOCH * (ES_EPOCHS + 1)
     n_valid = ES_EPOCHS + 1  # one batch of the 4 valid frames per epoch
     runs = ((ES_EPOCHS, ""), (ES_EPOCHS + 1, "auto"))
-    calls, numbers, hosts = {"rdb": 0, "filter2d": 0}, {}, {}
+    calls, numbers, hosts = {"rdb": 0, "rdb_bwd": 0, "filter2d": 0}, {}, {}
     for name in ("rrdbnet", "esrgan"):
         cfg = configs.get_config(name).replace(**where)
         graft = None
@@ -2690,7 +2878,8 @@ def es_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
             check(all(0 < m[k] < 1 for m in metrics for k in ("d_gt_probability", "d_sr_probability")),
                   f"a D probability outside (0, 1): {metrics}")
             check(r["first"] == [True], f"the esrgan run's G or EMA-G at step 0 is not rrdbnet's G: {r['first']}")
-        check(r["calls"] == {"rdb": RDB_PER_FORWARD * (n_steps + n_valid), "filter2d": 0},
+        check(r["calls"] == {"rdb": RDB_PER_FORWARD * (n_steps + n_valid), "rdb_bwd": RDB_PER_FORWARD * n_steps,
+                             "filter2d": 0},
               f"{name} made {r['calls']} kernel calls for {n_steps} steps and {n_valid} validation batches")
         state = r["result"]["state"]
         check(state.step == n_steps, f"resumed {name} run ended at step {state.step}")
@@ -2811,7 +3000,8 @@ def es_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
           "not esrgan's D and rrdbnet's G")
     check(len(r["metrics"]) == 1 and all(math.isfinite(v) for v in r["metrics"][0].values()),
           f"the --pretrained-d step's metrics {r['metrics']}")
-    check(r["calls"] == {"rdb": 2 * RDB_PER_FORWARD, "filter2d": 0}, f"the --pretrained-d run made {r['calls']}")
+    check(r["calls"] == {"rdb": 2 * RDB_PER_FORWARD, "rdb_bwd": RDB_PER_FORWARD, "filter2d": 0},
+          f"the --pretrained-d run made {r['calls']}")
     calls = {k: calls[k] + r["calls"][k] for k in calls}
     numbers["pretrained_d_step"] = {"metrics": r["metrics"][0], "s": r["run_s"][0], "calls": r["calls"]}
     print(f"esrgan --pretrained-d {es_ckpt} --pretrained-g (rrdbnet's): D, its 18 running statistics and a fresh "
@@ -2890,7 +3080,7 @@ def es_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
     frame = os.path.join(work, "es_frame.png")
     cv2.imwrite(frame, cv2.imread(os.path.join(es_cfg.valid_gt_images_dir, "gt_000.png"))[:64, :64])
     out_png = os.path.join(work, "es_sr.png")
-    rdb.launches = 0
+    rdb.launches = rdb.launches_bwd = 0
     infer.main(["--model-arch", es_cfg.g_arch, "--weights", os.path.join(es_cfg.results_dir, es_cfg.exp_name,
                                                                          "ckpt_best.pth"),
                 "--use-ema", "--inputs-path", frame, "--output-path", out_png])
@@ -2953,7 +3143,7 @@ def sa_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
 
     Trainer.train_step, ckpt.restore_state = recorded_step, recorded_restore
     torch.cuda.reset_peak_memory_stats()
-    rdb.launches = f2d.launches = 0
+    rdb.launches = rdb.launches_bwd = f2d.launches = 0
     try:
         run_s = []
         for epochs, resume in ((GAN_EPOCHS, ""), (GAN_EPOCHS + 1, "auto")):
@@ -2964,7 +3154,7 @@ def sa_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
             run_s.append(time.perf_counter() - t0)
     finally:
         Trainer.train_step, ckpt.restore_state = real_step, real_restore
-    calls = {"rdb": rdb.launches, "filter2d": f2d.launches}
+    calls = {"rdb": rdb.launches, "rdb_bwd": rdb.launches_bwd, "filter2d": f2d.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_steps, n_valid = GAN_STEPS_PER_EPOCH * (GAN_EPOCHS + 1), GAN_EPOCHS + 1
     state = result["state"]
@@ -2973,7 +3163,8 @@ def sa_train_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
     check(all(math.isfinite(v) for m in metrics_seen for v in m.values()), f"non-finite SA metrics: {metrics_seen}")
     check(all(0 < m[k] < 1 for m in metrics_seen for k in ("d_gt_probability", "d_sr_probability")),
           f"an SA D probability outside (0, 1): {metrics_seen}")
-    check(calls == {"rdb": RDB_PER_FORWARD * (n_steps + n_valid), "filter2d": FILTERS_PER_CHAIN * (n_steps + n_valid)},
+    check(calls == {"rdb": RDB_PER_FORWARD * (n_steps + n_valid), "rdb_bwd": RDB_PER_FORWARD * n_steps,
+                    "filter2d": FILTERS_PER_CHAIN * (n_steps + n_valid)},
           f"the SA training made {calls} kernel calls for {n_steps} steps and {n_valid} validation batches")
     check(len(restored) == 1 and restored[0] == {"step": GAN_STEPS_PER_EPOCH, "d": True},
           f"the resumed SA run's restore: {restored}")
@@ -3150,13 +3341,13 @@ def eval_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
             return out
 
         cli_test._config_lr, cli_test._match_hw = recorded_lr, recorded_match
-        rdb.launches = f2d.launches = 0
+        rdb.launches = rdb.launches_bwd = f2d.launches = 0
         t0 = time.perf_counter()
         out = cli_test.run_eval(cli_test.build_parser().parse_args(argv))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         cli_test._config_lr, cli_test._match_hw = real_lr, real_match
-        made = {"rdb": rdb.launches, "filter2d": f2d.launches}
+        made = {"rdb": rdb.launches, "rdb_bwd": rdb.launches_bwd, "filter2d": f2d.launches}
         frames = out["per_image"]
         n = len(frames)
         forwards = _eval_forwards(flags, EVAL_SIZES[:n], 4 if config in ("esrgan", "realesrgan") else 2)
@@ -3187,7 +3378,7 @@ def eval_phase(work: str, rdb, f2d, blocks, filters) -> tuple[dict, dict]:
         cli_test._config_lr, cli_test._match_hw = replayed_lr, plain_match
         blocks.rdb_apply = lambda x, k, b, packed=None: rdb.rdb_forward_ref(x, k, b)
         filters.filter2d = f2d.filter2d_ref
-        rdb.launches = f2d.launches = 0
+        rdb.launches = rdb.launches_bwd = f2d.launches = 0
         os.makedirs(run_dir + "_plain")
         os.chdir(run_dir + "_plain")
         plain = cli_test.run_eval(cli_test.build_parser().parse_args(argv))
@@ -3346,7 +3537,7 @@ def http_serve_phase(work: str, rdb, blocks) -> tuple[int, dict]:
         engine.warmup([(256, 256)])
         want = [engine.sr_array(load_image_rgb(p)) for p in frames]  # one forward each, not counted
         port, th, stop = _start_http(engine)
-        rdb.launches = 0
+        rdb.launches = rdb.launches_bwd = 0
         t0 = time.perf_counter()
         replies = _burst(port, bodies)
         torch.cuda.synchronize()
@@ -3387,7 +3578,7 @@ def http_serve_phase(work: str, rdb, blocks) -> tuple[int, dict]:
 
         with engine.stats_lock:
             engine.latencies_ms.clear()
-        rdb.launches = 0
+        rdb.launches = rdb.launches_bwd = 0
         sparse = []
         for i in range(HTTP_SPARSE):
             t0 = time.perf_counter()
@@ -3427,7 +3618,7 @@ def http_serve_phase(work: str, rdb, blocks) -> tuple[int, dict]:
             sock.sendall(b"POST /sr HTTP/1.1\r\nHost: x\r\nContent-Length: %d\r\n\r\n" % (2 << 20))
             status_line = sock.recv(64).split(b"\r\n", 1)[0]
         check(b" 413 " in status_line, f"a 2 MB body against a 1 MB cap: {status_line}")
-        rdb.launches = 0
+        rdb.launches = rdb.launches_bwd = 0
         flood = _burst(port, bodies[:16])
         launches += rdb.launches
         statuses = [r[0] for r in flood]
@@ -3448,7 +3639,7 @@ def http_serve_phase(work: str, rdb, blocks) -> tuple[int, dict]:
         # --batch 1: the single-threaded server runs sr_array on its own thread
         engine.batch = 1
         port, th, stop = _start_http(engine)
-        rdb.launches = 0
+        rdb.launches = rdb.launches_bwd = 0
         status, body, _ = _http(port, "POST", "/sr", bodies[0])
         calls = rdb.launches
         launches += calls
@@ -3491,7 +3682,7 @@ def gen_phase(work: str, rdb, blocks) -> tuple[int, dict]:
                 for i, p in enumerate(frames)]
         lines = [json.dumps(r) for r in reqs] + ['{"cmd": "stats"}', '{"cmd": "shutdown"}']
         stdout = io.StringIO()
-        rdb.launches = 0
+        rdb.launches = rdb.launches_bwd = 0
         serve_stdio(engine, inp=io.StringIO("\n".join(lines)), out=stdout)
         torch.cuda.synchronize()
         calls = rdb.launches
@@ -3520,7 +3711,7 @@ def gen_phase(work: str, rdb, blocks) -> tuple[int, dict]:
     frames_dir, out_dir = os.path.join(work, "gen_seq"), os.path.join(work, "gen_seq_sr")
     write_frames(frames_dir, 2, 256, 256, seed=31)
     for half in (False, True):
-        rdb.launches = 0
+        rdb.launches = rdb.launches_bwd = 0
         infer.main(["--model-arch", "gen_rrdb2x", "--batch", "2", "--weights", weights["gen_rrdb2x"],
                     "--inputs-path", frames_dir, "--output-path", out_dir, *(["--half"] if half else [])])
         torch.cuda.synchronize()
@@ -3541,7 +3732,7 @@ def gen_phase(work: str, rdb, blocks) -> tuple[int, dict]:
         tr = Trainer(cfg, steps_per_epoch=1, device=torch.device("cuda"))
         st = tr.init_state()
         before = {k: v.detach().clone() for k, v in st.g_model.named_parameters()}
-        rdb.launches = 0
+        rdb.launches = rdb.launches_bwd = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = tr.train_step(st, gt, lr)
@@ -3552,7 +3743,9 @@ def gen_phase(work: str, rdb, blocks) -> tuple[int, dict]:
         launches += calls
         moved = max((p.detach() - before[k]).abs().max().item() for k, p in st.g_model.named_parameters())
         check(math.isfinite(loss) and moved > 0, f"{arch} bf16 step: loss {loss}, G moved {moved}")
-        check(calls == (RDB_PER_FORWARD if arch == "gen_rrdb2x" else 0), f"{arch} step: {calls} rdb_forward calls")
+        want = RDB_PER_FORWARD if arch == "gen_rrdb2x" else 0
+        check((calls, rdb.launches_bwd) == (want, want),
+              f"{arch} step: {calls} rdb_forward and {rdb.launches_bwd} backward calls")
         out[f"{arch} step"] = {"loss": loss, "moved": moved, "first_step_ms": step_ms, "rdb_launches": calls,
                                "compute_dtype": cfg.compute_dtype}
         print(f"{arch} bsrnet step ({cfg.compute_dtype}, batch 16, GT 144): L1 {loss:.5f}, G moved up to {moved:.3g}, "
@@ -3624,7 +3817,7 @@ def options_phase(work: str, rdb, f2d) -> tuple[dict, dict]:
     )
     prof_dir = os.path.join(work, "opt_profile")
     n_steps, n_valid = OPT_STEPS_PER_EPOCH * OPT_EPOCHS, OPT_EPOCHS
-    out, calls_all = {}, {"rdb": 0, "filter2d": 0}
+    out, calls_all = {}, {"rdb": 0, "rdb_bwd": 0, "filter2d": 0}
     for tag in ("plain", "options"):
         cfg, kw = base.replace(exp_name=f"BSRGAN_x2_{tag}"), {}
         if tag == "options":
@@ -3634,7 +3827,7 @@ def options_phase(work: str, rdb, f2d) -> tuple[dict, dict]:
         real_step = _record_steps(Trainer, steps, metrics_seen)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        rdb.launches = f2d.launches = 0
+        rdb.launches = rdb.launches_bwd = f2d.launches = 0
         t0 = time.perf_counter()
         try:
             result = cli_train.run_train(cfg, OPT_STEPS_PER_EPOCH, device="cuda", **kw)
@@ -3642,12 +3835,15 @@ def options_phase(work: str, rdb, f2d) -> tuple[dict, dict]:
         finally:
             Trainer.train_step = real_step
         run_s = time.perf_counter() - t0
-        calls = {"rdb": rdb.launches, "filter2d": f2d.launches}
+        calls = {"rdb": rdb.launches, "rdb_bwd": rdb.launches_bwd, "filter2d": f2d.launches}
         calls_all = {k: calls_all[k] + v for k, v in calls.items()}
         # a D-first step under accumulation: one forward of G without a graph
         # for D, then G by chunks (2 forwards); validation one forward a batch
         g_forwards = (3 if tag == "options" else 1) * n_steps + n_valid
-        check(calls == {"rdb": RDB_PER_FORWARD * g_forwards, "filter2d": FILTERS_PER_CHAIN * (n_steps + n_valid)},
+        # under accumulation G's graph runs by chunks: 2 backwards a step
+        check(calls == {"rdb": RDB_PER_FORWARD * g_forwards,
+                        "rdb_bwd": RDB_PER_FORWARD * (2 if tag == "options" else 1) * n_steps,
+                        "filter2d": FILTERS_PER_CHAIN * (n_steps + n_valid)},
               f"bsrgan {tag}: {calls} kernel calls for {n_steps} steps and {n_valid} validation batches")
         check(len(metrics_seen) == n_steps and result["state"].step == n_steps, f"bsrgan {tag}: {len(metrics_seen)} steps")
         check(all(math.isfinite(v) for m in metrics_seen for v in m.values()), f"bsrgan {tag}: {metrics_seen}")
@@ -3877,7 +4073,7 @@ def guard_phase(work: str, rdb, f2d) -> dict:
     it.close()
     trainer = Trainer(cfg, steps_per_epoch=100, device="cuda")
     state = trainer.init_state()
-    rdb.launches = 0
+    rdb.launches = rdb.launches_bwd = 0
     trainer.train_step(state, batches[0]["gt"], batches[0]["lr"])
     before = _state_copy(state)
     planted = batches[1]["lr"].clone()
@@ -3950,14 +4146,15 @@ def accum_phase(work: str, rdb) -> dict:
     batch = DegradationAdapter(cfg, seed=cfg.seed, train=True, device="cuda")(next(it), 0)
     it.close()
     results = {}
-    rdb.launches = 0
+    rdb.launches = rdb.launches_bwd = 0
     for accum in (1, 2):
         trainer = Trainer(cfg.replace(grad_accum_steps=accum), steps_per_epoch=100, device="cuda")
         state = trainer.init_state()
         m = trainer.train_step(state, batch["gt"], batch["lr"])
         results[accum] = (m["pixel_loss"].item(), {n: p.grad.detach().clone() for n, p in state.g_model.named_parameters()},
                           {n: p.detach().clone() for n, p in state.g_model.named_parameters()})
-    check(rdb.launches == RDB_PER_FORWARD * 3, f"{rdb.launches} rdb calls for one step at 1 and one at 2")
+    check((rdb.launches, rdb.launches_bwd) == (RDB_PER_FORWARD * 3, RDB_PER_FORWARD * 3),
+          f"{rdb.launches} rdb forward and {rdb.launches_bwd} backward calls for one step at 1 and one at 2")
     lr = cfg.model_lr
     grad_rel = {n: ((results[2][1][n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
                 for n, g in results[1][1].items()}
@@ -4015,7 +4212,7 @@ def debug_nans_phase(rdb, f2d, attn) -> dict:
     model = create_model("bsrgan_x2", generator=torch.Generator().manual_seed(0)).cuda()
     x = torch.rand(1, 64, 64, 3, generator=torch.Generator().manual_seed(1)).cuda()
     raised = {}
-    rdb.launches = 0
+    rdb.launches = rdb.launches_bwd = 0
     rdb1 = model.trunk[0].rdb1
     for case in ("frame", "rdb_input", "rdb_weight"):
         frame, handle, weight = x.clone(), None, rdb1.conv3.weight.detach().clone()
@@ -4223,7 +4420,7 @@ def flash_train_phase(work: str, rdb, attn, blocks) -> dict:
         state = trainer.init_state()
         init[backend] = {n: p.detach().clone() for n, p in state.g_model.named_parameters()}
         g_after[backend] = []
-        attn.launches = rdb.launches = 0
+        attn.launches = rdb.launches = rdb.launches_bwd = 0
         ms, metrics = [], []
         blocks.flash_attention = recording
         try:
@@ -4238,6 +4435,7 @@ def flash_train_phase(work: str, rdb, attn, blocks) -> dict:
         finally:
             blocks.flash_attention = real
         check(all(math.isfinite(v) for m in metrics for v in m.values()), f"aesrgan {backend} metrics {metrics}")
+        check(rdb.launches_bwd == RDB_PER_FORWARD * len(batches), f"aesrgan {backend}: {rdb.launches_bwd} rdb backwards")
         out[backend] = {"step_ms": ms, "flash_launches": attn.launches, "rdb_launches": rdb.launches,
                         "g_loss": [m["g_loss"] for m in metrics], "d_loss": [m["d_loss"] for m in metrics]}
         del trainer, state
@@ -4506,7 +4704,7 @@ def quant_serve_phase(work: str, qc, rdb, blocks) -> tuple[int, dict]:
                     for i, p in enumerate(frames)]
             lines = [json.dumps(r) for r in reqs] + ['{"cmd": "shutdown"}']
             buf = io.StringIO()
-            qc.launches = rdb.launches = 0
+            qc.launches = rdb.launches = rdb.launches_bwd = 0
             t0 = time.perf_counter()
             serve_stdio(engine, inp=io.StringIO("\n".join(lines)), out=buf)
             torch.cuda.synchronize()
@@ -4606,7 +4804,7 @@ def paired_train_phase(work: str, rdb) -> tuple[int, dict, str]:
 
     Trainer.train_step = recorded
     torch.cuda.reset_peak_memory_stats()
-    rdb.launches = 0
+    rdb.launches = rdb.launches_bwd = 0
     try:
         t0 = time.perf_counter()
         result = cli_train.run_train(cfg, PAIRED_STEPS, device="cuda")
@@ -4614,7 +4812,7 @@ def paired_train_phase(work: str, rdb) -> tuple[int, dict, str]:
         wall = time.perf_counter() - t0
     finally:
         Trainer.train_step = real_step
-    calls = rdb.launches
+    calls, bwd_calls = rdb.launches, rdb.launches_bwd
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     host = next(iter(BatchLoader(cli_train.build_datasets(cfg)[0], cfg.batch_size, seed=cfg.seed, num_workers=1,
                                  loop=False)))
@@ -4622,8 +4820,8 @@ def paired_train_phase(work: str, rdb) -> tuple[int, dict, str]:
     check(first_lr[0].shape == (16, PAIRED_GT // 2, PAIRED_GT // 2, 3) and lr_diff == 0,
           f"paired: the first step's LR {tuple(first_lr[0].shape)} differs from the files by {lr_diff}")
     check(len(steps) == PAIRED_STEPS and result["state"].step == PAIRED_STEPS, f"paired: {len(steps)} steps")
-    check(calls == RDB_PER_FORWARD * (PAIRED_STEPS + 1), f"paired: {calls} rdb_forward calls for "
-          f"{PAIRED_STEPS} steps and 1 validation batch")
+    check((calls, bwd_calls) == (RDB_PER_FORWARD * (PAIRED_STEPS + 1), RDB_PER_FORWARD * PAIRED_STEPS),
+          f"paired: {calls} rdb_forward and {bwd_calls} backward calls for {PAIRED_STEPS} steps and 1 validation batch")
     check(math.isfinite(result["best_psnr"]) and result["best_psnr"] > 0, f"paired: PSNR {result['best_psnr']}")
     intervals = [(b[1] - a[1]) * 1e3 for a, b in zip(steps, steps[1:])]
     numbers = {"steps": PAIRED_STEPS, "step_ms_p50": float(np.median(intervals)), "peak_memory_gb": peak_gb,
@@ -4642,7 +4840,8 @@ def export_phase(work: str, rdb) -> tuple[int, dict]:
     """``cli.export`` of full-width ``bsrgan_x2`` at 128x128 on the card
     (spread weights as G and EMA-G), the ``.pt2`` reloaded and run: its
     output held to the module's (f32 limit 1e-3), 69 RDB kernel calls
-    through the custom op ``srganfd::rdb_forward``."""
+    through the custom op ``srganfd::rdb_forward``, no RDB weight in the
+    program's state dict (they travel packed, as its constants)."""
     from srganfd_tpu_torch.cli import export
     from srganfd_tpu_torch.convert import load_generator_weights
     from srganfd_tpu_torch.models import create_model
@@ -4653,7 +4852,10 @@ def export_phase(work: str, rdb) -> tuple[int, dict]:
     t0 = time.perf_counter()
     res = export.export_generator("bsrgan_x2", os.path.join(work, "export", "bsrgan_x2"), weights, 128, 1, "cuda")
     export_s = time.perf_counter() - t0
-    program = torch.export.load(res["program"]).module()
+    exported = torch.export.load(res["program"])
+    raw = [k for k in exported.state_dict if ".rdb" in k]
+    check(not raw, f"the exported program holds the RDBs' raw weights too: {raw[:3]}")
+    program = exported.module()
     n_ops = sum(1 for n in program.graph.nodes if "srganfd.rdb_forward" in str(n.target))
     check(n_ops == RDB_PER_FORWARD, f"exported program holds {n_ops} srganfd::rdb_forward nodes")
     model = create_model("bsrgan_x2")
@@ -4661,7 +4863,7 @@ def export_phase(work: str, rdb) -> tuple[int, dict]:
     model = model.cuda().eval().requires_grad_(False)
     x = torch.from_numpy(np.random.default_rng(56).uniform(size=(1, 128, 128, 3)).astype(np.float32)).cuda()
     with torch.no_grad():
-        rdb.launches = 0
+        rdb.launches = rdb.launches_bwd = 0
         y = program(x)
         torch.cuda.synchronize()
         calls = rdb.launches
@@ -4702,7 +4904,7 @@ def graft_sources_phase(work: str, ckpt_path: str, rdb) -> tuple[int, dict]:
     os.environ["MLFLOW_TRACKING_URI"] = f"file:{store}"
     x = torch.from_numpy(np.random.default_rng(57).uniform(size=(2, 72, 72, 3)).astype(np.float32)).cuda()
     out, ys = {}, {}
-    rdb.launches = 0
+    rdb.launches = rdb.launches_bwd = 0
     try:
         for source in (ckpt_path, npz, "runs:/run0/ckpt_last.pth"):
             cfg = configs.get_config("bsrnet", pretrained_g_model_weights_path=source)
@@ -4839,7 +5041,7 @@ if spec.get("stdin") and rank == 0:
 import importlib
 # a job runs a CLI's main(argv), or one of chip_smoke's rank functions (spec["call"])
 mod = importlib.import_module("chip_smoke" if spec.get("call") else "srganfd_tpu_torch.cli." + spec["cli"])
-rdb.launches = filter2d.launches = attention.launches = comm.staged = 0
+rdb.launches = rdb.launches_bwd = filter2d.launches = attention.launches = comm.staged = 0
 t0 = T_MAIN = time.perf_counter()
 record["imports_s"] = t0 - T_START
 try:
@@ -4851,7 +5053,8 @@ try:
 except SystemExit as e:
     rc = e.code if isinstance(e.code, int) else 1
 sync()
-record.update(rdb=rdb.launches, filter2d=filter2d.launches, flash=attention.launches, staged=comm.staged,
+record.update(rdb=rdb.launches, rdb_bwd=rdb.launches_bwd, filter2d=filter2d.launches, flash=attention.launches,
+              staged=comm.staged,
               seconds=time.perf_counter() - t0, rc=rc, world=comm.world(), backend=comm.backend())
 if spec.get("capture"):
     torch.save(grads, spec["capture"] + f"_grads{rank}.pt")
@@ -4995,6 +5198,8 @@ def dp1_phase(work: str, smi: str) -> dict:
         check(group["rdb"] > 0 and chains and (group["rdb"], group["filter2d"]) == (plain["rdb"], plain["filter2d"]),
               f"dp1 {name}: launches {group['rdb']} rdb, {group['filter2d']} filter2d; without the group "
               f"{plain['rdb']}, {plain['filter2d']}")
+        check(group["rdb_bwd"] == plain["rdb_bwd"] == RDB_PER_FORWARD * DP1_STEPS,
+              f"dp1 {name}: {group['rdb_bwd']} and {plain['rdb_bwd']} rdb backward calls for {DP1_STEPS} steps")
         out[name] = {"max_abs": worst, "tensors": len(diffs), "batchnorm_stats": stats,
                      "step_ms_p50_group": float(np.median(group["step_ms"])),
                      "step_ms_p50_plain": float(np.median(plain["step_ms"])),
@@ -5914,7 +6119,7 @@ def main() -> None:
     flash_entry = flash_kernel_phase(attn)
     filter_entry = filter2d_kernel_phase(f2d)
     filter_entry["realesrgan"] = re_filter2d_phase(f2d)
-    entry.update(rdb_grad_phase(rdb))
+    grad = rdb_grad_phase(rdb)
     qconv_entry = qconv_kernel_phase(qc, rdb)
     base = os.path.join(ROOT, "build")
     os.makedirs(base, exist_ok=True)
@@ -5959,6 +6164,36 @@ def main() -> None:
                  + guard["rdb_launches"] + accum["rdb_launches"] + nans["rdb_launches"]
                  + flash_train["flash"]["rdb_launches"] + flash_train["chunked"]["rdb_launches"]
                  + paired_launches + export_launches + graft_launches + par["rdb_launches"])
+    bwd_launches = (train_launches["rdb_bwd"] + gan_launches["rdb_bwd"] + ren_launches["rdb_bwd"]
+                    + reg_launches["rdb_bwd"] + ae_launches["rdb_bwd"] + es_launches["rdb_bwd"]
+                    + sa_launches["rdb_bwd"] + opt_launches["rdb_bwd"])
+    check(bwd_launches > 0, "the training paths launched no rdb backward kernel")
+    bwd_entry = {
+        "name": "rdb_backward",
+        "route": "cuda",
+        "design": "dgrad: the forward's implicit GEMM transposed (dy built in the prologue from D and feat, "
+                  "B by ldmatrix.trans from the forward's packed bf16 layout; 3xTF32 with 32-bit B loads in f32), "
+                  "adding into one f32 D; wgrad: all five convs in one launch over pixel slices, "
+                  "ldmatrix.trans for both operands, f32 partials summed in a fixed order",
+        "source": "srganfd_tpu_torch/csrc/rdb_bwd.cu",
+        "replaces": "srganfd_tpu/ops/pallas/rdb.py:163",
+        "launches": bwd_launches,
+        "max_abs_err": grad["bwd_max_abs_err_bf16"],  # gradients reach ~300 at this shape: held relative, 1e-2
+        "ms": grad["bwd_ms_bf16"],
+        "plain_ms": grad["bwd_plain_ms_bf16"],
+        "bound_ms": grad["bwd_bound_ms_bf16"],
+        "bound_by": grad["bwd_bound_by_bf16"],
+        "library_ms": grad["bwd_library_ms_bf16"]["bf16"],
+        "library": "autograd through the five cuDNN F.conv2d of the block (backward only)",
+        "share_of_bound": grad["bwd_bound_ms_bf16"] / grad["bwd_ms_bf16"],
+        "ms_f32": grad["bwd_ms_f32"],
+        "plain_f32_ms": grad["bwd_plain_ms_f32"],
+        "bound_f32_tf32_ms": grad["bwd_bound_ms_f32"],
+        "library_f32_ms": grad["bwd_library_ms_f32"],
+        "shape": list(TRAIN_RDB_SHAPE),
+        "dtype": "bfloat16",
+        **grad,
+    }
     check(quant_launches > 0, "the --quant-int8 serving path launched no qconv kernel")
     check(paired_launches > 0 and export_launches > 0, "the paired or exported path launched no rdb_forward kernel")
     qconv_entry["launches"] = quant_launches
@@ -6111,7 +6346,7 @@ def main() -> None:
     entry_v2 = {**entry, "name": "rdb_forward (rdb_forward_pallas_v2)", "replaces": "srganfd_tpu/ops/pallas/rdb.py:255",
                 "same_kernel_as": "rdb_forward"}
     print(smi)
-    print(json.dumps({"kernels": [entry, entry_v2, flash_entry, filter_entry, qconv_entry]}))
+    print(json.dumps({"kernels": [entry, entry_v2, bwd_entry, flash_entry, filter_entry, qconv_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

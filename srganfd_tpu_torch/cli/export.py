@@ -7,8 +7,9 @@ Writes two files:
   3)`` f32 NHWC, the port generator's layout. Each RDB is one node, the
   custom op ``srganfd::rdb_forward`` (``ops/cuda/rdb.py``), which launches
   the hand-written kernel on the card, on weights packed once at export and
-  held as the program's constants, and runs the plain version on the
-  CPU; so loading the program needs ``srganfd_tpu_torch`` imported (it
+  held as the program's constants (the RDBs' raw weights are not in the
+  program), and runs the plain version on the CPU, on the flattened HWIO
+  kernels; so loading the program needs ``srganfd_tpu_torch`` imported (it
   registers the op): ``import srganfd_tpu_torch.ops.cuda.rdb`` before
   ``torch.export.load(path).module()``.
 - ``<out>.params.npz``: the weights as the JAX export writes them, the Flax
@@ -57,6 +58,7 @@ def export_generator(arch: str, out: str, weights: str = "", input_size: int = 1
     else:
         print("! no --weights: exporting randomly initialized generator")
     model = model.to(device).eval().requires_grad_(False)
+    sd = model.state_dict()  # before the RDBs hand their weights to the packed constants
     x = torch.zeros((batch, input_size, input_size, 3), dtype=torch.float32, device=device)
     for m in model.modules():
         if isinstance(m, ResidualDenseBlock):
@@ -65,7 +67,6 @@ def export_generator(arch: str, out: str, weights: str = "", input_size: int = 1
         program = torch.export.export(model, (x,))
     os.makedirs(os.path.dirname(os.path.abspath(out)) or ".", exist_ok=True)
     torch.export.save(program, out + ".pt2")
-    sd = model.state_dict()
     flat = flatten_flax(state_dict_to_flax(sd, _num_blocks(sd)))
     np.savez(out + ".params.npz", **flat)
     return {"program": out + ".pt2", "params": out + ".params.npz", "arrays": len(flat)}

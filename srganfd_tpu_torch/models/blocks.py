@@ -31,7 +31,7 @@ from torch import nn
 from srganfd_tpu_torch.ops.cuda.attention import HEAD_DIMS as FLASH_HEAD_DIMS
 from srganfd_tpu_torch.ops.cuda.attention import flash_attention, flash_attention_ref, flash_block_q
 from srganfd_tpu_torch.ops.cuda.qconv import pack_qconv_weights
-from srganfd_tpu_torch.ops.cuda.rdb import lrelu, pack_rdb_weights, rdb_apply, rdb_forward_op
+from srganfd_tpu_torch.ops.cuda.rdb import flat_rdb_weights, lrelu, pack_rdb_weights, rdb_apply, rdb_forward_op
 from srganfd_tpu_torch.ops.quant import qconv2d_prequantized, quantize_symmetric
 from srganfd_tpu_torch.parallel import comm
 from srganfd_tpu_torch.parallel.ring_attention import ring_attention, ring_attention_loop
@@ -251,10 +251,11 @@ class ResidualDenseBlock(nn.Module):
     """5-conv dense block, LeakyReLU(0.2), 0.2-scaled residual
     (ESRGAN/model.py:29-60), through ``ops/cuda/rdb.py`` ``rdb_apply``:
     the hand-written kernel on a CUDA tensor, the plain version on a CPU
-    tensor, both taking any H x W; gradients through the plain version,
-    recomputed. While ``torch.export`` traces the block it calls the
-    custom op ``srganfd::rdb_forward`` instead (``ops/cuda/rdb.py``), which
-    the exported program keeps as one node, on the packed weights that
+    tensor, both taking any H x W; gradients from the forward's saved
+    out_1..out_4, by the backward kernels on a CUDA tensor and the plain
+    backward on a CPU one. While ``torch.export`` traces the block it calls
+    the custom op ``srganfd::rdb_forward`` instead (``ops/cuda/rdb.py``),
+    which the exported program keeps as one node, on the weights that
     :meth:`pack_for_export` registered as buffers.
 
     ``quant=True`` is the int8 serving path (``--quant-int8``), the JAX
@@ -302,13 +303,21 @@ class ResidualDenseBlock(nn.Module):
         return self._packed[1], self._packed[2]
 
     def pack_for_export(self, dtype: torch.dtype) -> None:
-        """Register :meth:`packed` for ``dtype`` as the non-persistent
-        buffers ``packed_w`` and ``packed_b`` (the state dict is unchanged):
-        ``torch.export`` keeps them as constants of the program, which
-        passes them to ``srganfd::rdb_forward``. Call it before tracing."""
-        w, b = self.packed(dtype)
+        """Register the weights as the device reads them, as the
+        non-persistent buffers ``packed_w`` and ``packed_b``: on the card
+        :meth:`packed` for ``dtype``, on the CPU ``flat_rdb_weights``.
+        ``torch.export`` keeps them as constants of the program, which passes
+        them to ``srganfd::rdb_forward``. The five convs' parameters are
+        removed, so that the program holds each weight once; the block then
+        runs only under export. Call it before tracing."""
+        if self._convs()[0].weight.is_cuda:
+            w, b = self.packed(dtype)
+        else:
+            w, b = flat_rdb_weights(*self.kernels_biases())
         self.register_buffer("packed_w", w, persistent=False)
         self.register_buffer("packed_b", b, persistent=False)
+        for conv in self._convs():
+            del conv.weight, conv.bias
 
     def quantized(self) -> list[tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]]:
         """Per source s (x, out_1..out_4): the int8 HWIO wide kernel that
@@ -367,8 +376,8 @@ class ResidualDenseBlock(nn.Module):
         if torch.compiler.is_exporting():
             if not hasattr(self, "packed_w"):
                 raise RuntimeError("export an RDB after its pack_for_export(dtype)")
-            kernels, biases = self.kernels_biases()
-            return rdb_forward_op(xh.contiguous(), kernels, biases, self.packed_w, self.packed_b).permute(0, 3, 1, 2)
+            y = rdb_forward_op(xh.contiguous(), self.packed_w, self.packed_b, self.growth_channels)
+            return y.permute(0, 3, 1, 2)
         if self.gather_weights is not None:  # the kernel runs whole on the gathered weights
             kernels, biases = self.gather_weights()
             packed = pack_rdb_weights(kernels, biases, x.dtype) if x.is_cuda else None

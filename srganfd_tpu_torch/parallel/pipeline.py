@@ -20,7 +20,7 @@ takes part in every collective of that tick.
 The backward is autograd through the differentiable collectives, as JAX's
 ``jax.grad`` transposes the scan: the ``ppermute`` ring runs backwards,
 each block's backward is the port's ``rdb_apply`` backward
-(``ops/cuda/rdb.py``: autograd through the recomputed plain version), and
+(``ops/cuda/rdb.py``: from the forward's saved activations), and
 each block's gradient lands on its owner rank alone. The trunk's input is
 marked :func:`comm.replicated` and its output's cotangent divided by S,
 the transposes JAX takes at the ``shard_map`` boundary for a value the

@@ -76,8 +76,9 @@ updates, optax's count, which drives the schedules (``state.step``
 advances on a skipped step, as the JAX state's does).
 
 Each RDB of the generator is ``ops/cuda/rdb.py`` ``rdb_apply``: the
-hand-written kernel on a CUDA tensor, its backward through the plain
-version, recomputed, as the JAX ``rdb_apply`` does. The step's parts are
+hand-written kernel on a CUDA tensor, and its backward the hand-written
+dgrad and wgrad kernels (``csrc/rdb_bwd.cu``) from the forward's saved
+activations, where the JAX ``rdb_apply`` recomputes the XLA block. The step's parts are
 named for ``torch.profiler`` (``utils/profiling.py`` ``annotate``).
 
 Data parallelism (a process group of more than one rank,

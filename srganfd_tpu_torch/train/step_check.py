@@ -2,10 +2,14 @@
 step with their plain versions.
 
 The two steps start from the same state and take the same batch, so only
-the RDB forward differs: the kernel's (split-precision 3xTF32) or
-``rdb_forward_ref``'s (cuDNN). Any two forwards that round differently make
-the backwards take a few LeakyReLU slopes differently: a pre-activation
-near 0 lands on the other side. Such a flip moves the gradient of its own
+the RDB differs: the kernels' (split-precision 3xTF32; the backward takes
+its slopes from the forward kernel's own out_k) or ``rdb_forward_ref``'s
+(cuDNN, and autograd through it). Any two forwards that round differently
+make the backwards take a few LeakyReLU slopes differently: a
+pre-activation near 0 lands on the other side. :func:`slope_flips` counts
+those between the two runs' recomputed pre-activations; the ones between
+the kernel's out_k and the recompute at one input are ``chip_smoke.py``'s
+phase 7 count. Such a flip moves the gradient of its own
 conv's output channel by one pixel's share, and for a bias that starts at
 zero that is up to ~2.4e-4 of its update (``f32_step_study.py``).
 
@@ -43,8 +47,8 @@ _PARAM = re.compile(r"(.*\.conv(\d))\.(weight|bias)")
 
 
 def rdb_preactivations(x, kernels, biases) -> list[torch.Tensor]:
-    """The four LeakyReLU inputs of one RDB as its backward recomputes them
-    (``rdb_forward_ref``'s f32 path), each (N, gc, H, W)."""
+    """The four LeakyReLU inputs of one RDB as ``rdb_forward_ref``'s f32
+    path computes them, each (N, gc, H, W)."""
     feats, zs = [x.float().permute(0, 3, 1, 2)], []
     for k in range(4):
         w = kernels[k].float().permute(3, 2, 0, 1)

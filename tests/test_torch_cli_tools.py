@@ -102,8 +102,10 @@ def test_exported_program_equals_the_module(arch, tmp_path, capsys):
     program = torch.export.load(res["program"])
     n_rdb = sum(1 for n in program.graph.nodes if "srganfd.rdb_forward" in str(n.target))
     assert n_rdb == 3 * kw.get("num_rrdb", 0)
-    # each RDB's packed weights travel as two constants of the program
+    # each RDB's packed weights travel as two constants of the program, and
+    # its convs' raw weights not at all
     assert sum(k.endswith((".packed_w", ".packed_b")) for k in program.constants) == 2 * n_rdb
+    assert not [k for k in program.state_dict if ".rdb" in k]
     model = create_model(arch, generator=torch.Generator().manual_seed(0), **kw).eval()
     x = torch.from_numpy(np.random.default_rng(2).uniform(size=(2, 16, 16, 3)).astype(np.float32))
     with torch.no_grad():

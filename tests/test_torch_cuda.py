@@ -270,18 +270,19 @@ def test_bsrgantrans_on_cuda_matches_cpu(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_rdb_apply_gradients_on_the_card(cuda, dtype):
-    """The kernel forward under autograd: one launch, and the gradients of
-    x, the kernels and the biases equal autograd through the plain version
-    up to cuDNN's summation order (its backward convolutions may pick
-    other algorithms from call to call)."""
+    """The kernels under autograd: one forward and one backward call, and
+    the gradients of x, the kernels and the biases equal autograd through
+    the plain version up to the summation order (the backward kernels' and
+    cuDNN's) and, in bf16, the tensor cores' bf16 dy."""
     x, ks, bs = _inputs((2, 12, 10, 16), 8, seed=5, device=cuda)
     cot = torch.randn(x.shape, generator=torch.Generator().manual_seed(6)).to(cuda, dtype)
     leaves = [x.to(dtype).requires_grad_(), *[t.clone().requires_grad_() for t in ks + bs]]
     plain = [t.detach().clone().requires_grad_() for t in leaves]
-    before = rdb_mod.launches
+    before = rdb_mod.launches, rdb_mod.launches_bwd
     y = rdb_mod.rdb_apply(leaves[0], leaves[1:6], leaves[6:])
-    assert rdb_mod.launches == before + 1
+    assert rdb_mod.launches == before[0] + 1
     got = torch.autograd.grad(y, leaves, cot)
+    assert rdb_mod.launches_bwd == before[1] + 1
     y_ref = rdb_mod.rdb_forward_ref(plain[0], plain[1:6], plain[6:])
     want = torch.autograd.grad(y_ref, plain, cot)
     torch.testing.assert_close(y.float(), y_ref.float(), atol=1e-5 if dtype == torch.float32 else 1.6e-2,
@@ -289,6 +290,37 @@ def test_rdb_apply_gradients_on_the_card(cuda, dtype):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for g, w in zip(got, want):
         assert (g.float() - w.float()).abs().max() <= tol * w.float().abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "shape,gc",
+    [((2, 9, 13, 16), 8), ((2, 37, 45, 64), 32), ((1, 20, 33, 24), 16), ((1, 5, 3, 64), 32)],
+    ids=["ch16", "ragged37x45", "ch24", "tiny5x3"],
+)
+def test_rdb_backward_kernels_match_plain_version(cuda, shape, gc, dtype):
+    """``csrc/rdb_bwd.cu`` against ``rdb_backward_ref`` on the same saved
+    ``feat``, per tensor max |a - b| / max |b|: f32 (3xTF32) to 1e-5 of the
+    plain version run in f64, bf16 to 1e-2 (its tensor cores take dy in
+    bf16); with and without dx; two runs bit for bit (no atomics)."""
+    x, ks, bs = _inputs(shape, gc, seed=7, device=cuda)
+    xd = x.to(dtype)
+    packed = rdb_mod.pack_rdb_weights(ks, bs, dtype)
+    with torch.no_grad():
+        _, feat = rdb_mod.rdb_forward_ref(xd, ks, bs, with_feat=True)
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(8)).to(cuda, dtype)
+    ref_dt = torch.float64 if dtype == torch.float32 else dtype
+    for want_dx in (True, False):
+        got = rdb_mod.rdb_backward(xd, feat, g, packed, gc, want_dx)
+        again = rdb_mod.rdb_backward(xd, feat, g, packed, gc, want_dx)
+        want = rdb_mod.rdb_backward_ref(xd.to(ref_dt), [k.to(ref_dt) for k in ks], [b.to(ref_dt) for b in bs],
+                                        feat.to(ref_dt), g.to(ref_dt), want_dx)
+        assert (got[0] is None) == (not want_dx)
+        flat = lambda r: ([r[0]] if want_dx else []) + r[1] + r[2]  # noqa: E731
+        for a, a2, w in zip(flat(got), flat(again), flat(want), strict=True):
+            assert torch.equal(a, a2)
+            err = (a.double() - w.double()).abs().max() / w.double().abs().max()
+            assert err <= (1e-5 if dtype == torch.float32 else 1e-2), err
 
 
 @pytest.mark.parametrize(
