@@ -70,10 +70,13 @@ drives A-ESRGAN's generators ``gen_rrdb2x`` and ``gen_rpa2x``:
    not requiring a gradient; autograd through the recomputed
    ``rdb_forward_ref`` beside it (1e-4 / 1e-2 when no LeakyReLU slope
    differs between the kernel's feat and the recompute, the count
-   printed); at the training shape CUDA-graph times of each conv's dgrad
-   and wgrad, the sums and the whole backward beside its bound, the plain
-   version, autograd through the five cuDNN convs (bf16, f32 with TF32 off
-   and on), and one forward and forward+backward of ``rdb_apply``;
+   printed); at each recipe's RDB shape (16, 72, 72, 64), (48, 64, 64,
+   64), (8, 60, 60, 64), (16, 48, 48, 64), (16, 32, 32, 64), CUDA-graph
+   times of each conv's dgrad launch, the wgrad launch, the sums and the
+   whole backward beside its bound, autograd through the five cuDNN convs
+   (bf16, f32 with TF32 off and on) and the wrapper's host time a call;
+   at the training shape also the plain version and one forward and
+   forward+backward of ``rdb_apply``;
 8. training: ``cli.train.run_train`` on the ``bsrnet`` config unchanged
    (full-width ``bsrgan_x2``, batch 16, pre-crop 320, GT 144, bf16) over
    seeded synthetic frames, 2 epochs of 6 steps, then ``--resume auto``
@@ -333,8 +336,10 @@ Each path runs with the kernels' launch counts set to 0 just before it and
 read just after.
 
 It exits non-zero on any failure, and when no CUDA device is visible.
-The line before the last is one JSON object with each kernel's numbers;
-the last line is ``{"ok": true, "device": {...}}``.
+Before the card's name and power limit, one JSON line gives each phase's
+wall seconds (``phase_seconds``, the build's too). The line before the last
+is one JSON object with each kernel's numbers; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1322,7 +1327,9 @@ def re_filter2d_phase(f2d) -> dict:
     return out
 
 
-BWD_RAGGED_SHAPE = (2, 37, 45, CH)  # 16x8 tiles ragged in both axes
+BWD_RAGGED_SHAPE = (2, 37, 45, CH)  # 16x8 (f32) and 8x8 (bf16) tiles ragged in both axes
+# each recipe's RDB shape: bsrnet/bsrgan, realesr*, aesrgan, rrdbnet, esrgan
+BWD_TIME_SHAPES = (TRAIN_RDB_SHAPE, RE_RDB_SHAPE, AE_RDB_SHAPE, ES_RDB_SHAPES["rrdbnet"], ES_RDB_SHAPES["esrgan"])
 
 
 def graph_ms(fn, iters: int = 20) -> float:
@@ -1376,11 +1383,13 @@ def rdb_grad_phase(rdb) -> dict:
     once with x not requiring a gradient; beside it the old comparison,
     autograd through the recomputed rdb_forward_ref (1e-4 / 1e-2 when no
     LeakyReLU slope differs between the kernel's feat and the recompute),
-    and the count of slopes that differ. Then times at the training shape:
-    each conv's dgrad and wgrad, the sums, the whole backward (CUDA graphs
-    of the calls), its bound, the plain version, autograd through the five
-    cuDNN convs (bf16, f32 with TF32 off and on), and rdb_apply's forward
-    and backward."""
+    and the count of slopes that differ. Then times at each recipe's RDB
+    shape (``BWD_TIME_SHAPES``), bf16 and f32: the whole backward and its
+    pieces (each conv's input-gradient launch, the wgrad launch, the sums;
+    CUDA graphs of the calls), its bound, autograd through the five cuDNN
+    convs (bf16, f32 with TF32 off and on) and the wrapper's host time a
+    call; at the training shape also the plain version and rdb_apply's
+    forward and forward+backward."""
     import torch.nn.functional as F
 
     out = {}
@@ -1454,63 +1463,88 @@ def rdb_grad_phase(rdb) -> dict:
                 del plain, y_ref, feat_ref
             del leaves, y, feat, got, want, plain32
 
-    # times at the training shape
-    x, ks, bs = rdb_inputs(TRAIN_RDB_SHAPE, seed=404)
-    for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        xd = x.to(dt)
-        packed = rdb.pack_rdb_weights(ks, bs, dt)
-        cot = torch.randn(TRAIN_RDB_SHAPE, generator=torch.Generator().manual_seed(405)).cuda().to(dt)
-        with torch.no_grad():
-            _, feat = rdb.rdb_forward_ref(xd, ks, bs, with_feat=True)
-        args = (xd, feat, cot, packed, GC)
-        pieces = {f"dgrad{k}": graph_ms(lambda k=k: rdb.rdb_backward(*args, only=k)) for k in range(5)}
-        pieces.update({f"wgrad{k}": graph_ms(lambda k=k: rdb.rdb_backward(*args, only=5 + k)) for k in range(5)})
-        pieces["sums"] = graph_ms(lambda: rdb.rdb_backward(*args, only=10))
-        ms = graph_ms(lambda: rdb.rdb_backward(*args))
-        bound, bound_by = rdb_bwd_bound(TRAIN_RDB_SHAPE, dt, packed)
-        plain_ms = cuda_ms(lambda: rdb.rdb_backward_ref(xd, ks, bs, feat, cot), iters=5, warmup=1)
-        library = {}
-        saved = torch.backends.cudnn.allow_tf32
-        for lib_tag, tf32 in ((("bf16", False),) if dt == torch.bfloat16 else (("f32", False), ("tf32", True))):
-            torch.backends.cudnn.allow_tf32 = tf32
-            try:
-                xl = xd.detach().requires_grad_()
-                kl = [t.detach().requires_grad_() for t in ks]
-                bl = [t.detach().requires_grad_() for t in bs]
-                xc = xl.permute(0, 3, 1, 2)
-                feats = [xc]
-                for k in range(4):
-                    wk = kl[k].to(dt).permute(3, 2, 0, 1)
-                    feats.append(F.leaky_relu(F.conv2d(torch.cat(feats, 1), wk, bl[k].to(dt), padding=1), 0.2))
-                yl = F.conv2d(torch.cat(feats, 1), kl[4].to(dt).permute(3, 2, 0, 1), bl[4].to(dt), padding=1) * 0.2 + xc
-                gl = cot.permute(0, 3, 1, 2)
-                library[lib_tag] = cuda_ms(lambda: torch.autograd.grad(yl, [xl, *kl, *bl], gl, retain_graph=True),
-                                           iters=5, warmup=1)
-                del yl, feats
-            finally:
-                torch.backends.cudnn.allow_tf32 = saved
-        leaves = [xd.detach().requires_grad_(), *[t.detach().requires_grad_() for t in ks + bs]]
+    # times at each recipe's RDB shape: the backward (CUDA graphs of the calls), its pieces, its bound,
+    # autograd through the five cuDNN convs, and the wrapper's host time a call (eager, no sync); at the
+    # training shape also the plain version and rdb_apply's forward and forward+backward
+    for shape in BWD_TIME_SHAPES:
+        main = shape == TRAIN_RDB_SHAPE
+        tag = "x".join(map(str, shape[:3]))
+        iters = 20 if main else 10
+        x, ks, bs = rdb_inputs(shape, seed=404)
+        for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            xd = x.to(dt)
+            packed = rdb.pack_rdb_weights(ks, bs, dt)
+            cot = torch.randn(shape, generator=torch.Generator().manual_seed(405)).cuda().to(dt)
+            with torch.no_grad():
+                _, feat = rdb.rdb_forward_ref(xd, ks, bs, with_feat=True)
+            args = (xd, feat, cot, packed, GC)
+            # only=k: the input gradient launch of conv k (4 with dy_4's pass); 5 the wgrad; 6 the sums
+            pieces = {f"dgrad{k}": graph_ms(lambda k=k: rdb.rdb_backward(*args, only=k), iters) for k in range(5)}
+            pieces["wgrad"] = graph_ms(lambda: rdb.rdb_backward(*args, only=5), iters)
+            pieces["sums"] = graph_ms(lambda: rdb.rdb_backward(*args, only=6), iters)
+            ms = graph_ms(lambda: rdb.rdb_backward(*args), iters)
+            bound, bound_by = rdb_bwd_bound(shape, dt, packed)
+            before = rdb.launches_bwd
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                rdb.rdb_backward(*args)
+            host_ms = (time.perf_counter() - t0) / 50 * 1e3
+            torch.cuda.synchronize()
+            rdb.launches_bwd = before
+            library = {}
+            saved = torch.backends.cudnn.allow_tf32
+            for lib_tag, tf32 in ((("bf16", False),) if dt == torch.bfloat16 else (("f32", False), ("tf32", True))):
+                torch.backends.cudnn.allow_tf32 = tf32
+                try:
+                    xl = xd.detach().requires_grad_()
+                    kl = [t.detach().requires_grad_() for t in ks]
+                    bl = [t.detach().requires_grad_() for t in bs]
+                    xc = xl.permute(0, 3, 1, 2)
+                    feats = [xc]
+                    for k in range(4):
+                        wk = kl[k].to(dt).permute(3, 2, 0, 1)
+                        feats.append(F.leaky_relu(F.conv2d(torch.cat(feats, 1), wk, bl[k].to(dt), padding=1), 0.2))
+                    yl = F.conv2d(torch.cat(feats, 1), kl[4].to(dt).permute(3, 2, 0, 1), bl[4].to(dt), padding=1) * 0.2 + xc
+                    gl = cot.permute(0, 3, 1, 2)
+                    library[lib_tag] = cuda_ms(lambda: torch.autograd.grad(yl, [xl, *kl, *bl], gl, retain_graph=True),
+                                               iters=5, warmup=1)
+                    del yl, feats
+                finally:
+                    torch.backends.cudnn.allow_tf32 = saved
+            out[f"bwd_ms_{name}_{tag}"] = ms
+            out[f"bwd_pieces_ms_{name}_{tag}"] = pieces
+            out[f"bwd_bound_ms_{name}_{tag}"] = bound
+            out[f"bwd_library_ms_{name}_{tag}"] = library
+            out[f"bwd_host_ms_{name}_{tag}"] = host_ms
+            print(f"rdb backward at x {shape} {name} (CUDA graphs of the calls): {ms:.4f} ms, "
+                  f"{100 * bound / ms:.1f}% of its {bound:.4f} ms bound ({bound_by}); pieces "
+                  f"{ {k: round(v, 4) for k, v in pieces.items()} } ms (dgrad4 with dy_4's pass); autograd through "
+                  f"the five cuDNN convs { {k: round(v, 4) for k, v in library.items()} } ms; the wrapper's host "
+                  f"time {host_ms:.4f} ms a call", flush=True)
+            if not main:
+                continue
+            plain_ms = cuda_ms(lambda: rdb.rdb_backward_ref(xd, ks, bs, feat, cot), iters=5, warmup=1)
+            leaves = [xd.detach().requires_grad_(), *[t.detach().requires_grad_() for t in ks + bs]]
 
-        def fwd_bwd():
-            torch.autograd.grad(rdb.rdb_apply(leaves[0], leaves[1:6], leaves[6:]), leaves, cot)
+            def fwd_bwd():
+                torch.autograd.grad(rdb.rdb_apply(leaves[0], leaves[1:6], leaves[6:]), leaves, cot)
 
-        fwd_bwd_ms = cuda_ms(fwd_bwd, iters=10, warmup=2)
-        with torch.no_grad():
-            fwd_ms = cuda_ms(lambda: rdb.rdb_apply(leaves[0], leaves[1:6], leaves[6:]), iters=10)
-        out[f"bwd_ms_{name}"] = ms
-        out[f"bwd_pieces_ms_{name}"] = pieces
-        out[f"bwd_bound_ms_{name}"] = bound
-        out[f"bwd_bound_by_{name}"] = bound_by
-        out[f"bwd_plain_ms_{name}"] = plain_ms
-        out[f"bwd_library_ms_{name}"] = library
-        out[f"train_fwd_ms_{name}"] = fwd_ms
-        out[f"train_fwd_bwd_ms_{name}"] = fwd_bwd_ms
-        print(f"rdb backward at x {TRAIN_RDB_SHAPE} {name} (CUDA graphs of the calls): {ms:.4f} ms, "
-              f"{100 * bound / ms:.1f}% of its {bound:.4f} ms bound ({bound_by}); pieces "
-              f"{ {k: round(v, 4) for k, v in pieces.items()} } ms (each conv's wgrad alone, the whole launch "
-              f"holds all five); plain version {plain_ms:.4f} ms; autograd through the five cuDNN convs "
-              f"{ {k: round(v, 4) for k, v in library.items()} } ms; rdb_apply forward {fwd_ms:.4f} ms, forward+"
-              f"backward {fwd_bwd_ms:.4f} ms (host clock of the eager calls, CUDA events)", flush=True)
+            fwd_bwd_ms = cuda_ms(fwd_bwd, iters=10, warmup=2)
+            with torch.no_grad():
+                fwd_ms = cuda_ms(lambda: rdb.rdb_apply(leaves[0], leaves[1:6], leaves[6:]), iters=10)
+            out[f"bwd_ms_{name}"] = ms
+            out[f"bwd_pieces_ms_{name}"] = pieces
+            out[f"bwd_bound_ms_{name}"] = bound
+            out[f"bwd_bound_by_{name}"] = bound_by
+            out[f"bwd_plain_ms_{name}"] = plain_ms
+            out[f"bwd_library_ms_{name}"] = library
+            out[f"bwd_host_ms_{name}"] = host_ms
+            out[f"train_fwd_ms_{name}"] = fwd_ms
+            out[f"train_fwd_bwd_ms_{name}"] = fwd_bwd_ms
+            print(f"rdb backward at x {shape} {name}: plain version {plain_ms:.4f} ms; rdb_apply forward "
+                  f"{fwd_ms:.4f} ms, forward+backward {fwd_bwd_ms:.4f} ms (host clock of the eager calls, CUDA "
+                  f"events)", flush=True)
     return out
 
 
@@ -6058,6 +6092,29 @@ def dispatch_phase(work: str, smi: str) -> dict:
     return res
 
 
+PHASE_SECONDS: dict[str, float] = {}  # each phase's wall seconds in this run, summed over its calls
+TIMED_PHASES = (
+    "kernel_phase", "flash_kernel_phase", "filter2d_kernel_phase", "re_filter2d_phase", "rdb_grad_phase",
+    "qconv_kernel_phase", "serve_phase", "infer_phase", "spread_weights", "trans_serve_phase", "trans_infer_phase",
+    "re_serve_phase", "train_phase", "gan_train_phase", "re_train_phase", "re_f32_check", "ae_train_phase",
+    "es_train_phase", "sa_train_phase", "eval_phase", "http_serve_phase", "gen_phase", "options_phase",
+    "preempt_phase", "guard_phase", "accum_phase", "debug_nans_phase", "flash_backward_phase", "flash_train_phase",
+    "degradations_phase", "quant_serve_phase", "paired_train_phase", "export_phase", "graft_sources_phase",
+    "dispatch_phase", "parallel_phases",
+)
+
+
+def _timed(fn):
+    """``fn`` adding its wall seconds to ``PHASE_SECONDS``."""
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            PHASE_SECONDS[fn.__name__] = round(PHASE_SECONDS.get(fn.__name__, 0.0) + time.perf_counter() - t0, 1)
+    return run
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -6105,8 +6162,11 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    for name in TIMED_PHASES:  # the phases below, looked up at their call, timed
+        globals()[name] = _timed(globals()[name])
     t0 = time.perf_counter()
     names = build.build_all()
+    PHASE_SECONDS["build"] = round(time.perf_counter() - t0, 1)
     print(f"built {names} in {time.perf_counter() - t0:.1f} s (nvcc: "
           f"{ {n: round(i['seconds'], 1) for n, i in build.build_info.items()} })", flush=True)
     for name, info in build.build_info.items():
@@ -6171,10 +6231,11 @@ def main() -> None:
     bwd_entry = {
         "name": "rdb_backward",
         "route": "cuda",
-        "design": "dgrad: the forward's implicit GEMM transposed (dy built in the prologue from D and feat, "
-                  "B by ldmatrix.trans from the forward's packed bf16 layout; 3xTF32 with 32-bit B loads in f32), "
-                  "adding into one f32 D; wgrad: all five convs in one launch over pixel slices, "
-                  "ldmatrix.trans for both operands, f32 partials summed in a fixed order",
+        "design": "dy_k written once, by the epilogue that finishes D[out_{k+1}] (dy_4 by a small pass); bf16 "
+                  "dgrad: persistent blocks holding conv k's weights, wgmma with A the 8x8 tile's dy halo (a TMA "
+                  "box) and B the packed weights MN-major, two or four warpgroups a tile, D += in f32; bf16 wgrad: "
+                  "(64 source x 64 dy channel) jobs on wgmma, both operands 128-byte swizzled TMA boxes; f32: "
+                  "3xTF32 mma.sync; f32 partials summed in a fixed order",
         "source": "srganfd_tpu_torch/csrc/rdb_bwd.cu",
         "replaces": "srganfd_tpu/ops/pallas/rdb.py:163",
         "launches": bwd_launches,
@@ -6345,6 +6406,7 @@ def main() -> None:
     # function: the port runs both through the one kernel, whose numbers these are
     entry_v2 = {**entry, "name": "rdb_forward (rdb_forward_pallas_v2)", "replaces": "srganfd_tpu/ops/pallas/rdb.py:255",
                 "same_kernel_as": "rdb_forward"}
+    print(json.dumps({"phase_seconds": PHASE_SECONDS}))
     print(smi)
     print(json.dumps({"kernels": [entry, entry_v2, bwd_entry, flash_entry, filter_entry, qconv_entry]}))
     print(json.dumps({"ok": True, "device": {

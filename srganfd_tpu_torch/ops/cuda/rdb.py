@@ -39,12 +39,13 @@ operand split into two TF32 halves, three products per pair).
   program that holds it needs ``srganfd_tpu_torch`` imported.
 - ``launches`` counts forward kernel calls, one per RDB (the kernel itself
   makes five CUDA launches, one per conv); ``launches_bwd`` backward
-  kernel calls, one per RDB backward (seven CUDA launches).
+  kernel calls, one per RDB backward (eight CUDA launches, seven without dx).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -295,13 +296,46 @@ def rdb_backward_ref(
     return dx, dks, dbs
 
 
-def _bwd_sizes(n: int, h: int, w: int, ch: int, gc: int) -> tuple[int, int, int, int]:
-    """(pixel tiles, wgrad jobs, dW elements, bias elements) of
-    ``csrc/rdb_bwd.cu``: 16x8 tiles, jobs of 32 x 32 channels."""
+_BWD_TILE = {torch.bfloat16: (8, 8), torch.float32: (16, 8)}  # csrc/rdb_bwd.cu's pixel tiles (rows, columns)
+
+
+def _wgrad_jobs(ch: int, gc: int, dtype: torch.dtype) -> int:
+    """The wgrad launch's jobs in ``csrc/rdb_bwd.cu``. bf16: the (64 source,
+    64 DY channel) pairs that some conv reads, DY holding dy_4 in its first
+    ch channels and dy_0..dy_3 after them (``wgrad_jobs`` there); f32: each
+    conv in (32 input x 32 output channel) tiles."""
     shapes = _conv_shapes(ch, gc)
-    tiles = n * -(-h // 16) * -(-w // 8)
-    jobs = sum(-(-cin // 32) * -(-cout // 32) for _, _, cin, cout in shapes)
-    return tiles, jobs, sum(9 * cin * cout for _, _, cin, cout in shapes), sum(s[-1] for s in shapes)
+    if dtype != torch.bfloat16:
+        return sum(-(-cin // 32) * -(-cout // 32) for _, _, cin, cout in shapes)
+    cd = ch + 4 * gc
+    cin_of = [shapes[4][2] if c < ch else shapes[(c - ch) // gc][2] for c in range(cd)]
+    return sum(max(cin_of[b:b + 64]) > a for a in range(0, cd, 64) for b in range(0, cd, 64))
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_layout(n: int, h: int, w: int, ch: int, gc: int, dtype: torch.dtype, sms: int) -> dict[str, int]:
+    """The backward's sizes and its one scratch allocation: pixel ``tiles``
+    (8x8 in bf16, 16x8 in f32), wgrad ``jobs`` and pixel ``slices`` (bf16:
+    about one block a multiprocessor in all; f32: about four), ``elems`` (dW)
+    and ``n_bias``, and the byte offsets of D (f32), DY (x's dtype), the
+    slices' dW partials and the tiles' db partials (f32) in ``bytes``."""
+    th, tw = _BWD_TILE[dtype]
+    shapes = _conv_shapes(ch, gc)
+    tiles = n * -(-h // th) * -(-w // tw)
+    jobs = _wgrad_jobs(ch, gc, dtype)
+    per_block = 1 if dtype == torch.bfloat16 else 4
+    slices = max(1, min(tiles, per_block * sms // jobs))
+    elems = sum(9 * cin * cout for _, _, cin, cout in shapes)
+    n_bias = sum(s[-1] for s in shapes)
+    px, cd, esize = n * h * w, ch + 4 * gc, torch.finfo(dtype).bits // 8
+    lay = {"tiles": tiles, "jobs": jobs, "slices": slices, "elems": elems, "n_bias": n_bias}
+    at = 0
+    for name, size in (("D", 4 * px * cd), ("DY", esize * px * cd), ("part", 4 * slices * elems),
+                       ("dbp", 4 * tiles * n_bias)):
+        lay[name] = at
+        at += _round_up(size, 256)
+    lay["bytes"] = at
+    return lay
 
 
 _sm_count: dict[int, int] = {}
@@ -317,8 +351,8 @@ def rdb_backward(
     x's dtype. Returns ``(dx, dW, db)``: dx (N, H, W, ch) in x's dtype (None
     unless ``want_dx``), the five HWIO dW (rounded to x's dtype) and the five
     db, f32. Raises where a kernel does not build or launch. ``only`` runs one
-    piece alone on scratch it leaves unset (0-4 a conv's dgrad, 5-9 a conv's
-    wgrad, 10 the sums), for timing, and counts no call."""
+    piece alone on scratch it leaves unset (0-4 a conv's dgrad, 4 with dy_4's
+    pass; 5 the wgrad; 6 the sums), for timing, and counts no call."""
     global launches_bwd
     if x.device.type != "cuda":
         raise RuntimeError(f"rdb_backward launches on cuda tensors, got {x.device}")
@@ -337,31 +371,23 @@ def rdb_backward(
     if w.dtype != x.dtype or w.device != x.device or w.numel() != _packed_numel(ch, gc, x.dtype):
         raise ValueError(f"packed weights: {w.dtype}[{w.numel()}] on {w.device}, expected "
                          f"{x.dtype}[{_packed_numel(ch, gc, x.dtype)}] on {x.device}")
-    tiles, jobs, elems, n_bias = _bwd_sizes(n, h, wd, ch, gc)
-    if 5 <= only <= 9:  # one conv's wgrad alone: its own jobs fill the card
-        _, _, cin, cout = _conv_shapes(ch, gc)[only - 5]
-        jobs = -(-cin // 32) * -(-cout // 32)
     dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
     if dev not in _sm_count:
         _sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    # pixel slices of the wgrad: about four blocks a multiprocessor in all
-    slices = max(1, min(tiles, -(-4 * _sm_count[dev] // jobs)))
-    cd = ch + 4 * gc
-    f32 = dict(dtype=torch.float32, device=x.device)
-    D = torch.empty((n, h, wd, cd), **f32)
-    DY = torch.empty((n, h, wd, cd), dtype=x.dtype, device=x.device)
-    part = torch.empty((slices, elems), **f32)
-    dbp = torch.empty((tiles, n_bias), **f32)
-    out = torch.empty(elems + n_bias, **f32)
+    lay = _bwd_layout(n, h, wd, ch, gc, x.dtype, _sm_count[dev])
+    elems = lay["elems"]
+    scratch = torch.empty(lay["bytes"], dtype=torch.uint8, device=x.device)
+    out = torch.empty(elems + lay["n_bias"], dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x) if want_dx else None
     if x.numel():
         lib = _backward_library()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
+        base = scratch.data_ptr()
+        with torch.cuda.device(dev):
             rc = lib.rdb_backward_cuda(
-                x.data_ptr(), feat.data_ptr(), g.data_ptr(), w.data_ptr(), D.data_ptr(), DY.data_ptr(),
-                part.data_ptr(), dbp.data_ptr(), out.data_ptr(), dx.data_ptr() if want_dx else None,
-                n, h, wd, ch, gc, _DTYPE_CODES[x.dtype], int(want_dx), slices, only, stream,
+                x.data_ptr(), feat.data_ptr(), g.data_ptr(), w.data_ptr(), base + lay["D"], base + lay["DY"],
+                base + lay["part"], base + lay["dbp"], out.data_ptr(), dx.data_ptr() if want_dx else None,
+                n, h, wd, ch, gc, _DTYPE_CODES[x.dtype], int(want_dx), lay["slices"], _sm_count[dev], only,
+                torch.cuda.current_stream(dev).cuda_stream,
             )
         if rc != 0:
             raise RuntimeError(f"rdb_backward_cuda failed: {lib.rdb_backward_error_string(rc).decode()} ({rc})")
@@ -406,8 +432,8 @@ class _RdbApply(torch.autograd.Function):
             dx, dks, dbs = rdb_backward_ref(x, rest[:5], rest[5:], feat, grad, want_dx)
         else:
             dx, dks, dbs = rdb_backward(x, feat, grad, ctx.packed, ctx.gc, want_dx)
-            dks = [t.to(dt) for t, dt in zip(dks, ctx.dtypes[:5])]
-            dbs = [t.to(dt) for t, dt in zip(dbs, ctx.dtypes[5:])]
+            dks = [t if t.dtype == dt else t.to(dt) for t, dt in zip(dks, ctx.dtypes[:5])]
+            dbs = [t if t.dtype == dt else t.to(dt) for t, dt in zip(dbs, ctx.dtypes[5:])]
         grads = [g if need else None for g, need in zip([*dks, *dbs], ctx.needs_input_grad[2:])]
         return dx, None, *grads
 
@@ -484,7 +510,7 @@ def _backward_library() -> ctypes.CDLL:
     if _bwd_lib is None:
         lib = load_library("rdb_bwd")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rdb_backward_cuda.argtypes = [p] * 10 + [i] * 9 + [p]
+        lib.rdb_backward_cuda.argtypes = [p] * 10 + [i] * 10 + [p]
         lib.rdb_backward_cuda.restype = i
         lib.rdb_backward_error_string.argtypes = [i]
         lib.rdb_backward_error_string.restype = ctypes.c_char_p

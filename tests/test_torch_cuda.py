@@ -295,14 +295,19 @@ def test_rdb_apply_gradients_on_the_card(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize(
     "shape,gc",
-    [((2, 9, 13, 16), 8), ((2, 37, 45, 64), 32), ((1, 20, 33, 24), 16), ((1, 5, 3, 64), 32)],
-    ids=["ch16", "ragged37x45", "ch24", "tiny5x3"],
+    [((2, 9, 13, 16), 8), ((2, 37, 45, 64), 32), ((1, 20, 33, 24), 16), ((1, 5, 3, 64), 32),
+     ((1, 60, 60, 64), 32), ((3, 17, 70, 64), 32)],
+    ids=["ch16", "ragged37x45", "ch24", "tiny5x3", "n1_60x60", "ragged17x70"],
 )
 def test_rdb_backward_kernels_match_plain_version(cuda, shape, gc, dtype):
     """``csrc/rdb_bwd.cu`` against ``rdb_backward_ref`` on the same saved
     ``feat``, per tensor max |a - b| / max |b|: f32 (3xTF32) to 1e-5 of the
     plain version run in f64, bf16 to 1e-2 (its tensor cores take dy in
-    bf16); with and without dx; two runs bit for bit (no atomics)."""
+    bf16); with and without dx; two runs bit for bit (no atomics). The
+    shapes leave the bf16 kernels' 8x8 and the f32 kernels' 16x8 tiles
+    ragged in both axes (60, 37 x 45, 17 x 70), take one image, and give
+    input widths that are not multiples of 64 (ch 16 and 24, cin 96 and
+    160) and a conv 4 cut into two channel parts (cin 192)."""
     x, ks, bs = _inputs(shape, gc, seed=7, device=cuda)
     xd = x.to(dtype)
     packed = rdb_mod.pack_rdb_weights(ks, bs, dtype)
@@ -321,6 +326,38 @@ def test_rdb_backward_kernels_match_plain_version(cuda, shape, gc, dtype):
             assert torch.equal(a, a2)
             err = (a.double() - w.double()).abs().max() / w.double().abs().max()
             assert err <= (1e-5 if dtype == torch.float32 else 1e-2), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rdb_backward_graph_replay_equals_eager(cuda, dtype):
+    """The backward captured in a CUDA graph (its scratch from the graph's
+    pool) and replayed on new inputs gives the eager call's results bit for
+    bit: no float atomics, no state between calls."""
+    shape, gc = (2, 24, 40, 64), 32
+    x, ks, bs = _inputs(shape, gc, seed=11, device=cuda)
+    xd = x.to(dtype)
+    packed = rdb_mod.pack_rdb_weights(ks, bs, dtype)
+    with torch.no_grad():
+        _, feat = rdb_mod.rdb_forward_ref(xd, ks, bs, with_feat=True)
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(12)).to(cuda, dtype)
+    static = [xd.clone(), feat.clone(), g.clone()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rdb_mod.rdb_backward(*static, packed, gc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = rdb_mod.rdb_backward(*static, packed, gc)
+    for seed in (13, 14):
+        fresh = torch.randn(shape, generator=torch.Generator().manual_seed(seed)).to(cuda, dtype)
+        static[2].copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = rdb_mod.rdb_backward(xd, feat, fresh, packed, gc)
+        flat = lambda r: [r[0], *r[1], *r[2]]  # noqa: E731
+        for a, w in zip(flat(got), flat(want), strict=True):
+            assert torch.equal(a, w)
 
 
 @pytest.mark.parametrize(

@@ -46,8 +46,8 @@ from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 WORLD = 2
 N_STEPS = 2
-TINY_G = {"bsrnet": {"channels": 16, "growth_channels": 8, "num_rrdb": 2},
-          "esrgan": {"channels": 16, "growth_channels": 8, "num_blocks": 2}}
+TINY_G = {"bsrnet": {"channels": 16, "growth_channels": 8, "num_rrdb": 1},
+          "esrgan": {"channels": 16, "growth_channels": 8, "num_blocks": 1}}
 TINY_G["bsrgan"] = TINY_G["bsrnet"]
 CONFIGS = ("bsrnet", "bsrgan", "esrgan")
 OVER = {

@@ -20,7 +20,7 @@ from srganfd_tpu_torch.train.loop import Trainer
 from test_torch_train_options import _held, _jax_state_in_f64, _port_state_in_f64, _t
 from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
-ESRGAN = dict(compute_dtype="float64", epochs=4, g_kwargs={"channels": 16, "growth_channels": 8, "num_blocks": 2},
+ESRGAN = dict(compute_dtype="float64", epochs=4, g_kwargs={"channels": 16, "growth_channels": 8, "num_blocks": 1},
               d_kwargs={"channels": 8}, content_weight=(), grad_accum_steps=2)
 
 

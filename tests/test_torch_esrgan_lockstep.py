@@ -9,7 +9,7 @@ Inputs are made with numpy from a seed and handed to both trainers. The
 content loss is off in ``esrgan``, as ``tests/test_train_parity.py``'s
 ESRGAN lockstep runs it: ``test_torch_gan_lockstep.py`` holds the content
 term's step already, and VGG19 in f64 at 128 x 128 would cost minutes.
-Tiny widths: G 16 channels, growth 8, 2 RRDBs; D 8 channels. ``rrdbnet``
+Tiny widths: G 16 channels, growth 8, 1 RRDB; D 8 channels. ``rrdbnet``
 at GT 32, ``esrgan`` at GT 128 (the D's classifier reads a 4 x 4 map).
 One JAX trainer per stage, one step compiled each.
 
@@ -56,7 +56,7 @@ from srganfd_tpu_torch.convert import flax_to_state_dict, vgg_discriminator_flax
 from srganfd_tpu_torch.train.loop import Trainer
 from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
-TINY_G = {"channels": 16, "growth_channels": 8, "num_blocks": 2}
+TINY_G = {"channels": 16, "growth_channels": 8, "num_blocks": 1}
 OVER = {
     "rrdbnet": dict(compute_dtype="float64", epochs=4, g_kwargs=TINY_G),
     "esrgan": dict(compute_dtype="float64", epochs=4, g_kwargs=TINY_G, d_kwargs={"channels": 8},

@@ -3,7 +3,7 @@ JAX package's ``Trainer`` from one converted G, D and ``u``, the content
 loss on the JAX surrogate VGG19, for ``fuse_d_forwards`` False and True.
 
 Inputs are made with numpy from a seed and handed to both trainers. Tiny
-widths: G 16 channels, growth 8, 2 RRDBs; D 8 channels; GT 32 x 32 (the
+widths: G 16 channels, growth 8, 1 RRDB; D 8 channels; GT 32 x 32 (the
 VGG19's deepest node, ``features.34``, at 2 x 2). The JAX trainer is
 built once for the module.
 """
@@ -25,7 +25,7 @@ from srganfd_tpu_torch.convert import (
 from srganfd_tpu_torch.train.loop import Trainer
 from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
-TINY_G = {"channels": 16, "growth_channels": 8, "num_rrdb": 2}
+TINY_G = {"channels": 16, "growth_channels": 8, "num_rrdb": 1}
 TINY_D = {"channels": 8}
 
 

@@ -10,6 +10,8 @@ autograd through ``rdb_forward_ref`` bit for bit, and ``rdb_apply``'s saved
 the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -111,3 +113,39 @@ def test_rdb_apply_without_an_x_gradient():
     want = torch.autograd.grad(rdb_mod.rdb_forward_ref(b[0], b[1:6], b[6:]), b[1:], g)
     assert all(torch.equal(p, q) for p, q in zip(got, want, strict=True))
     assert a[0].grad is None
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n,h,w,ch,gc", [(16, 72, 72, 64, 32), (8, 60, 60, 64, 32), (2, 37, 45, 16, 8),
+                                         (1, 5, 3, 24, 16)], ids=["bsrnet", "aesrgan", "ch16", "ch24"])
+def test_backward_layout_against_the_kernels_tiles_and_jobs(n, h, w, ch, gc, dtype, sms):
+    """``_bwd_layout``, the sizes ``rdb_backward`` passes ``csrc/rdb_bwd.cu``
+    and its one scratch allocation, against the kernels' rules counted here
+    apart: 8x8 pixel tiles in bf16, 16x8 in f32; bf16 wgrad jobs the (64
+    source, 64 DY) channel blocks some conv reads (DY = [dy_4 | dy_0 ..
+    dy_3]), f32 jobs each conv in 32 x 32 tiles; the slices; D, DY and the
+    partials 256-byte aligned, apart and in order."""
+    lay = rdb_mod._bwd_layout(n, h, w, ch, gc, dtype, sms)
+    th, tw = (8, 8) if dtype == torch.bfloat16 else (16, 8)
+    tiles = n * math.ceil(h / th) * math.ceil(w / tw)
+    convs = [(ch + k * gc, gc if k < 4 else ch) for k in range(5)]
+    if dtype == torch.bfloat16:
+        blocks = set()
+        for k, (cin, cout) in enumerate(convs):
+            dyo = ch + k * gc if k < 4 else 0
+            blocks |= {(ci // 64, (dyo + co) // 64) for ci in range(cin) for co in range(cout)}
+        jobs = len(blocks)
+    else:
+        jobs = sum(math.ceil(cin / 32) * math.ceil(cout / 32) for cin, cout in convs)
+    slices = max(1, min(tiles, (1 if dtype == torch.bfloat16 else 4) * sms // jobs))
+    elems = sum(9 * cin * cout for cin, cout in convs)
+    assert (lay["tiles"], lay["jobs"], lay["slices"], lay["elems"], lay["n_bias"]) == (
+        tiles, jobs, slices, elems, 4 * gc + ch)
+    px, cd, esize = n * h * w, ch + 4 * gc, 2 if dtype == torch.bfloat16 else 4
+    sizes = {"D": 4 * px * cd, "DY": esize * px * cd, "part": 4 * slices * elems, "dbp": 4 * tiles * (4 * gc + ch)}
+    at = 0
+    for name in ("D", "DY", "part", "dbp"):
+        assert lay[name] == at and at % 256 == 0, name
+        at += -(-sizes[name] // 256) * 256
+    assert lay["bytes"] == at

@@ -6,7 +6,7 @@ and the content loss (weights 0.1, 0.1, 1, 1, 1 over five VGG19 nodes) on
 the JAX surrogate VGG19.
 
 Inputs are made with numpy from a seed and handed to both trainers. Tiny
-widths: G ``realesrgan_x4`` at 16 channels, growth 8, 2 RRDBs; D 8
+widths: G ``realesrgan_x4`` at 16 channels, growth 8, 1 RRDB; D 8
 channels; GT 32 x 32 (LR 8 x 8; no chain runs here, so the chain's
 size limit does not apply). One JAX trainer, one step compiled.
 """
@@ -27,7 +27,7 @@ from srganfd_tpu_torch.convert import (
 from srganfd_tpu_torch.train.loop import Trainer
 from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
-TINY_G = {"channels": 16, "growth_channels": 8, "num_rrdb": 2}
+TINY_G = {"channels": 16, "growth_channels": 8, "num_rrdb": 1}
 TINY_D = {"channels": 8}
 
 

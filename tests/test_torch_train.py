@@ -4,7 +4,7 @@ config, and three lockstep ``bsrnet`` steps of the two trainers from one
 converted init.
 
 Inputs are made with numpy from a seed and handed to both frameworks.
-Tiny widths (16 channels, growth 8, 2 RRDBs); the JAX ``Trainer`` is
+Tiny widths (16 channels, growth 8, 1 RRDB); the JAX ``Trainer`` is
 compiled once.
 """
 
@@ -34,7 +34,7 @@ from srganfd_tpu_torch.train import schedule, state
 from srganfd_tpu_torch.train.loop import Trainer
 from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
-TINY = {"channels": 16, "growth_channels": 8, "num_rrdb": 2}
+TINY = {"channels": 16, "growth_channels": 8, "num_rrdb": 1}
 
 
 @pytest.fixture(scope="module")

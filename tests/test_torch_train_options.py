@@ -36,7 +36,7 @@ from srganfd_tpu_torch.train import loop
 from srganfd_tpu_torch.train.loop import Trainer
 from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
-TINY_G = {"channels": 16, "growth_channels": 8, "num_rrdb": 2}
+TINY_G = {"channels": 16, "growth_channels": 8, "num_rrdb": 1}
 BSRGAN = dict(compute_dtype="float64", epochs=4, g_kwargs=TINY_G, d_kwargs={"channels": 8}, content_weight=(),
               grad_accum_steps=2, grad_clip_norm=0.05, model_weight_decay=0.01, skip_nonfinite_updates=True)
 # D tensors whose gradient is the roundoff of a zero sum in the relativistic

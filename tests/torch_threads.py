@@ -15,9 +15,17 @@ run's temporary directory that every worker of the run shares, for every
 compile whatever its length; a program that one process compiled is then
 read back by the others. The cache's settings are restored after the
 module, so the JAX package's own tests run as they do without it.
+
+The JAX package's VGG19 surrogate (``losses/content.py``
+``load_vgg19_params``) is built op by op, ~10 s a call, by every JAX
+``Trainer`` of a GAN config and every content loss; while a port module
+runs, the run builds each node set once (the first process writes it to
+the run's directory, the others read it) and hands the later callers a
+copy of the same arrays.
 """
 
 import contextlib
+import hashlib
 import os
 
 import pytest
@@ -60,10 +68,71 @@ def jax_compilation_cache(directory: str):
         compilation_cache.reset_cache()
 
 
+_vgg19: dict = {}  # (nodes, npz path, $SRGANFD_VGG19_NPZ) -> load_vgg19_params' result, in this process
+
+
+@contextlib.contextmanager
+def vgg19_built_once(directory: str):
+    """``srganfd_tpu.losses.content.load_vgg19_params`` memoised inside the
+    block: the first call per argument set in this process runs it, later
+    ones get a copy of its pytree (the same arrays). The seeded surrogate
+    (no weights file) is also written to ``directory`` as an .npz, which the
+    run's other processes read instead of building it (the same values: the
+    arrays round-trip exactly). Nothing where JAX is absent."""
+    try:
+        import jax
+        import jax.numpy as jnp
+        import numpy as np
+        from srganfd_tpu.losses import content
+    except ImportError:
+        yield
+        return
+    build = content.load_vgg19_params
+
+    def shared(nodes):
+        name = hashlib.sha256(repr(tuple(nodes)).encode()).hexdigest()[:16]
+        path = os.path.join(directory, f"vgg19_surrogate_{name}.npz")
+        if os.path.exists(path):
+            tree: dict = {}
+            with np.load(path) as data:
+                for flat, arr in data.items():
+                    *parents, leaf = flat.split("/")
+                    node = tree
+                    for p_ in parents:
+                        node = node.setdefault(p_, {})
+                    node[leaf] = jnp.asarray(arr)
+            return tree, False
+        variables, pretrained = build(nodes, None)
+        flat = {"/".join(str(k.key) for k in path_): np.asarray(leaf)
+                for path_, leaf in jax.tree_util.tree_flatten_with_path(variables)[0]}
+        os.makedirs(directory, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.npz"
+        np.savez(tmp, **flat)
+        os.replace(tmp, path)  # atomic: a concurrent reader never sees half a file
+        return variables, pretrained
+
+    def load(nodes, npz_path=None):
+        env = os.environ.get("SRGANFD_VGG19_NPZ", "")
+        key = (tuple(nodes), npz_path, env)
+        if key not in _vgg19:
+            seeded = not (npz_path and os.path.exists(npz_path)) and not (env and os.path.exists(env))
+            _vgg19[key] = shared(nodes) if seeded else build(nodes, npz_path)
+        variables, pretrained = _vgg19[key]
+        return jax.tree_util.tree_map(lambda a: a, variables), pretrained
+
+    content.load_vgg19_params = load
+    try:
+        yield
+    finally:
+        content.load_vgg19_params = build
+
+
 @pytest.fixture(autouse=True, scope="module")
 def few_torch_threads(tmp_path_factory):
     n = torch.get_num_threads()
     torch.set_num_threads(min(n, 2))
-    with jax_compilation_cache(os.path.join(_run_dir(tmp_path_factory), "jax_compilation_cache")):
+    run_dir = _run_dir(tmp_path_factory)
+    with jax_compilation_cache(os.path.join(run_dir, "jax_compilation_cache")), \
+            vgg19_built_once(os.path.join(run_dir, "vgg19_surrogates")):
         yield
     torch.set_num_threads(n)
