@@ -233,7 +233,7 @@ drives A-ESRGAN's generators ``gen_rrdb2x`` and ``gen_rpa2x``:
     --ckpt-every-epochs 2 --async-ckpt --profile-dir``: step p50, peak
     memory, RDB and filter2d calls (3 G forwards a step under
     accumulation), the snapshots' steps, one step of each on the card
-    (CUDA events); the trace names ``conv3x3_mma_kernel`` and
+    (CUDA events); the trace names ``conv3x3_wgmma_kernel`` and
     ``filter2d_tf32_kernel`` and the step's parts; its top 10 device ops;
 21. preemption: ``cli.train --config bsrgan`` as a subprocess (one epoch
     of 4 steps, deterministic algorithms where PyTorch has them), SIGTERM
@@ -488,16 +488,17 @@ def rdb_shape_times(rdb, shape, seed: int, label: str) -> tuple[float, float, fl
 
 def kernel_phase(rdb) -> dict:
     """rdb_forward vs rdb_forward_ref at the main paths' shapes and at the
-    edges of the kernels' tiles (16x8 pixels, 16-channel bf16 and 8-channel
-    f32 steps, cout tiles of 16), then times."""
+    edges of the kernels' tiles (bf16 8x8 and f32 16x8 pixels, 16-channel
+    bf16 and 8-channel f32 steps, cout tiles of 32 and 16), then times."""
     errs = {"float32": 0.0, "bfloat16": 0.0}
     # (shape, gc): the serving shapes, the training shape (72 rows: a
-    # ragged last row tile), tiles ragged in both axes, ch = 24 / 40 (cin
-    # 24, 40, 56, ...: a half-filled last 16-channel step) and gc 8 (couts
-    # of 8 in a tile of 16)
+    # ragged last f32 row tile), tiles ragged in both axes (60, 17 x 70),
+    # ch = 24 / 40 (cin 24, 40, 56, ...: a half-filled last 16-channel step;
+    # the bf16 kernel's cp.async halos) and gc 8 (couts of 8 in a tile)
     cases = [((2, 64, 64, CH), GC), ((1, 37, 53, CH), GC), (SERVE_SHAPE, GC), ((2, 256, 256, CH), GC),
              ((1, 250, 190, CH), GC), (TRAIN_RDB_SHAPE, GC), (RE_RDB_SHAPE, GC), (AE_RDB_SHAPE, GC),
              *((shape, GC) for shape in ES_RDB_SHAPES.values()), (GEN_RDB_SHAPE, GC), ((3, 17, 23, CH), GC),
+             ((3, 17, 70, CH), GC),
              ((2, 37, 53, 24), 16), ((1, 20, 33, 40), 8), ((2, 19, 13, 24), 8)]
     for i, (shape, gc) in enumerate(cases):
         x, ks, bs = rdb_inputs(shape, seed=i, gc=gc)
@@ -597,9 +598,11 @@ def kernel_phase(rdb) -> dict:
     return {
         "name": "rdb_forward",
         "route": "cuda",
-        "design": "bf16: tensor cores (implicit GEMM, mma.sync.m16n8k16 bf16->f32, ldmatrix from the "
-                  "shifted halo window, cp.async double buffer); f32: the same GEMM as split-precision "
-                  "3xTF32 (mma.sync.m16n8k8 tf32->f32, three products per fragment pair)",
+        "design": "bf16: wgmma (implicit GEMM, m64n32k16 bf16->f32, persistent blocks holding a conv's "
+                  "weights, 8x8 pixel tiles whose 10x10 halos arrive as tensor-map boxes from a producer warp "
+                  "into an mbarrier ring, one K-major A descriptor per tap over the shifted window, three "
+                  "consumer warpgroups, programmatic dependent launch); f32: split-precision 3xTF32 "
+                  "(mma.sync.m16n8k8 tf32->f32, three products per fragment pair)",
         "source": "srganfd_tpu_torch/csrc/rdb.cu",
         "replaces": "srganfd_tpu/ops/pallas/rdb.py:331",
         "also_replaces": "srganfd_tpu/ops/pallas/rdb.py:254",
@@ -673,9 +676,10 @@ def flash_kernel_phase(attn) -> dict:
 
     errs = {"float32": 0.0, "bfloat16": 0.0}
     cases = [(n, t, 4, d) for d in (16, 32) for t in (100, 333, 16384, 11875) for n in (1, 2)]
-    # the edges of the kernels' tiles: 64 queries a block, 16 a warp, 64
-    # keys a staged tile, 8 keys a P V k-step
-    cases += [(2, t, 4, d) for d in (16, 32) for t in (1, 15, 17, 63, 65, 129)]
+    # the edges of the kernels' tiles: 16 queries a warp, 64 a warpgroup (the
+    # f32 block), 128 or 256 a bf16 block, 64 keys a tile, 4 bf16 tiles in
+    # flight (320 keys wrap the ring), 8 keys an f32 P V k-step
+    cases += [(2, t, 4, d) for d in (16, 32) for t in (1, 15, 17, 63, 65, 127, 129, 257, 320)]
     for i, shape in enumerate(cases):
         q, k, v = flash_inputs(shape, seed=i)
         for dt in (torch.float32, torch.bfloat16):
@@ -749,10 +753,11 @@ def flash_kernel_phase(attn) -> dict:
     return {
         "name": "flash_attention",
         "route": "cuda",
-        "design": "bf16: tensor cores (FlashAttention-2 style, mma.sync.m16n8k16 for QK^T and PV with P "
-                  "split into bf16 hi + lo, ldmatrix(.trans), cp.async double buffer); f32: the same "
-                  "blocks as split-precision 3xTF32 (mma.sync.m16n8k8 tf32->f32, three products per "
-                  "fragment pair, S registers fed to P V with keys relabelled)",
+        "design": "bf16: wgmma (QK^T m64n64k16 with q in registers, P V m64n(D+8)k16 with P split into "
+                  "bf16 hi + lo in registers and a block of ones beside V for the normaliser), K and V by "
+                  "tensor-map boxes from a producer warp into a 4-stage mbarrier ring, four consumer "
+                  "warpgroups at D = 16 (two at 32); f32: split-precision 3xTF32 (mma.sync.m16n8k8 "
+                  "tf32->f32, three products per fragment pair, S registers fed to P V with keys relabelled)",
         "source": "srganfd_tpu_torch/csrc/flash_attention.cu",
         "replaces": "srganfd_tpu/ops/pallas/attention.py:95",
         "max_abs_err": max(errs.values()),
@@ -3951,7 +3956,7 @@ def options_phase(work: str, rdb, f2d) -> tuple[dict, dict]:
     by_name = _trace_kernels(trace)
     with open(trace) as f:
         text = f.read()
-    for name in ("conv3x3_mma_kernel", "filter2d_tf32_kernel", "g_update", "d_update", "chain", "ema"):
+    for name in ("conv3x3_wgmma_kernel", "filter2d_tf32_kernel", "g_update", "d_update", "chain", "ema"):
         check(name in text, f"the profiler trace does not name {name}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     total = sum(by_name.values())
@@ -4689,8 +4694,8 @@ def qconv_kernel_phase(qc, rdb) -> dict:
     return {
         "name": "qconv3x3 (qconv2d's s8 conv)",
         "route": "cuda",
-        "design": "mma.sync.m16n8k32 s8 x s8 -> s32 on the bf16 RDB kernel's staging (18x10 halo tile and "
-                  "32-channel weight steps by cp.async into swizzled shared memory, ldmatrix), epilogue "
+        "design": "mma.sync.m16n8k32 s8 x s8 -> s32 on an 18x10 halo tile and 32-channel weight steps by "
+                  "cp.async into swizzled shared memory, ldmatrix (a bf16 m16n8k16 kernel's staging), epilogue "
                   "(float)acc * scale in f32",
         "source": "srganfd_tpu_torch/csrc/qconv.cu",
         "replaces": "srganfd_tpu/ops/quant.py:64",

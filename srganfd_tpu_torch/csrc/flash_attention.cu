@@ -12,38 +12,39 @@
 // l).astype(...)` does.
 //
 // Two kernels, chosen by dtype (no fallback from one to the other), both
-// FlashAttention-2 style on the tensor cores: a block of 4 warps owns one
-// (batch, head) and a run of queries, each warp 16 query rows (the f32
-// kernel 32 at D = 16), and walks the keys in tiles of 64 with the online
-// softmax of
-// srganfd_tpu/ops/pallas/attention.py:72-84. q, k, v and o rows must be
-// 16-byte aligned (the wrapper checks).
+// on the tensor cores with the online softmax of
+// srganfd_tpu/ops/pallas/attention.py:72-84 over key tiles of 64. q, k, v and
+// o rows must be 16-byte aligned (the wrapper checks).
 //
-// bf16, `flash_fwd_bf16_kernel<D>` (tensor cores, FlashAttention-2 style):
-// a block of 4 warps owns one (batch, head) and 64 queries, each warp 16
-// query rows. A warp loads its q rows once as the bf16 A fragment of
-// mma.sync.m16n8k16 (one k-step at D = 16, two at D = 32). The block walks
-// the keys in tiles of 64: K and V are staged in bf16 by 16-byte cp.async
-// into double-buffered shared memory (the next tile loads while this one is
-// computed; each thread's copy addresses are fixed once and stepped per
-// tile), rows XOR-swizzled so every 8x16-byte ldmatrix phase hits 32
-// distinct banks; out-of-range keys are zero-filled (cp.async src-size 0).
-// S = q k^T comes out of mma.sync in f32 accumulator registers (bf16
-// products are exact, sums f32, as the reference's f32 einsum of bf16
-// values); the ragged last tile is masked to -inf in a branch of its own,
-// the row max is reduced over the quad with __shfl_xor_sync, and
-// p = exp2(s * log2(e)/sqrt(D) - m * log2(e)/sqrt(D)) is one FFMA and one
-// ex2 per score, in f32 (q is not pre-scaled in bf16). P stays in
-// registers as the A fragment of P V (the accumulator layout of two 8-key
-// n-tiles is the A layout of one 16-key k-step), and V is read with
-// ldmatrix.trans. P is split into hi = p's top 16 bits and lo = those of
-// the exact rest p - hi (|p - hi - lo| < 2^-14 p), and both go through the
-// tensor cores against the same V fragment: one bf16 rounding of p (what
+// bf16, `flash_fwd_bf16_kernel<D>` (wgmma fed by the tensor memory
+// accelerator): a block owns one (batch, head) and 64 queries for each of
+// its consumer warpgroups (four at D = 16, two at D = 32; one block a
+// multiprocessor), and one producer warp. The producer keeps K and V tiles
+// of 64 keys in flight in a ring of 4 stages: per tile one thread asks for
+// tensor-map boxes of 8 of D x 64 keys over the (N, T, H, D) strides (zeros
+// past T), which land as [D / 8][key][8] core matrices, completing on the
+// stage's mbarrier; both consumers release a stage once the products that
+// read it are done. A consumer warpgroup holds its q rows in registers as
+// the A operands of S = q k^T, one wgmma.m64n64k16 per 16 of D (K a K-major
+// B: bf16 products exact, sums f32, as the reference's f32 einsum of bf16
+// values). Its 32 scores a thread come out in the accumulator layout, which
+// is the A layout of P V: the ragged last tile is masked to -inf in a branch
+// of its own, the row max is reduced over the quad with __shfl_xor_sync,
+// and p = exp2(s * log2(e)/sqrt(D) - m * log2(e)/sqrt(D)) is one FFMA and
+// one ex2 per score, in f32 (q is not pre-scaled in bf16). P is split into
+// hi = p's top 16 bits and lo = those of the exact rest p - hi (|p - hi -
+// lo| < 2^-14 p) with integer and f32 operations only, and both go through
+// wgmma.m64n(D + 8)k16 against V as an MN-major B whose 8 extra columns are
+// a block of ones beside it in the stage: the products that give P V give
+// the normaliser, sum(hi + lo), in the same accumulator (so it is rescaled
+// with it and costs no add per score). One bf16 rounding of p (what
 // FlashAttention-2 does) moves about one output in ten by two bf16 ulps
-// from the f32 reference (tests/test_torch_flash_numerics.py). The split
-// uses integer and f32 operations only, no f32 -> bf16 conversions. The
-// normaliser sums the f32 p; the output is acc / l, rounded to bf16 once.
-// Ragged query rows are computed and not stored.
+// from the f32 reference (tests/test_torch_flash_numerics.py). At D = 32 P
+// V is left running while the warpgroup waits for the next tile and issues
+// its S; at D = 16 (four warpgroups, 120 registers a thread) it is waited
+// for at the tile's end. The other warpgroups run their softmax under a
+// warpgroup's products. The output is acc / l,
+// rounded to bf16 once; ragged query rows are computed and not stored.
 //
 // f32, `flash_fwd_tf32_kernel<D, MT>` (split-precision 3xTF32): the same
 // tiles over mma.sync.m16n8k8 (TF32 in, f32 accumulate), each warp MT
@@ -78,15 +79,16 @@
 // the products, set the bound.
 //
 // What the bf16 design does about it: one exponential per score plus one
-// rescale per row and 64-key tile; the products, with the hi/lo split
-// 1.5x the plain count, move to the tensor cores. What holds it back is
-// instruction issue on the CUDA cores, about eleven instructions per score
-// (max, FFMA, ex2, the normaliser's add and the split's mask, subtract and
-// two byte permutes each, and the mma, ldmatrix and rescale share), more
-// than the special-function unit's rate: the exponentials are not what
-// the kernel waits on, the split's lo half is. Polynomial exp2 on the
-// FMA pipe, wgmma and warp specialisation (softmax of one tile under the
-// products of the next) are later work.
+// rescale per row and 64-key tile; the products, with the hi/lo split 1.5x
+// the plain count and the normaliser's columns, on the tensor cores with no
+// ldmatrix, the copies on the TMA. Per score the CUDA cores issue the max,
+// the FFMA, the ex2 and the split's mask, subtract and two byte permutes
+// (half each): six instructions where the mma.sync kernel took about
+// eleven. What still holds it back, as its clock64 counters read on the card
+// (`rdb_bwd_study.py --mode probe`; PERF.md §6): the softmax, ~990 cycles a
+// warpgroup's 64 x 64 tile with the four of a multiprocessor sharing its
+// exponential unit and issue slots, against ~150 in S's products and ~160
+// waiting for K and V; the card ran at its 1,980 MHz clock meanwhile.
 //
 // f32 at the same shape: three TF32 products per pair are 3 * 6.87e10
 // FLOP, 417 us at the H100's 495 TFLOP/s dense TF32 peak, above the
@@ -95,6 +97,7 @@
 // every p (and every q, k and v element once), and reads each K and V
 // fragment element with a 64-bit shared load where bf16 uses ldmatrix.
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder is taken from the runtime at first use)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -109,44 +112,39 @@ struct Strides {
   long long n, t, h;
 };
 
-// ---- bf16: tensor cores -------------------------------------------------
+template <int N>
+struct int_constant {};
 
-constexpr int FQ = 64;       // query rows per block: 4 warps x 16
-constexpr int FK = 64;       // keys per staged tile
-constexpr int FTHREADS = 128;
+// ---- bf16: wgmma fed by the tensor memory accelerator ---------------------
+
+constexpr int FQ = 64;       // query rows a warpgroup (the f32 kernel: a block of 4 warps x 16)
+constexpr int FK = 64;       // keys a tile
+constexpr int FTHREADS = 128;                    // the f32 kernel's block
+// bf16: consumer warpgroups a block, FQ queries each, and one producer
+// warp; one block a multiprocessor. Four at D = 16 (120 registers a thread:
+// P V is waited for at each tile's end, or ptxas serialises every wgmma,
+// C7512; two blocks of two would have 112 and serialise too); D = 32 keeps
+// P V in flight under the next tile, which needs more registers: two
+template <int D>
+__host__ __device__ constexpr int consumers() { return D == 16 ? 4 : 2; }
+template <int D>
+__host__ __device__ constexpr int ws_threads() { return 128 * consumers<D>() + 32; }
+constexpr int RING = 4;                          // K and V tiles in flight
+
+// One stage of the bf16 kernel's ring: K and V as [D / 8][64 keys][8] (one
+// 1024-byte block of core matrices per 8 of D, as tensor-map boxes of 8 x 64
+// land), then 64 x 8 ones, the column block that P V's products turn into the
+// normaliser
+template <int D>
+struct Stage {
+  static constexpr int V = D / 8 * 1024, ONES = 2 * V, BYTES = ONES + 1024;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid (src
-// must still be a mapped address; it is not read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-// (not volatile: a pure function of its registers, free to be scheduled)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -173,35 +171,180 @@ __device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi, uin
   lo = __byte_perm(__float_as_uint(r0), __float_as_uint(r1), 0x7632);
 }
 
-// 16-byte unit c of row r of a tile whose rows hold D bf16 (D / 8 units):
-// the unit index is XORed with a function of r so that 8 consecutive rows
-// at one unit index (one ldmatrix phase) fall into 8 distinct bank groups
-template <int D>
-__device__ __forceinline__ int kv_unit(int r, int c) {
-  constexpr int UNITS = D / 8;     // 2 or 4
-  constexpr int RUN = 8 / UNITS;   // rows that cover the 8 bank groups once
-  return r * UNITS + (c ^ ((r / RUN) % UNITS));
+// A shared-memory matrix descriptor without swizzle: core matrices of 8 rows
+// of 16 bytes, each 128 contiguous bytes; `lbo` the byte stride between core
+// matrices along K, `sbo` along N, for K-major and MN-major operands alike
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// shared memory written by threads (the ones), then read by wgmma
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+// keeps the compiler from moving reads or writes of registers that a wgmma
+// reads or writes across its issue and its wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+// d (64 x 64 f32) = A (64 x 16 bf16, registers) * B (16 x 64 bf16, K-major
+// in shared memory) (+ d where acc != 0). Each warp of the warpgroup holds 16
+// rows of A in mma.sync's m16n8k16 A layout, and of d: thread t holds rows 16
+// (t / 32) + (t % 32) / 4 (+ 8) and columns 8 j + 2 (t % 4) (+ 1), d[4 j + {0,
+// 1}] and, 8 rows on, d[4 j + {2, 3}]
+__device__ __forceinline__ void wgmma_s(float* d, const uint32_t* a, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// d (64 x N f32) += A (64 x 16 bf16, registers) * B (16 x N bf16, MN-major in
+// shared memory), N = 24 (D = 16) or 40 (D = 32): D outputs and 8 columns
+// of the normaliser
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t db, int_constant<24>) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, %16, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t db, int_constant<40>) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nWAIT:\nmbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n@P1 bra DONE;\nbra WAIT;\n"
+      "DONE:\n}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+// a 4-d box (d, t, h, n) of `map` into shared memory, completing on `bar`;
+// rows past T read as zero
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, uint32_t bar, int d, int t, int h,
+                                          int n) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(t), "r"(h), "r"(n)
+      : "memory");
+}
+
+#ifdef SRGANFD_PROBE
+// clock64 phase counters, summed over every consumer warpgroup and key tile
+// of the launches since the last read: [0] waiting for a K/V tile, [1] S =
+// q k^T (issue to wait, with the tile before's P V still on the tensor
+// cores), [2] the softmax and the split up to P V's issue, [3] tiles, [4] the
+// producer waiting for a free stage, [5] P V's issue
+__device__ unsigned long long probe_sums[8];
+#define PROBE(...) __VA_ARGS__
+#else
+#define PROBE(...)
+#endif
+
+// A block owns one (batch, head) and consumers<D>() x 64 queries. The producer
+// warp keeps K and V tiles of 64 keys in flight in a ring of RING stages, by
+// tensor-map boxes of 8 of D x 64 keys (zeros past T), each stage released
+// by both consumer warpgroups once their products have read it. A consumer
+// warpgroup holds its 64 q rows in registers as wgmma A operands and, per
+// tile: S = q k^T (m64n64k16 wgmma, K a K-major B), the mask of the ragged
+// last tile, the online max over a quad, the rescale of its accumulator, p =
+// exp2(s * log2(e)/sqrt(D) - m * log2(e)/sqrt(D)) (one FFMA and one ex2),
+// p split into bf16 hi + lo in registers, which are S's accumulator layout
+// and so the A operands of P V; then P V as two m64n(D + 8)k16 wgmmas a
+// 16-key step (hi, then lo; V an MN-major B with a block of ones beside it,
+// so the same products give the normaliser), at D = 32 left running under
+// the next tile's wait and S.
 template <int D>
-__global__ void __launch_bounds__(FTHREADS)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                      int t_len, int heads, int q_tiles, Strides sq, Strides sk, Strides sv,
-                      Strides so, float scale_log2) {
+__global__ void __launch_bounds__(ws_threads<D>(), 1)
+    flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o, int t_len, int heads,
+                          int q_blocks, Strides sq, Strides so, float scale_log2,
+                          const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v) {
   static_assert(D == 16 || D == 32, "head dim");
-  constexpr int UNITS = D / 8;
-  __shared__ __align__(128) uint4 s_k[2][FK * UNITS];
-  __shared__ __align__(128) uint4 s_v[2][FK * UNITS];
+  constexpr int NV = D + 8, STAGE = Stage<D>::BYTES;
+  extern __shared__ __align__(128) uint8_t sm8[];
+  uint8_t* sm = align1024(sm8);
+  const uint32_t full0 = smem_u32(sm + RING * STAGE), empty0 = full0 + 8 * RING;
+  // the warp index through a shuffle, so that ptxas sees it warp-uniform: a
+  // wgmma under a branch it cannot prove uniform is serialised
+  const int tid = threadIdx.x, warp = __shfl_sync(0xffffffffu, tid >> 5, 0), lane = tid & 31;
+  const int bh = blockIdx.x / q_blocks, n = bh / heads, h = bh % heads;
+  const int n_tiles = (t_len + FK - 1) / FK;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;  // accumulator row group, column pair
-  const int bh = blockIdx.x / q_tiles;
-  const int n = bh / heads;
-  const int h = bh % heads;
-  const int row0 = (blockIdx.x % q_tiles) * FQ + warp * 16;
+  // the ones beside each stage's V (bf16 1.0 = 0x3f80)
+  for (int e = tid; e < RING * 256; e += ws_threads<D>())
+    reinterpret_cast<uint32_t*>(sm + (e >> 8) * STAGE + Stage<D>::ONES)[e & 255] = 0x3f803f80u;
+  if (tid == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(full0 + 8 * s, 1);                  // the producer's arrive with the boxes' bytes
+      mbar_init(empty0 + 8 * s, 4 * consumers<D>());  // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    prefetch_tensormap(&map_k);
+    prefetch_tensormap(&map_v);
+  }
+  fence_async_smem();
+  __syncthreads();
 
-  // q rows row0 + g and row0 + g + 8 as A fragments, one per 16 of D
+  if (warp == 4 * consumers<D>()) {  // the producer
+    if (lane != 0) return;
+    PROBE(long long waited = 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % RING;
+      PROBE(const long long c0 = clock64());
+      if (j >= RING) mbar_wait(empty0 + 8 * s, (j / RING - 1) & 1);
+      PROBE(waited += clock64() - c0);
+      const uint32_t full = full0 + 8 * s, dst = smem_u32(sm + s * STAGE);
+      mbar_expect_tx(full, 2 * FK * D * 2);
+#pragma unroll
+      for (int dg = 0; dg < D / 8; ++dg) {
+        tma_load4(dst + dg * 1024, &map_k, full, dg * 8, j * FK, h, n);
+        tma_load4(dst + Stage<D>::V + dg * 1024, &map_v, full, dg * 8, j * FK, h, n);
+      }
+    }
+    PROBE(atomicAdd(&probe_sums[4], (unsigned long long)waited));
+    return;
+  }
+
+  const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, tig = lane & 3;
+  const int row0 = (blockIdx.x % q_blocks) * (FQ * consumers<D>()) + wg * FQ + wq * 16;
+  // q rows row0 + g and row0 + g + 8 as A operands, one per 16 of D
   uint32_t qa[D / 16][4];
   const __nv_bfloat16* qb = q + n * sq.n + h * sq.h;
 #pragma unroll
@@ -210,96 +353,53 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     for (int i = 0; i < 4; ++i) {
       const int row = row0 + g + (i & 1) * 8;
       const int col = kk * 16 + (i >> 1) * 8 + tig * 2;
-      qa[kk][i] = row < t_len ? *reinterpret_cast<const uint32_t*>(qb + (long long)row * sq.t + col)
-                              : 0u;
+      qa[kk][i] = row < t_len ? *reinterpret_cast<const uint32_t*>(qb + (long long)row * sq.t + col) : 0u;
     }
 
-  // each thread's 16-byte copies of a tile: the first half of K, the rest
-  // of V; source rows, shared-memory offsets and steps fixed up front
-  constexpr int LOADS = 2 * FK * UNITS / FTHREADS;
-  static_assert(FK * UNITS % FTHREADS == 0, "a copy lies wholly in K or in V");
-  const __nv_bfloat16* kb = k + n * sk.n + h * sk.h;
-  const __nv_bfloat16* vb = v + n * sv.n + h * sv.h;
-  const __nv_bfloat16* src[LOADS];
-  uint32_t dst[LOADS];
-  int key[LOADS];
+  float s[FK / 2], acc[NV / 2];  // S; P V's D outputs then the normaliser (columns D .. D + 7, all equal)
+  uint32_t ph[FK / 16][4], pl[FK / 16][4];  // P's hi and lo, read by P V until its wait
 #pragma unroll
-  for (int i = 0; i < LOADS; ++i) {
-    const bool is_v = i >= LOADS / 2;
-    const int u = (threadIdx.x + i * FTHREADS) % (FK * UNITS);
-    key[i] = u / UNITS;
-    src[i] = (is_v ? vb + key[i] * sv.t : kb + key[i] * sk.t) + (u % UNITS) * 8;
-    dst[i] = smem_u32((is_v ? s_v[0] : s_k[0]) + kv_unit<D>(key[i], u % UNITS));
-  }
-  const long long k_step = FK * sk.t, v_step = FK * sv.t;
-  constexpr uint32_t BUF_BYTES = FK * UNITS * 16;
-  // tile j of K and V into buffer j & 1; called for j = 0, 1, 2, ... in turn
-  auto load_tile = [&](int j) {
+  for (int i = 0; i < FK / 2; ++i) s[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const bool ok = j * FK + key[i] < t_len;
-      cp_async16(dst[i] + (j & 1) * BUF_BYTES, ok ? src[i] : kb, ok);
-      src[i] += i >= LOADS / 2 ? v_step : k_step;
-    }
-    cp_async_commit();
-  };
-
-  float acc[D / 8][4];
+  for (int i = 0; i < NV / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int kk = 0; kk < FK / 16; ++kk)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+    for (int i = 0; i < 4; ++i) ph[kk][i] = pl[kk][i] = 0u;
   float m[2] = {-INFINITY, -INFINITY};  // running max of the raw scores, rows g and g + 8
-  float l[2] = {0.f, 0.f};              // this thread's share of the normaliser
+  PROBE(long long pw = 0, ps = 0, px = 0, pv = 0);
 
-  // ldmatrix lane roles: lane >> 3 picks the 8x8 matrix, lane & 7 its row
-  const int mi = lane >> 3, mr = lane & 7;
-  const int n_tiles = (t_len + FK - 1) / FK;
-  load_tile(0);
   for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      load_tile(j + 1);
-    } else {
-      cp_async_commit();  // an empty group keeps the wait below uniform
-    }
-    cp_async_wait1();
-    __syncthreads();
-    const uint4* tk = s_k[j & 1];
-    const uint4* tv = s_v[j & 1];
-
-    // S = q k^T: 8 n-tiles of 8 keys
-    float s[FK / 8][4];
+    const int st = j % RING;
+    PROBE(const long long c0 = clock64());
+    mbar_wait(full0 + 8 * st, (j / RING) & 1);
+    PROBE(const long long c1 = clock64());
+    const uint32_t kb = smem_u32(sm + st * STAGE);
+    fence_regs<FK / 2>(s);
+    wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < FK / 8; ++t)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[t][i] = 0.f;
-#pragma unroll
-    for (int np = 0; np < FK / 16; ++np)
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        // matrices: keys +0..7 / +0..7 / +8..15 / +8..15 at d units 2kk, 2kk+1, 2kk, 2kk+1
-        uint32_t b[4];
-        ldmatrix_x4(smem_u32(tk + kv_unit<D>(np * 16 + (mi >> 1) * 8 + mr, kk * 2 + (mi & 1))), b);
-        mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
-      }
+    for (int kk = 0; kk < D / 16; ++kk)  // 16 of D: core matrices 2 kk, 2 kk + 1 along K, 8 keys apart along N
+      wgmma_s(s, qa[kk], smem_desc(kb + kk * 2048, 1024, 128), kk);
+    wgmma_commit();
+    wgmma_wait0();  // S, and the tile before's P V
+    fence_regs<FK / 2>(s);
+    fence_regs<NV / 2>(acc);
+    fence_regs<FK / 4>(&ph[0][0]);
+    fence_regs<FK / 4>(&pl[0][0]);
+    if (j > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((j - 1) % RING));  // the tile before's K and V are read
+    PROBE(const long long c2 = clock64());
 
     const int valid = t_len - j * FK;
     if (valid < FK) {  // the ragged last tile only (uniform over the block)
 #pragma unroll
-      for (int t = 0; t < FK / 8; ++t)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (t * 8 + tig * 2 + (i & 1) >= valid) s[t][i] = -INFINITY;
+      for (int i = 0; i < FK / 2; ++i)
+        if ((i >> 2) * 8 + tig * 2 + (i & 1) >= valid) s[i] = -INFINITY;
     }
     // new row max over the quad; the scale is positive, so the max of the
     // raw scores picks the same key
-    float mx[2] = {m[0], m[1]};
+    float mx[2] = {m[0], m[1]}, ms[2];
 #pragma unroll
-    for (int t = 0; t < FK / 8; ++t)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[t][i]);
-    float ms[2];
+    for (int i = 0; i < FK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
@@ -309,75 +409,114 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
       const float corr = fast_exp2((m[r] - mx[r]) * scale_log2);
       m[r] = mx[r];
       ms[r] = mx[r] * scale_log2;
-      l[r] *= corr;
 #pragma unroll
-      for (int t = 0; t < D / 8; ++t) {
-        acc[t][2 * r] *= corr;
-        acc[t][2 * r + 1] *= corr;
+      for (int t = 0; t < NV / 8; ++t) {
+        acc[4 * t + 2 * r] *= corr;
+        acc[4 * t + 2 * r + 1] *= corr;
       }
     }
-
-    // o += p v, 16 keys per k-step, p = exp2(s * log2(e)/sqrt(D) - m') split
-    // into bf16 hi + lo
+    // p = exp2(s * log2(e)/sqrt(D) - m'), split into bf16 hi + lo: the A
+    // operand of 16-key step kk is (row g, keys 0-7), (row g + 8, keys
+    // 0-7), (row g, keys 8-15), (row g + 8, keys 8-15), S's registers 8 kk
+    // + {0, 1}, {2, 3}, {4, 5}, {6, 7}
 #pragma unroll
-    for (int kk = 0; kk < FK / 16; ++kk) {
-      float p[8];
+    for (int kk = 0; kk < FK / 16; ++kk)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        p[i] = fast_exp2(fmaf(s[2 * kk][i], scale_log2, -ms[i >> 1]));
-        p[4 + i] = fast_exp2(fmaf(s[2 * kk + 1][i], scale_log2, -ms[i >> 1]));
+        const float p0 = fast_exp2(fmaf(s[8 * kk + 2 * i], scale_log2, -ms[i & 1]));
+        const float p1 = fast_exp2(fmaf(s[8 * kk + 2 * i + 1], scale_log2, -ms[i & 1]));
+        split_bf16(p0, p1, ph[kk][i], pl[kk][i]);
       }
-      l[0] += (p[0] + p[1]) + (p[4] + p[5]);
-      l[1] += (p[2] + p[3]) + (p[6] + p[7]);
-      // A fragment: (row g, keys 0-7), (row g+8, keys 0-7), (row g, keys 8-15), (row g+8, keys 8-15)
-      uint32_t hi[4], lo[4];
-      split_bf16(p[0], p[1], hi[0], lo[0]);
-      split_bf16(p[2], p[3], hi[1], lo[1]);
-      split_bf16(p[4], p[5], hi[2], lo[2]);
-      split_bf16(p[6], p[7], hi[3], lo[3]);
+    PROBE(const long long c3 = clock64(); pw += c1 - c0; ps += c2 - c1; px += c3 - c2);
+    fence_regs<NV / 2>(acc);
+    wgmma_fence();
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        // matrices: keys +0..7 / +8..15 / +0..7 / +8..15 at d units 2dp, 2dp, 2dp+1, 2dp+1
-        uint32_t b[4];
-        ldmatrix_x4_trans(smem_u32(tv + kv_unit<D>(kk * 16 + (mi & 1) * 8 + mr, dp * 2 + (mi >> 1))), b);
-        mma_bf16(acc[2 * dp], hi, b[0], b[1]);
-        mma_bf16(acc[2 * dp], lo, b[0], b[1]);
-        mma_bf16(acc[2 * dp + 1], hi, b[2], b[3]);
-        mma_bf16(acc[2 * dp + 1], lo, b[2], b[3]);
-      }
+    for (int kk = 0; kk < FK / 16; ++kk) {
+      // keys 16 kk .. 16 kk + 15: core matrices 8 keys apart along K, 8 of D apart along N
+      const uint64_t db = smem_desc(kb + Stage<D>::V + kk * 256, 128, 1024);
+      wgmma_pv(acc, ph[kk], db, int_constant<NV>());
+      wgmma_pv(acc, pl[kk], db, int_constant<NV>());
     }
-    __syncthreads();  // the buffer is refilled two tiles on
+    wgmma_commit();
+    if constexpr (consumers<D>() == 4) {
+      // at 120 registers a thread, P's halves cannot stay live under the
+      // next tile's S: ptxas would serialise every wgmma (C7512)
+      wgmma_wait0();
+      fence_regs<NV / 2>(acc);
+      fence_regs<FK / 4>(&ph[0][0]);
+      fence_regs<FK / 4>(&pl[0][0]);
+    }
+    PROBE(pv += clock64() - c3);
   }
+  wgmma_wait0();
+  fence_regs<NV / 2>(acc);
+  fence_regs<FK / 4>(&ph[0][0]);
+  fence_regs<FK / 4>(&pl[0][0]);
+  PROBE(if ((tid & 127) == 0) {
+    atomicAdd(&probe_sums[0], (unsigned long long)pw);
+    atomicAdd(&probe_sums[1], (unsigned long long)ps);
+    atomicAdd(&probe_sums[2], (unsigned long long)px);
+    atomicAdd(&probe_sums[3], (unsigned long long)n_tiles);
+    atomicAdd(&probe_sums[5], (unsigned long long)pv);
+  });
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
   __nv_bfloat16* ob = o + n * so.n + h * so.h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + r * 8;
     if (row >= t_len) continue;
+    const float l = acc[4 * (D / 8) + 2 * r];
     __nv_bfloat16* orow = ob + (long long)row * so.t + tig * 2;
 #pragma unroll
     for (int t = 0; t < D / 8; ++t)
-      *reinterpret_cast<uint32_t*>(orow + t * 8) =
-          pack_bf16(acc[t][2 * r] / l[r], acc[t][2 * r + 1] / l[r]);
+      *reinterpret_cast<uint32_t*>(orow + t * 8) = pack_bf16(acc[4 * t + 2 * r] / l, acc[4 * t + 2 * r + 1] / l);
   }
+}
+
+// A tensor map of K or V, bf16 (n, t, h, D) read through element strides,
+// boxes of 8 of D x 64 keys x 1 head x 1 image, no swizzle, zeros past T;
+// cuTensorMapEncodeTiled taken once from the runtime. The stride of an axis
+// of size 1 is never used and may be anything: it is replaced by the
+// contiguous one. 0, or a cudaError_t / CUresult code.
+int encode_kv(CUtensorMap* map, const void* base, const Strides& st, int n, int t, int h, int d) {
+  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                             const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                             CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
+                                                    cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || encode == nullptr) return (int)cudaErrorNotSupported;
+  }
+  const cuuint64_t st_t = t > 1 ? (cuuint64_t)st.t * 2 : (cuuint64_t)d * 2;
+  const cuuint64_t st_h = h > 1 ? (cuuint64_t)st.h * 2 : st_t * t;
+  const cuuint64_t st_n = n > 1 ? (cuuint64_t)st.n * 2 : st_h * h;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)h, (cuuint64_t)n};
+  const cuuint64_t strides[3] = {st_t, st_h, st_n};
+  const cuuint32_t box[4] = {8, FK, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, elem,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int n, int t, int h,
                 const Strides* st, cudaStream_t stream) {
-  const int q_tiles = (t + FQ - 1) / FQ;
-  const long long blocks = (long long)n * h * q_tiles;
+  const int q_blocks = (t + FQ * consumers<D>() - 1) / (FQ * consumers<D>());
+  const long long blocks = (long long)n * h * q_blocks;
   if (blocks > 0x7fffffffLL) return -1;
+  CUtensorMap map_k, map_v;
+  const int e1 = encode_kv(&map_k, k, st[1], n, t, h, D), e2 = encode_kv(&map_v, v, st[2], n, t, h, D);
+  if (e1 || e2) return e1 ? e1 : e2;
+  constexpr int smem = 1024 + RING * Stage<D>::BYTES + 16 * RING;  // 1024: the base's alignment
+  static_assert(smem <= 48 * 1024, "above 48 KB needs cudaFuncAttributeMaxDynamicSharedMemorySize");
   using bf = __nv_bfloat16;
-  flash_fwd_bf16_kernel<D><<<(unsigned)blocks, FTHREADS, 0, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<bf*>(o), t, h, q_tiles, st[0], st[1], st[2], st[3],
-      LOG2E / sqrtf((float)D));
+  flash_fwd_bf16_kernel<D><<<(unsigned)blocks, ws_threads<D>(), smem, stream>>>(
+      static_cast<const bf*>(q), static_cast<bf*>(o), t, h, q_blocks, st[0], st[3], LOG2E / sqrtf((float)D), map_k,
+      map_v);
   return (int)cudaGetLastError();
 }
 
@@ -692,3 +831,14 @@ extern "C" const char* flash_attention_error_string(int code) {
   return code < 0 ? "argument not supported by the kernel"
                   : cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#ifdef SRGANFD_PROBE
+// The bf16 kernel's phase counters (see probe_sums) into sums[0..7], then
+// zeroed. 0 or a cudaError_t code.
+extern "C" int flash_probe_read(unsigned long long* sums) {
+  cudaError_t err = cudaMemcpyFromSymbol(sums, probe_sums, sizeof(probe_sums));
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[8] = {};
+  return (int)cudaMemcpyToSymbol(probe_sums, zero, sizeof(zero));
+}
+#endif

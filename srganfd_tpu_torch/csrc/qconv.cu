@@ -14,20 +14,19 @@
 // multiply, as XLA's `convert` and `multiply` round them. The result equals
 // the plain version bit for bit.
 //
-// The dataflow is rdb.cu's `conv3x3_mma_kernel` with int8 operands: an
-// implicit GEMM, M = the block's 16x8 output pixels, N = a cout tile of 64,
-// K = 9 * cin. Per step the block stages 32 input channels of its 18x10
-// halo tile (channels-last, 16-byte cp.async, zero-filled outside the
-// image) and the matching weights, packed by `ops/cuda/qconv.py` as
-// [cin/32][tap][cout_pad][32] int8 (cout_pad = cout rounded up to 16, zero
+// The dataflow: an implicit GEMM, M = the block's 16x8 output pixels, N = a
+// cout tile of 64, K = 9 * cin. Per step the block stages 32 input channels
+// of its 18x10 halo tile (channels-last, 16-byte cp.async, zero-filled
+// outside the image) and the matching weights, packed by `ops/cuda/qconv.py`
+// as [cin/32][tap][cout_pad][32] int8 (cout_pad = cout rounded up to 16, zero
 // padded), into double-buffered shared memory. A staged pixel of 32 int8
-// channels is 32 bytes, as a bf16 pixel of 16 channels is, and the
-// fragments of mma.sync.m16n8k32 (s8) hold the same bytes at the same
-// lanes as those of m16n8k16 (bf16): A's a0..a3 are rows g and g + 8 at
-// bytes 4 * (lane % 4) and 16 + 4 * (lane % 4), B's b0, b1 column g at the
-// same bytes, C's c0..c3 the same pixels and couts. So the swizzled
-// staging and the ldmatrix lane roles carry over unchanged, and only the
-// mma (s8 x s8 -> s32) and the epilogue differ.
+// channels is 32 bytes, as a bf16 pixel of 16 channels is, and the fragments
+// of mma.sync.m16n8k32 (s8) hold the same bytes at the same lanes as those of
+// m16n8k16 (bf16): A's a0..a3 are rows g and g + 8 at bytes 4 * (lane % 4)
+// and 16 + 4 * (lane % 4), B's b0, b1 column g at the same bytes, C's c0..c3
+// the same pixels and couts. So a bf16 m16n8k16 kernel's swizzled staging and
+// ldmatrix lane roles serve unchanged, and only the mma (s8 x s8 -> s32) and
+// the epilogue are the int8 path's own.
 //
 // Bound at the serving shape: a quantized RDB of x (1, 256, 256, 64) runs
 // one conv per source (x: cin 64 -> 192 couts; out_1..out_4: cin 32 ->

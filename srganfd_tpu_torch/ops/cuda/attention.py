@@ -7,9 +7,11 @@ the K blocks on a sequential grid axis; on Hopper ``csrc/flash_attention.cu``
 computes the same function with a loop over K tiles inside each block,
 reads (N, T, H, D) through strides and masks the ragged tiles itself, so
 the block sizes and the padding copies are gone. The kernel is chosen by
-dtype; both run on the tensor cores (``mma.sync``): bf16 with P split into
-two bf16 halves, f32 as split-precision 3xTF32 (every operand split into
-two TF32 halves, three products per pair).
+dtype; both run on the tensor cores. bf16: ``wgmma`` with K and V brought
+in by tensor-map boxes from a producer warp, P split into two bf16 halves
+in registers and the normaliser taken by the same products from a block of
+ones beside V. f32: ``mma.sync`` as split-precision 3xTF32 (every operand
+split into two TF32 halves, three products per pair).
 
 - :func:`flash_attention` launches the kernel for a CUDA tensor and takes
   the plain version for a CPU tensor; any other device raises. There is no

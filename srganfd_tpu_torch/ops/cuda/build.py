@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[str, ctypes.CDLL] = {}  # by name and defines
 # name -> {"seconds": nvcc wall time, "log": nvcc's stderr (ptxas register
 # and spill report)}; filled only by builds made in this process
 build_info: dict[str, dict] = {}
@@ -53,11 +53,14 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str) -> pathlib.Path:
+def build(name: str, defines: tuple[str, ...] = ()) -> pathlib.Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same hash exists;
-    returns the library's path."""
+    returns the library's path. ``defines`` are preprocessor names set for
+    this build (``SRGANFD_PROBE``: the kernels' clock64 phase counters), a
+    library apart from the plain build's."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib
@@ -65,13 +68,13 @@ def build(name: str) -> pathlib.Path:
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)], capture_output=True, text=True
+        [_nvcc(), *flags, "-o", str(tmp), str(src)], capture_output=True, text=True
     )
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed to build {src.name}:\n{proc.stderr}")
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    build_info[name] = {"seconds": time.perf_counter() - t0, "log": proc.stderr}
+    build_info[" ".join((name, *defines))] = {"seconds": time.perf_counter() - t0, "log": proc.stderr}
     return lib
 
 
@@ -84,9 +87,11 @@ def build_all() -> list[str]:
     return names
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The loaded ``lib<name>`` (built first if needed), cached per process."""
+def load_library(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded ``lib<name>`` (built first if needed, with ``defines``),
+    cached per process."""
+    key = name + "".join(f" -D{d}" for d in defines)
     with _lock:
-        if name not in _libs:
-            _libs[name] = ctypes.CDLL(str(build(name)))
-        return _libs[name]
+        if key not in _libs:
+            _libs[key] = ctypes.CDLL(str(build(name, defines)))
+        return _libs[key]

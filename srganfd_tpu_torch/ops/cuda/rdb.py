@@ -6,8 +6,12 @@ Counterpart of ``srganfd_tpu/ops/pallas/rdb.py``. Both TPU entry points
 images per grid cell) compute one function; on Hopper one source,
 ``csrc/rdb.cu``, serves both, so the tiling arguments are gone. Its conv
 kernel is chosen by x's dtype; both run on the tensor cores as an implicit
-GEMM over ``mma.sync``: bf16 directly, f32 as split-precision 3xTF32 (each
-operand split into two TF32 halves, three products per pair).
+GEMM. bf16: ``wgmma`` in persistent blocks that hold a conv's weights, over
+8x8 pixel tiles whose halos a producer warp brings in by tensor-map boxes
+(cp.async where ch is not a multiple of 64 or gc of 16), one K-major A
+descriptor per tap over the shifted window; :func:`_fwd_plan` sizes its
+launches. f32: ``mma.sync`` as split-precision 3xTF32 (each operand split
+into two TF32 halves, three products per pair).
 
 - :func:`rdb_forward` launches the kernel for a CUDA tensor and takes the
   plain version for a CPU tensor; any other device raises. There is no
@@ -228,6 +232,50 @@ def rdb_forward(
     return _forward_cuda(x, w, b, kernels[0].shape[-1])[0]
 
 
+# csrc/rdb.cu's bf16 kernel (``FwdSmem`` and its constants there): 8x8
+# pixel tiles, couts in tiles of 32 (the wgmma N), a tile's 10x10 halo in
+# tensor-map boxes of 64 channels (each 1024-byte aligned) or, with
+# cp.async, [cin / 8][halo pixel][8 channels]; one (16-channel step, tap)'s
+# weights in 1024 bytes; at most 4 ring slots; 232,448 bytes of shared
+# memory a block. Change both.
+_FWD_TILE, _FWD_N, _FWD_BOX_C, _FWD_BOX_SLOT, _FWD_TAP = 8, 32, 64, 13312, 1024
+_FWD_RING, _FWD_SMEM = 4, 232448
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_plan(n: int, h: int, w: int, ch: int, gc: int, sms: int) -> dict:
+    """The bf16 forward's five launches: whether the halos come by tensor-map
+    boxes (``tma``: ch a multiple of 64 and gc of 16, so that every
+    16-channel step lies in one box of x or of ``feat``) or cp.async, the
+    8x8 pixel ``tiles``, and per conv its ``cin``, ``cout``, cout tiles of 32
+    (``co_tiles``), a ring slot's ``halo`` bytes, the ``w`` bytes of its
+    weights, the ``ring`` slots that fit beside them (up to 4), the block's
+    shared memory (``smem``) and its persistent ``blocks``: about one a
+    multiprocessor, a multiple of ``co_tiles``, no more than the tiles.
+    ``args`` is what ``rdb_forward_cuda`` reads: [tma, blocks x 5, ring x 5].
+    Raises where two slots do not fit (ch + 4 gc above ~500)."""
+    tma = ch % _FWD_BOX_C == 0 and gc % 16 == 0
+    tiles = n * -(-h // _FWD_TILE) * -(-w // _FWD_TILE)
+    convs = []
+    for k in range(5):
+        cin, cout = ch + k * gc, gc if k < 4 else ch
+        steps, co_tiles = -(-cin // 16), -(-cout // _FWD_N)
+        if tma:
+            halo = (ch // _FWD_BOX_C + -(-(cin - ch) // _FWD_BOX_C)) * _FWD_BOX_SLOT
+        else:
+            halo = _round_up(steps * 2 * 100 * 16, 1024)
+        w_bytes = steps * 9 * _FWD_TAP
+        ring = min(_FWD_RING, (_FWD_SMEM - 1024 - w_bytes) // (halo + 16))
+        if ring < 2:
+            raise ValueError(f"rdb bf16 kernel: conv {k}'s weights ({w_bytes} B) and two halo slots "
+                             f"({halo} B each) exceed a block's shared memory")
+        blocks = co_tiles * min(tiles, max(1, sms // co_tiles))
+        convs.append({"cin": cin, "cout": cout, "co_tiles": co_tiles, "halo": halo, "w": w_bytes, "ring": ring,
+                      "smem": 1024 + ring * (halo + 16) + w_bytes, "blocks": blocks})
+    args = (ctypes.c_int * 11)(int(tma), *(c["blocks"] for c in convs), *(c["ring"] for c in convs))
+    return {"tma": tma, "tiles": tiles, "convs": convs, "args": args}
+
+
 def _forward_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gc: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel on checked arguments: (out, feat)."""
     global launches
@@ -237,16 +285,25 @@ def _forward_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gc: int) ->
     if out.numel() == 0:
         return out, feat
     lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    plan = None
+    if x.dtype == torch.bfloat16:
+        if dev not in _sm_count:
+            _sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = _fwd_plan(n, h, wd, ch, gc, _sm_count[dev])["args"]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.rdb_forward_cuda(
             x.data_ptr(), feat.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            n, h, wd, ch, gc, _DTYPE_CODES[x.dtype], stream,
+            n, h, wd, ch, gc, _DTYPE_CODES[x.dtype], plan, stream,
         )
     if rc != 0:
         raise RuntimeError(f"rdb_forward_cuda failed: {lib.rdb_error_string(rc).decode()} ({rc})")
     launches += 1
     return out, feat
+
+
+_sm_count: dict[int, int] = {}  # multiprocessors of each card, asked once
 
 
 def rdb_backward_ref(
@@ -336,9 +393,6 @@ def _bwd_layout(n: int, h: int, w: int, ch: int, gc: int, dtype: torch.dtype, sm
         at += _round_up(size, 256)
     lay["bytes"] = at
     return lay
-
-
-_sm_count: dict[int, int] = {}
 
 
 def rdb_backward(
@@ -497,7 +551,7 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = load_library("rdb")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rdb_forward_cuda.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.rdb_forward_cuda.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int), p]
         lib.rdb_forward_cuda.restype = i
         lib.rdb_error_string.argtypes = [i]
         lib.rdb_error_string.restype = ctypes.c_char_p

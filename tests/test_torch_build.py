@@ -54,3 +54,18 @@ def test_failed_build_raises_with_nvcc_stderr(fake_build):
     with pytest.raises(RuntimeError, match='nvcc failed to build k.cu:\n.*"oops" is undefined'):
         build.build("k")
     assert not list(build.BUILD_DIR.iterdir())  # no library, no partial file left behind
+
+
+def test_a_build_with_defines_is_a_library_apart(fake_build):
+    """``defines`` (the kernels' ``SRGANFD_PROBE`` counters) reach nvcc as
+    ``-D`` flags and build a library beside the plain one, which stays as it
+    was; each is reused."""
+    _, log, set_body = fake_build
+    set_body(WRITE_OUTPUT)
+    plain = build.build("k")
+    probe = build.build("k", ("SRGANFD_PROBE",))
+    assert probe != plain and plain.exists() and probe.exists()
+    lines = log.read_text().splitlines()
+    assert len(lines) == 2 and "-DSRGANFD_PROBE" not in lines[0] and "-DSRGANFD_PROBE" in lines[1]
+    assert build.build("k", ("SRGANFD_PROBE",)) == probe and build.build("k") == plain
+    assert len(log.read_text().splitlines()) == 2

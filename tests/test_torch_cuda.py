@@ -76,6 +76,57 @@ def test_kernel_matches_plain_version(cuda, shape, gc, dtype):
         assert (got.float() - want.float()).abs().mean() <= 1e-3
 
 
+@pytest.mark.parametrize(
+    "shape,gc,tma",
+    [((8, 60, 60, 64), 32, True), ((3, 17, 70, 64), 32, True), ((1, 8, 8, 64), 16, True), ((2, 5, 3, 64), 32, True),
+     ((2, 37, 53, 24), 16, False), ((1, 20, 33, 40), 8, False), ((2, 9, 13, 16), 8, False), ((1, 17, 70, 32), 16, False)],
+    ids=["aesrgan60", "ragged17x70", "gc16", "tiny5x3", "cp_ch24", "cp_ch40", "cp_ch16", "cp_ch32"],
+)
+def test_bf16_forward_at_the_tiles_edges_by_both_halo_routes(cuda, shape, gc, tma):
+    """The bf16 wgmma kernel's edges: 8x8 pixel tiles ragged in one or both
+    axes (60 leaves 4 rows and columns of the last tile, 17 x 70 a tile of 1
+    row and one of 6 columns, 5 x 3 one partial tile an image), conv 4's two
+    cout tiles of 32, and both halo routes: tensor-map boxes where ch is a
+    multiple of 64 and gc of 16, else cp.async (half-filled 16-channel
+    steps, couts of 8 and 16 in a tile of 32)."""
+    assert rdb_mod._fwd_plan(*shape, gc, torch.cuda.get_device_properties(0).multi_processor_count)["tma"] == tma
+    x, ks, bs = _inputs(shape, gc, seed=20, device=cuda)
+    x = x.to(torch.bfloat16)
+    got = rdb_mod.rdb_forward(x, ks, bs)
+    again = rdb_mod.rdb_forward(x, ks, bs)
+    torch.cuda.synchronize()
+    want = rdb_mod.rdb_forward_ref(x, ks, bs)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), atol=1.6e-2, rtol=1.6e-2)
+    assert (got.float() - want.float()).abs().mean() <= 1e-3
+
+
+def test_bf16_forward_graph_replay_equals_eager(cuda):
+    """The bf16 forward's five launches (tensor maps in their parameters,
+    each launch a programmatic dependent of the one before) captured in a
+    CUDA graph and replayed on new inputs give the eager call's output bit
+    for bit."""
+    shape, gc = (2, 24, 40, 64), 32
+    x, ks, bs = _inputs(shape, gc, seed=21, device=cuda)
+    packed = rdb_mod.pack_rdb_weights(ks, bs, torch.bfloat16)
+    static = x.to(torch.bfloat16).clone()
+    with torch.inference_mode():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            rdb_mod.rdb_forward(static, ks, bs, packed)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = rdb_mod.rdb_forward(static, ks, bs, packed)
+        for seed in (22, 23):
+            fresh = torch.randn(shape, generator=torch.Generator().manual_seed(seed)).to(cuda, torch.bfloat16)
+            static.copy_(fresh)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(got, rdb_mod.rdb_forward(fresh, ks, bs, packed))
+
+
 def test_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
     x, ks, bs = _inputs((1, 8, 8, 16), 8, seed=1, device=cuda)
 
@@ -144,8 +195,10 @@ def _qkv(shape, seed, device, dtype=torch.float32):
 @pytest.mark.parametrize(
     "shape",
     [(2, 100, 4, 16), (1, 333, 8, 32), (1, 128, 2, 16), (3, 1, 1, 32)]
-    # the bf16 kernel's edges: 16 queries a warp, 64 a block, 64 keys a tile
-    + [(2, t, 4, d) for d in (16, 32) for t in (1, 15, 17, 63, 65, 129)],
+    # the kernels' edges: 16 queries a warp, 64 a warpgroup (the f32 block),
+    # 128 a bf16 block, 64 keys a tile, 4 bf16 tiles in flight (320 keys
+    # wrap the ring)
+    + [(2, t, 4, d) for d in (16, 32) for t in (1, 15, 17, 63, 65, 127, 129, 257, 320)],
     ids=lambda s: "x".join(map(str, s)),
 )
 def test_flash_kernel_matches_plain_version(cuda, shape, dtype):

@@ -1,11 +1,12 @@
 """The bf16 flash kernel's arithmetic, emulated on the CPU.
 
-``csrc/flash_attention.cu`` runs its bf16 path on the tensor cores, which
-take bf16 operands. The scores come out in f32 (exact products of the bf16
-q and k, f32 sums), and the probabilities p = exp2(s * log2(e)/sqrt(D) - m)
-are f32. For P·V the kernel splits p into two bf16 values by truncation
-(hi = p's top 16 bits, lo = those of p - hi) and pushes both through the
-tensor cores; the normaliser is the same hi + lo times a column of ones.
+``csrc/flash_attention.cu`` runs its bf16 path on the tensor cores
+(``wgmma``), which take bf16 operands. The scores come out in f32 (exact
+products of the bf16 q and k, f32 sums), and the probabilities p =
+exp2(s * log2(e)/sqrt(D) - m) are f32. For P·V the kernel splits p into two
+bf16 values by truncation (hi = p's top 16 bits, lo = those of p - hi) and
+pushes both through the tensor cores; the normaliser is the same hi + lo
+times a block of ones beside V, summed by the same products.
 This file replays that, with 64-key tiles and the online softmax, in
 PyTorch on the CPU, and holds it to ``flash_attention_ref`` under the
 check that ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` apply to the
@@ -36,9 +37,10 @@ def _trunc_bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_emulation(q, k, v, split: bool = True) -> torch.Tensor:
-    """q, k, v: (N, T, H, D) bf16. The kernel's tiled online softmax in f32;
-    ``split=False`` rounds p to bf16 once instead (and sums the f32 p into
-    the normaliser, as FlashAttention-2 does)."""
+    """q, k, v: (N, T, H, D) bf16. The kernel's tiled online softmax in f32,
+    P V and the normaliser both from hi and lo; ``split=False`` rounds p to
+    bf16 once instead (and sums the f32 p into the normaliser, as
+    FlashAttention-2 does)."""
     n, t, h, d = q.shape
     scale = math.log2(math.e) / math.sqrt(d)
     qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))  # (N, H, T, D)

@@ -7,6 +7,8 @@ the Flax ``ResidualDenseBlock`` is the f32 reference. Inputs are made with
 numpy from a seed and handed to both frameworks as float32.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -271,3 +273,65 @@ def test_packed_bf16_weights_reproduce_the_block(ch, gc):
     want = rdb_mod.rdb_forward_ref(x, kernels, biases).float()
     torch.testing.assert_close(got, want, atol=1.6e-2, rtol=1.6e-2)
     assert (got - want).abs().mean() <= 1e-3
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize(
+    "n,h,w,ch,gc",
+    [(1, 256, 256, 64, 32), (16, 72, 72, 64, 32), (8, 60, 60, 64, 32), (3, 17, 70, 64, 32), (1, 8, 8, 64, 16),
+     (2, 37, 53, 24, 16), (1, 20, 33, 40, 8), (2, 9, 13, 16, 8)],
+    ids=["serve", "bsrnet", "aesrgan", "ragged17x70", "gc16", "ch24", "ch40", "ch16"],
+)
+def test_forward_plan_against_the_kernels_tiles_and_boxes(n, h, w, ch, gc, sms):
+    """``_fwd_plan``, what ``rdb_forward`` passes the bf16 kernel of
+    ``csrc/rdb.cu``, against its rules counted here apart: 8x8 pixel tiles;
+    tensor-map boxes of 64 channels where every 16-channel step of [x |
+    feat] lies in one box of x or of feat (ch a multiple of 64, gc of 16),
+    else cp.async halos of ceil(cin / 16) steps; couts in tiles of 32; the
+    most ring slots (up to 4) that fit a block's shared memory beside the
+    weights; persistent blocks that take every (pixel tile, cout tile) pair
+    exactly once."""
+    plan = rdb_mod._fwd_plan(n, h, w, ch, gc, sms)
+    tiles = n * math.ceil(h / 8) * math.ceil(w / 8)
+    tma = ch % 64 == 0 and gc % 16 == 0
+    assert (plan["tma"], plan["tiles"]) == (tma, tiles)
+    for k, conv in enumerate(plan["convs"]):
+        cin, cout = ch + k * gc, gc if k < 4 else ch
+        steps = math.ceil(cin / 16)
+        if tma:
+            # a step's box: x's channels in boxes 0 .. ch / 64 - 1, then feat's
+            box = [c // 64 if c < ch else ch // 64 + (c - ch) // 64 for c in range(cin)]
+            assert all(len(set(box[s * 16:(s + 1) * 16])) == 1 and box[s * 16] == s // 4 for s in range(steps))
+            halo = len(set(box)) * math.ceil(100 * 64 * 2 / 1024) * 1024
+        else:
+            halo = math.ceil(steps * 2 * 100 * 16 / 1024) * 1024
+        w_bytes = steps * 9 * 32 * 16 * 2
+        co_tiles = math.ceil(cout / 32)
+        smem = lambda ring: 1024 + ring * (halo + 16) + w_bytes  # noqa: E731
+        ring, blocks = conv["ring"], conv["blocks"]
+        assert (conv["cin"], conv["cout"], conv["co_tiles"], conv["halo"], conv["w"]) == (
+            cin, cout, co_tiles, halo, w_bytes)
+        assert 2 <= ring <= 4 and conv["smem"] == smem(ring) <= 232448
+        assert ring == 4 or smem(ring + 1) > 232448
+        assert blocks % co_tiles == 0 and co_tiles <= blocks <= max(sms, co_tiles)
+        groups = blocks // co_tiles
+        assert groups == min(tiles, max(1, sms // co_tiles))
+        # block b takes cout tile b % co_tiles and tiles b // co_tiles, + groups, ..
+        taken = [(t, b % co_tiles) for b in range(blocks) for t in range(b // co_tiles, tiles, groups)]
+        assert sorted(taken) == [(t, c) for t in range(tiles) for c in range(co_tiles)]
+    assert list(plan["args"]) == [int(tma), *(c["blocks"] for c in plan["convs"]),
+                                  *(c["ring"] for c in plan["convs"])]
+
+
+def test_forward_plan_at_the_recipes_width_and_above_it():
+    """ch 64, gc 32: halos of 1, 2, 2, 3 and 3 boxes, four ring slots for
+    convs 0-2 and three beside the 110,592 bytes of weights of conv 4's cout
+    half (221 KB for both halves would leave no room for a halo); widths
+    whose weights leave no room for two slots raise."""
+    plan = rdb_mod._fwd_plan(1, 256, 256, 64, 32, 132)
+    assert [c["halo"] // 13312 for c in plan["convs"]] == [1, 2, 2, 3, 3]
+    assert [c["ring"] for c in plan["convs"]] == [4, 4, 4, 3, 3]
+    assert [c["co_tiles"] for c in plan["convs"]] == [1, 1, 1, 1, 2]
+    assert plan["convs"][4]["w"] == 110592 and [c["blocks"] for c in plan["convs"]] == [132] * 5
+    with pytest.raises(ValueError, match="shared memory"):
+        rdb_mod._fwd_plan(1, 16, 16, 256, 64, 132)
